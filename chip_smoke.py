@@ -1,0 +1,453 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printing one line or more; any failure exits non-zero:
+
+1. device  — require CUDA; print the card's name and power limit.
+2. build   — compile every kernel from ``src/repro_torch/kernels/*/csrc``
+             with nvcc (all sources at once) into ``build/torch_kernels/``.
+3. kernels — each kernel against its plain PyTorch version on the card:
+             accuracy, argmin agreement up to near-ties, exact ties to the
+             lowest index, bitwise-repeatable launches; device time per
+             launch (CUDA-graph replay, CUDA events) beside the plain
+             version and the bound, and the wrapper's host cost per call.
+4. lockstep — full fleet_256 (N=256, K=8, T=288, 100 runs): every slot,
+             kernel and plain decisions on the same state; decisions that
+             differ off a near-tie must number 0. Queues step with the
+             kernel's decision.
+5. end to end — ``simulate_many`` at full fleet_256 through
+             ``make_kernel_policy(None)``: the kernel's launch count must
+             rise by exactly T; outputs finite; wall time per call; the
+             same run with ``impl="ref"`` for agreement.
+6. paper   — facebook_4dc, 200 runs: GMSA V=1, GMSA V=100, DATA, RANDOM,
+             and GMSA V=1 through the kernel policy.
+7. results — one JSON line of per-kernel numbers, then the device line.
+
+Numbers are measured on whatever card runs this; the bound uses the H100
+SXM's published peaks (3.35 TB/s, 67 TFLOP/s fp32) at its 700 W limit.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_FLOPS = 67e12
+
+#: (R runs or None, K, N): the test shape set, the fleet main-path shape and
+#: the largest kernel-bench shape.
+SCORE_SHAPES = [
+    (None, 1, 4), (None, 4, 17), (None, 8, 128), (None, 8, 256),
+    (None, 9, 129), (None, 16, 256), (100, 8, 256), (1, 128, 1024),
+]
+MAIN_SHAPE = (100, 8, 256)
+SCORE_RTOL = 1e-4   # fp32, different summation order (test_kernels.py's tolerance)
+TIE_RTOL = 1e-5     # a differing argmin is a near-tie if its plain score is this close
+TIE_ATOL = 1e-4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def device_time_ms(fn, reps: int = 20, iters: int = 20) -> float:
+    """Device time per call of ``fn()``: ``reps`` calls captured in one CUDA
+    graph, replayed ``iters`` times between CUDA events, so the host's
+    per-call launch cost is out of the measurement."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def call_time_ms(fn, iters: int = 200) -> float:
+    """Host wall time per back-to-back call of ``fn()``, as a Python loop
+    pays it (launch cost included), ending in a synchronize."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def score_bound_ms(runs: int, k: int, n: int) -> tuple[float, str]:
+    """Least time for one gmsa_score launch: each input read once, each
+    output written once, against the H100's memory rate and fp32 rate."""
+    nbytes = 4 * (k * n * n + 2 * runs * k * n + runs * k + k + n) + 4 * (runs * k * n + runs * k)
+    flops = 2 * k * n * n + 4 * runs * k * n
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def off_tie_mismatches(best, best_ref, s_ref):
+    """Count decisions that differ where the plain scores are not a near-tie."""
+    import torch
+
+    picked = torch.gather(s_ref, -1, best.long().unsqueeze(-1)).squeeze(-1)
+    low = s_ref.min(dim=-1).values
+    near = (picked - low).abs() <= TIE_ATOL + TIE_RTOL * low.abs()
+    return int(((best != best_ref) & ~near).sum())
+
+
+def score_inputs(gen, runs, k, n, device):
+    """Operands in the simulator's layout: q, mu are (R, N, K) read through
+    a transposed (R, K, N) view, a is a strided slot column."""
+    import torch
+
+    batch = () if runs is None else (runs,)
+    rand = lambda *s: torch.rand(s, generator=gen, device=device)
+    q = (rand(*batch, n, k) * 100).mT
+    mu = (rand(*batch, n, k) * 50).mT
+    a = (rand(*batch, 2, k) * 40)[..., 1, :]
+    vp = rand(k) * 10
+    g = torch._standard_gamma(torch.ones(k, n, n, device=device), generator=gen)
+    r = g / g.sum(-1, keepdim=True)
+    wpue = rand(n) * 20
+    return q, mu, a, vp, r, wpue
+
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"[device] {smi}")
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    secs = time.perf_counter() - t0
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "ptxas info" in line and ("Used" in line or "spill" in line):
+                log(f"[build] {name}: {line.strip()}")
+    log(f"[build] {len(logs)} kernel(s) built in {secs:.2f} s -> {_build.BUILD_DIR}")
+
+
+def phase_kernels(dev):
+    import torch
+
+    from repro_torch.configs.fleet_256 import FleetConfig, make_score_operands
+    from repro_torch.kernels.gmsa_score.kernel import gmsa_score_cuda
+    from repro_torch.kernels.gmsa_score.ref import gmsa_score_ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst_rel, main = 0.0, None
+    for runs, k, n in SCORE_SHAPES:
+        ops = score_inputs(gen, runs, k, n, dev)
+        s, b = gmsa_score_cuda(*ops)
+        s2, b2 = gmsa_score_cuda(*ops)
+        s_ref, b_ref = gmsa_score_ref(*ops)
+        torch.cuda.synchronize()
+        if not (torch.equal(s, s2) and torch.equal(b, b2)):
+            fail(f"gmsa_score launches differ bitwise at R={runs} K={k} N={n}")
+        err = (s - s_ref).abs()
+        if bool((err > SCORE_RTOL + SCORE_RTOL * s_ref.abs()).any()):
+            fail(f"gmsa_score scores off by {float(err.max())} at R={runs} K={k} N={n}")
+        rel = float((err / s_ref.abs().clamp_min(1.0)).max())
+        worst_rel = max(worst_rel, rel)
+        mism = off_tie_mismatches(b, b_ref, s_ref)
+        if mism:
+            fail(f"gmsa_score argmin differs off near-ties ({mism}) at R={runs} K={k} N={n}")
+        t_k = device_time_ms(lambda: gmsa_score_cuda(*ops))
+        t_p = device_time_ms(lambda: gmsa_score_ref(*ops))
+        c_k = call_time_ms(lambda: gmsa_score_cuda(*ops))
+        bound, bound_by = score_bound_ms(runs or 1, k, n)
+        log(f"[kernels] gmsa_score R={runs} K={k} N={n}: max_abs_err {float(err.max()):.3e} "
+            f"max_rel_err {rel:.3e} | device: kernel {t_k * 1e3:.2f} us, plain "
+            f"{t_p * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({bound_by}) | host wall per "
+            f"wrapper call {c_k * 1e3:.2f} us")
+        if (runs, k, n) == MAIN_SHAPE:
+            r_mat, w = ops[4], ops[5]
+            t_mv = device_time_ms(lambda: torch.mv(r_mat.view(k * n, n), w))
+            log(f"[kernels] yardstick for the matvec part alone, torch.mv((K*N, N), N) "
+                f"at K={k} N={n}: {t_mv * 1e3:.2f} us (not the same function)")
+            main = {"max_abs_err": float(err.max()), "ms": t_k, "plain_ms": t_p,
+                    "bound_ms": bound, "bound_by": bound_by}
+
+    # Exact ties go to the lowest index; a = 0 rows pick index 0.
+    q, mu, a, vp, r, wpue = (x.contiguous() for x in score_inputs(gen, 4, 8, 256, dev))
+    lo, hi = 37, 201
+    q[..., lo] = -1e4
+    q[..., hi], mu[..., hi], r[:, hi, :] = q[..., lo], mu[..., lo], r[:, lo, :]
+    a[:, 3] = 0.0
+    _, b = gmsa_score_cuda(q, mu, a, vp, r, wpue)
+    want = torch.full_like(b, lo)
+    want[:, 3] = 0
+    if not torch.equal(b, want):
+        fail(f"gmsa_score tie-break: got {b.tolist()}")
+    flat = torch.ones(2, 8, 256, device=dev)
+    _, b = gmsa_score_cuda(flat, flat, a[:2], vp, r[:, :1, :].expand(8, 256, 256).contiguous(), wpue)
+    if bool(b.any()):
+        fail("gmsa_score: all-equal scores must pick index 0")
+    log("[kernels] exact ties -> lowest index; a=0 rows -> index 0; launches bitwise repeatable")
+
+    # A developed fleet backlog (the kernel-bench operands).
+    q, mu, a, vp, r, wpue, _ = make_score_operands(FleetConfig(), device=dev)
+    s, b = gmsa_score_cuda(q, mu, a, vp, r, wpue)
+    s_ref, b_ref = gmsa_score_ref(q, mu, a, vp, r, wpue)
+    mism = off_tie_mismatches(b, b_ref, s_ref)
+    rel = float(((s - s_ref).abs() / s_ref.abs().clamp_min(1.0)).max())
+    worst_rel = max(worst_rel, rel)
+    if mism:
+        fail(f"gmsa_score on fleet operands: {mism} off-tie argmin mismatches")
+    log(f"[kernels] fleet_256 developed-backlog operands: max_rel_err {rel:.3e}, "
+        f"argmin agrees up to near-ties")
+    main["max_rel_err"] = worst_rel
+    return main
+
+
+def phase_lockstep(dev):
+    import torch
+
+    from repro_torch.configs.fleet_256 import FleetConfig, make_fleet_builder
+    from repro_torch.core.simulator import energy_tables, slot_step
+    from repro_torch.kernels.gmsa_score.kernel import gmsa_score_cuda
+    from repro_torch.kernels.gmsa_score.ref import gmsa_score_ref
+
+    cfg = FleetConfig()
+    _, build_inputs = make_fleet_builder(cfg, device=dev)
+    inputs = build_inputs(torch.Generator(device=dev).manual_seed(1), cfg.n_runs)
+    wpue = inputs.omega * inputs.pue
+    e_cost, e_raw = energy_tables(inputs.r, wpue, inputs.pue, inputs.p_it)
+    vp = cfg.v * inputs.p_it
+    q = torch.zeros(cfg.n_runs, cfg.n_sites, cfg.k_types, device=dev)
+    idx = torch.arange(cfg.n_sites, device=dev)[:, None]
+    mism = torch.zeros((), dtype=torch.int64, device=dev)
+    flips = torch.zeros((), dtype=torch.int64, device=dev)
+    worst = torch.zeros((), device=dev)
+    for t in range(cfg.t_slots):
+        a_t, mu_t = inputs.arrivals[:, t], inputs.mu[:, t]
+        s, b = gmsa_score_cuda(q.mT, mu_t.mT, a_t, vp, inputs.r, wpue[t])
+        s_ref, b_ref = gmsa_score_ref(q.mT, mu_t.mT, a_t, vp, inputs.r, wpue[t])
+        picked = torch.gather(s_ref, -1, b.long().unsqueeze(-1)).squeeze(-1)
+        low = s_ref.min(dim=-1).values
+        near = (picked - low).abs() <= TIE_ATOL + TIE_RTOL * low.abs()
+        diff = b != b_ref
+        mism += (diff & ~near).sum()
+        flips += (diff & near).sum()
+        worst = torch.maximum(worst, ((s - s_ref).abs() / s_ref.abs().clamp_min(1.0)).max())
+        f = (idx == b.unsqueeze(-2)).to(torch.float32)
+        q, _ = slot_step(q, f, a_t, mu_t, e_cost[t], e_raw[t])
+    torch.cuda.synchronize()
+    decisions = cfg.t_slots * cfg.n_runs * cfg.k_types
+    log(f"[lockstep] fleet_256 N={cfg.n_sites} K={cfg.k_types} T={cfg.t_slots} "
+        f"R={cfg.n_runs}: {decisions} decisions, off-tie mismatches {int(mism)}, "
+        f"near-tie flips {int(flips)}, max_rel_err {float(worst):.3e}, "
+        f"final mean backlog {float(q.mean()):.3f}")
+    if int(mism) != 0:
+        fail(f"lockstep: {int(mism)} off-tie decision mismatches")
+    if not bool(torch.isfinite(q).all()):
+        fail("lockstep: non-finite backlog")
+    return int(mism), float(worst)
+
+
+def device_busy_share(fn) -> str:
+    """Share of one call's wall time the card spent in kernels, from
+    torch.profiler, or "not measured" when the trace shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Device-side events only: a CPU op also reports its kernels' time.
+    # (torch < 2.4 names the field self_cuda_time_total.)
+    dev_time = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(dev_time(e) for e in events)
+    if dev_us <= 0:
+        return "not measured"
+    top = sorted(events, key=lambda e: -dev_time(e))[:4]
+    kernels = ", ".join(f"{e.key[:40]} {dev_time(e) / 1e3:.2f} ms x{e.count}" for e in top)
+    return (f"device busy {dev_us / 1e3:.2f} ms of {wall * 1e3:.2f} ms wall under the "
+            f"profiler ({100 * dev_us / 1e6 / wall:.1f}%); top: {kernels}")
+
+
+def phase_end_to_end(dev):
+    import torch
+
+    from repro_torch.configs.fleet_256 import FleetConfig, make_fleet_builder
+    from repro_torch.core.gmsa import make_kernel_policy
+    from repro_torch.core.simulator import simulate_many, summarize
+    from repro_torch.kernels.gmsa_score.kernel import gmsa_score_cuda
+
+    cfg = FleetConfig()
+    _, build_inputs = make_fleet_builder(cfg, device=dev)
+    policy = make_kernel_policy(None)
+    run = lambda p: simulate_many(
+        build_inputs, p, torch.Generator(device=dev).manual_seed(7), cfg.n_runs, cfg.v,
+        device=dev,
+    )
+
+    torch.cuda.synchronize()
+    gmsa_score_cuda.launches = 0
+    outs = run(policy)
+    torch.cuda.synchronize()
+    launches = gmsa_score_cuda.launches
+    log(f"[e2e] simulate_many fleet_256 R={cfg.n_runs} T={cfg.t_slots}: "
+        f"gmsa_score launches {launches}")
+    if launches != cfg.t_slots:
+        fail(f"end to end: kernel launched {launches} times, expected {cfg.t_slots}")
+    for name, x in outs._asdict().items():
+        if not bool(torch.isfinite(x).all()):
+            fail(f"end to end: non-finite {name}")
+    if tuple(outs.f_trace.shape) != (cfg.n_runs, cfg.t_slots, cfg.n_sites, cfg.k_types):
+        fail(f"end to end: f_trace shape {tuple(outs.f_trace.shape)}")
+    log(f"[e2e] summarize: {json.dumps(summarize(outs))}")
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run(policy)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log(f"[e2e] wall per simulate_many call (calls 2-4): "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms; median "
+        f"{statistics.median(walls) * 1e3:.1f} ms")
+    log(f"[e2e] {device_busy_share(lambda: run(policy))}")
+    mem0 = torch.cuda.max_memory_allocated()
+    log(f"[e2e] peak device memory so far {mem0 / 2**30:.2f} GiB")
+
+    outs_ref = run(make_kernel_policy(None, impl="ref"))
+    agree = float((outs.f_trace == outs_ref.f_trace).all(dim=-2).float().mean())
+    c_k, c_r = float(outs.cost.mean()), float(outs_ref.cost.mean())
+    log(f"[e2e] impl='ref' run: dispatch agreement {agree:.6f}, time-avg cost "
+        f"kernel {c_k:.4f} vs plain {c_r:.4f} (rel diff {abs(c_k - c_r) / abs(c_r):.3e})")
+    return launches, statistics.median(walls)
+
+
+def phase_paper(dev):
+    import torch
+
+    from repro_torch.configs.facebook_4dc import PaperSimConfig, make_sim_builder
+    from repro_torch.core.baselines import data_dispatch, random_dispatch
+    from repro_torch.core.gmsa import dispatch_fn, make_kernel_policy
+    from repro_torch.core.simulator import simulate_many, summarize
+
+    cfg = PaperSimConfig()
+    _, build_inputs = make_sim_builder(cfg, device=dev)
+    runs = 200
+    arms = [
+        ("GMSA V=1", dispatch_fn(1.0), 1.0),
+        ("GMSA V=100", dispatch_fn(100.0), 100.0),
+        ("DATA", data_dispatch, 0.0),
+        ("RANDOM", random_dispatch, 0.0),
+        ("GMSA V=1 kernel", make_kernel_policy(None), 1.0),
+    ]
+    res, outs = {}, {}
+    for name, policy, v in arms:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        outs[name] = simulate_many(build_inputs, policy, gen, runs, v, device=dev)
+        res[name] = summarize(outs[name])
+        log(f"[paper] {name:<16} avg cost $/slot {res[name]['time_avg_cost']:9.3f}  "
+            f"avg backlog {res[name]['time_avg_backlog']:8.3f}  "
+            f"({(time.perf_counter() - t0) * 1e3:.0f} ms)")
+    agree = float((outs["GMSA V=1"].f_trace == outs["GMSA V=1 kernel"].f_trace)
+                  .all(dim=-2).float().mean())
+    log(f"[paper] GMSA V=1 kernel policy vs table policy: dispatch agreement {agree:.6f}")
+    if agree < 0.99:
+        fail(f"paper: kernel policy agrees with the table policy on only {agree:.4f}")
+    best = min(res["GMSA V=1"]["time_avg_cost"], res["GMSA V=100"]["time_avg_cost"])
+    for base in ("DATA", "RANDOM"):
+        if not best < res[base]["time_avg_cost"]:
+            fail(f"paper: cheapest GMSA arm {best:.3f} does not beat {base}")
+    if not res["GMSA V=1"]["time_avg_backlog"] < 50.0:
+        fail(f"paper: GMSA V=1 backlog {res['GMSA V=1']['time_avg_backlog']:.3f} >= 50")
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.kernels._build import SOURCES
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = phase_device()
+    phase_build()
+    main_shape = phase_kernels(dev)
+    mism, lock_rel = phase_lockstep(dev)
+    launches, _ = phase_end_to_end(dev)
+    phase_paper(dev)
+
+    entry = {
+        "name": "gmsa_score",
+        "route": "cuda",
+        "source": str(SOURCES["gmsa_score"].relative_to(ROOT)),
+        "replaces": "src/repro/kernels/gmsa_score/kernel.py:34",
+        "launches": launches,
+        "max_abs_err": main_shape["max_abs_err"],
+        "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": None,
+        "max_rel_err": max(main_shape["max_rel_err"], lock_rel),
+        "off_tie_mismatches": mism,
+    }
+    log(f"[device] {smi}")
+    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

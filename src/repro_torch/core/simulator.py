@@ -1,0 +1,235 @@
+"""Time-slotted trace-driven simulator (paper Sec. V).
+
+One simulation replays T slots:
+
+    observe (A(t), Q(t), mu(t), omega(t), PUE(t))
+      -> policy picks f(t)                       (GMSA / DATA / RANDOM / ...)
+      -> Cost(t) accrues                          (repro_torch.core.energy)
+      -> queues update by Eq. 1                   (repro_torch.core.queues)
+
+Monte-Carlo replication is a leading runs axis written out: ``arrivals`` and
+``mu`` may carry it, and so does the carried backlog ``q`` (R, N, K), while
+``r``, ``omega``, ``pue``, ``p_it`` and ``data_dist`` are shared by every
+run. The slot loop is a Python loop; each slot runs every run at once.
+
+Policies have the signature ``(generator, q, arrivals, mu, e, aux, scalar)
+-> f``; ``scalar`` carries a control parameter (GMSA's V). Performance
+structure kept from the reference engine:
+
+  * the (T, K, N) energy tables are computed once, before the loop, and
+    shared by all runs;
+  * policies that declare ``state_independent = True`` (DATA, RANDOM,
+    GREEDY) are evaluated for all slots and runs in one batched call;
+  * policies that declare ``consumes_key = False`` get no generator and
+    draw no per-slot randomness.
+
+Policies that declare ``wants_wpue = True`` receive ``aux = (data_dist,
+omega_t * pue_t)``; with ``wants_r = True`` as well, the slot's ratio
+tensor is appended: ``aux = (data_dist, wpue_t, r_t)``. A policy marked
+``static_r = True`` fed a time-varying (T, K, N, N) ratio trace raises.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+from torch import Tensor
+
+from repro_torch.core.queues import queue_step
+from repro_torch.device import resolve_device
+
+
+class SimInputs(NamedTuple):
+    """Trace bundle. T slots, N DCs, K job types, R Monte-Carlo runs.
+
+    ``arrivals``/``mu`` may carry a leading runs axis; ``r`` and
+    ``data_dist`` may carry a leading time axis — (T, K, N, N) and
+    (T, K, N) — when the dataset layout evolves over the horizon.
+    """
+
+    arrivals: Tensor   # (T, K) or (R, T, K)   jobs arriving per slot
+    mu: Tensor         # (T, N, K) or (R, T, N, K) service rates per slot
+    omega: Tensor      # (T, N)   energy-price weights
+    pue: Tensor        # (T, N)   PUE traces
+    r: Tensor          # (K, N, N) or (T, K, N, N) task-allocation ratios
+    p_it: Tensor       # (K,)     per-job IT energy
+    data_dist: Tensor  # (K, N) or (T, K, N) dataset distribution (policy aux)
+
+
+class SimOutputs(NamedTuple):
+    """Per-slot columns, with the inputs' leading runs axis when present."""
+
+    cost: Tensor           # ([R,] T) per-slot energy cost
+    energy: Tensor         # ([R,] T) per-slot energy (PUE-weighted, unpriced)
+    backlog_total: Tensor  # ([R,] T) sum of all queue backlogs
+    backlog_avg: Tensor    # ([R,] T) mean backlog per (DC, type)
+    q_final: Tensor        # ([R,] N, K)
+    f_trace: Tensor        # ([R,] T, N, K) dispatch decisions
+
+
+PolicyFn = Callable[..., Tensor]
+
+
+def energy_tables(r: Tensor, wpue: Tensor, pue: Tensor, p_it: Tensor) -> tuple[Tensor, Tensor]:
+    """(T, K, N) dispatch-cost and raw-energy tables, one einsum each.
+
+    ``r`` is (K, N, N) broadcast over slots or (T, K, N, N) time-varying;
+    ``wpue`` / ``pue`` are (T, N).
+    """
+    if r.ndim == 4:
+        e_cost = torch.einsum("tkij,tj->tki", r, wpue)
+        e_raw = torch.einsum("tkij,tj->tki", r, pue)
+    else:
+        e_cost = torch.einsum("kij,tj->tki", r, wpue)
+        e_raw = torch.einsum("kij,tj->tki", r, pue)
+    return e_cost * p_it[None, :, None], e_raw * p_it[None, :, None]
+
+
+def energy_row(r: Tensor, wpue_t: Tensor, pue_t: Tensor, p_it: Tensor) -> tuple[Tensor, Tensor]:
+    """(K, N) dispatch-cost and raw-energy tables for ONE slot."""
+    e_cost = torch.einsum("kij,j->ki", r, wpue_t)
+    e_raw = torch.einsum("kij,j->ki", r, pue_t)
+    return e_cost * p_it[:, None], e_raw * p_it[:, None]
+
+
+def slot_step(
+    q: Tensor, f: Tensor, arrivals: Tensor, mu: Tensor, e_cost: Tensor, e_raw: Tensor
+) -> tuple[Tensor, tuple]:
+    """Advance one slot under dispatch ``f``: accrue cost/energy, step queues.
+
+    Returns ``(q_next, (cost, energy, backlog_total, backlog_avg, f))``,
+    the per-slot columns behind :class:`SimOutputs`. Leading run dimensions
+    on q, f, arrivals and mu carry through; e_cost/e_raw are (K, N).
+    """
+    fa = f * arrivals.unsqueeze(-2)
+    dims = (-2, -1)
+    cost = (fa * e_cost.mT).sum(dim=dims)
+    energy = (fa * e_raw.mT).sum(dim=dims)
+    q_next = queue_step(q, f, arrivals, mu)
+    return q_next, (cost, energy, q_next.sum(dim=dims), q_next.mean(dim=dims), f)
+
+
+def _check_policy(policy: PolicyFn, r_varying: bool) -> None:
+    if r_varying and getattr(policy, "static_r", False):
+        raise ValueError(
+            "policy binds a static (K, N, N) ratio tensor but inputs.r is "
+            "time-varying (T, K, N, N) — the kernel would silently dispatch "
+            "on stale ratios. Build it with make_kernel_policy(r=None) so "
+            "the per-slot r reaches the kernel through the policy aux."
+        )
+    if getattr(policy, "wants_r", False) and not getattr(policy, "wants_wpue", False):
+        raise ValueError(
+            "wants_r policies must also declare wants_wpue: the aux "
+            "contract is (data_dist, wpue_t, r_t)"
+        )
+
+
+def simulate(
+    inputs: SimInputs,
+    policy: PolicyFn,
+    generator: torch.Generator | None = None,
+    scalar: float | Tensor = 0.0,
+    health: Tensor | None = None,
+) -> SimOutputs:
+    """Run the trace-driven simulation under ``policy`` for every run at once.
+
+    ``generator`` feeds the policy's randomness (RANDOM) and is passed only
+    to policies that consume it. ``health`` is an optional (T, N)
+    degraded-mode factor: service rates scale as ``mu * health`` (0 = dead,
+    interior = straggler), applied once before the loop; an all-ones trace
+    is an exact identity.
+    """
+    if health is not None:
+        h = torch.as_tensor(health, dtype=inputs.mu.dtype, device=inputs.mu.device)
+        inputs = inputs._replace(mu=inputs.mu * h[:, :, None])
+    t_slots, k_types = inputs.arrivals.shape[-2:]
+    batch = tuple(inputs.arrivals.shape[:-2])                  # () or (R,)
+    n = inputs.mu.shape[-2]
+    dev = inputs.arrivals.device
+    q = torch.zeros(batch + (n, k_types), dtype=torch.float32, device=dev)
+    e_cost_all, e_raw_all = energy_tables(
+        inputs.r, inputs.omega * inputs.pue, inputs.pue, inputs.p_it
+    )                                                          # (T, K, N)
+    scalar = torch.as_tensor(scalar, dtype=torch.float32, device=dev)
+
+    dd_varying = inputs.data_dist.ndim == 3
+    r_varying = inputs.r.ndim == 4
+    _check_policy(policy, r_varying)
+    wants_wpue = getattr(policy, "wants_wpue", False)
+    wants_r = getattr(policy, "wants_r", False)
+    gen = generator if getattr(policy, "consumes_key", True) else None
+    wpue_all = inputs.omega * inputs.pue if wants_wpue else None
+
+    def aux_for(t):
+        """Policy aux for slot ``t`` (``None``: every slot, slot axis leading)."""
+        if t is None:
+            aux = inputs.data_dist
+        else:
+            aux = inputs.data_dist[t] if dd_varying else inputs.data_dist
+        if wants_wpue:
+            aux = (aux, wpue_all if t is None else wpue_all[t])
+        if wants_r:
+            aux = aux + (inputs.r if (t is None or not r_varying) else inputs.r[t],)
+        return aux
+
+    f_all = None
+    if getattr(policy, "state_independent", False):
+        # All slots (and runs) at once: per-slot operands keep their slot
+        # axis, q0 gets a broadcastable one.
+        f_all = policy(gen, q.unsqueeze(-3), inputs.arrivals, inputs.mu,
+                       e_cost_all, aux_for(None), scalar)
+        f_all = f_all.expand(batch + (t_slots, n, k_types))
+
+    cols = []
+    for t in range(t_slots):
+        arrivals = inputs.arrivals[..., t, :]
+        mu = inputs.mu[..., t, :, :]
+        if f_all is None:
+            f = policy(gen, q, arrivals, mu, e_cost_all[t], aux_for(t), scalar)
+        else:
+            f = f_all[..., t, :, :]
+        q, out = slot_step(q, f, arrivals, mu, e_cost_all[t], e_raw_all[t])
+        cols.append(out)
+    cost, energy, btot, bavg, f_trace = (
+        torch.stack(c, dim=len(batch)) for c in zip(*cols)
+    )
+    return SimOutputs(cost, energy, btot, bavg, q, f_trace)
+
+
+def simulate_many(
+    build_inputs: Callable[[torch.Generator, int], SimInputs],
+    policy: PolicyFn,
+    generator: torch.Generator,
+    n_runs: int,
+    scalar: float | Tensor = 0.0,
+    health: Tensor | None = None,
+    device=None,
+) -> SimOutputs:
+    """Monte-Carlo replication: fresh stochastic traces + policy randomness
+    per run, all runs in one batched simulation.
+
+    ``build_inputs(generator, n_runs)`` draws the stacked (R, ...) arrivals
+    and service rates; the deterministic traces (prices, PUE, ratios — and
+    ``health``, when given) are shared. ``device=None`` means CUDA; the
+    generator and the built inputs must live on that device.
+    """
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator lives on {generator.device}, not {dev}")
+    inputs = build_inputs(generator, n_runs)
+    if inputs.arrivals.device.type != dev.type:
+        raise ValueError(
+            f"build_inputs made tensors on {inputs.arrivals.device}, not {dev}"
+        )
+    return simulate(inputs, policy, generator, scalar, health)
+
+
+def summarize(outs: SimOutputs) -> dict:
+    """Time-averaged scalars (averaged over runs if a runs axis is present)."""
+    return {
+        "time_avg_cost": float(outs.cost.mean()),
+        "time_avg_energy": float(outs.energy.mean()),
+        "time_avg_backlog": float(outs.backlog_avg.mean()),
+        "final_backlog_total": float(outs.q_final.sum(dim=(-2, -1)).mean()),
+    }

@@ -1,0 +1,17 @@
+"""repro_torch.kernels — hand-written CUDA kernels for Hopper (``sm_90a``).
+
+Each kernel keeps the JAX package's (kernel.py, ops.py, ref.py) triple:
+
+* ``csrc/*.cu`` — the CUDA C++ source, built by ``nvcc`` at first use into
+  a shared library with a plain C interface (:mod:`repro_torch.kernels._build`);
+* ``kernel.py`` — the ctypes binding that launches it and counts launches;
+* ``ref.py``    — the plain PyTorch version, used for CPU tensors, by the
+  CPU tests and by ``chip_smoke.py``'s comparisons on the card;
+* ``ops.py``    — the public wrapper: CUDA tensors go to the kernel (or it
+  raises), CPU tensors to the plain version.
+
+Kernels:
+
+* ``gmsa_score`` — the per-slot GMSA dispatch: the (K, N, N) x (N,) cost
+  matvec, the drift-plus-penalty score and the per-type argmin.
+"""
