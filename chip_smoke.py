@@ -23,7 +23,21 @@ Phases, each printing one line or more; any failure exits non-zero:
              same run with ``impl="ref"`` for agreement.
 6. paper   — facebook_4dc, 200 runs: GMSA V=1, GMSA V=100, DATA, RANDOM,
              and GMSA V=1 through the kernel policy.
-7. results — one JSON line of per-kernel numbers, then the device line.
+7. ssd_scan — the Mamba-2 SSD kernel against its plain sequential version
+             (and the plain chunked form where the loop is too slow): the
+             test shapes in fp32 and bf16 on unit-normal inputs, then with
+             the model's own input ranges a ragged S, chunk 24, the serving
+             shape and a prefill_32k sequence; bitwise-repeatable launches;
+             device time beside the plain versions and the bound.
+8. mamba2  — full-width, full-depth mamba2-2.7b (random fp32 weights from a
+             seeded generator) served through ``make_local_exec`` as the
+             reference's ``FleetEngine._execute_jobs`` does: 4 x 2048-token
+             prompts + 16 greedy tokens, then 1 x 1000 + 8. Exactly 64
+             kernel launches per prefill, finite logits, prefill + decode
+             agreeing with a one-token-longer prefill, layer 0's real SSD
+             operands through the kernel against the plain version; wall
+             times, the kernel's share of prefill device time, peak memory.
+9. results — one JSON line of per-kernel numbers, then the device line.
 
 Numbers are measured on whatever card runs this; the bound uses the H100
 SXM's published peaks (3.35 TB/s, 67 TFLOP/s fp32) at its 700 W limit.
@@ -32,6 +46,7 @@ SXM's published peaks (3.35 TB/s, 67 TFLOP/s fp32) at its 700 W limit.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -53,6 +68,28 @@ MAIN_SHAPE = (100, 8, 256)
 SCORE_RTOL = 1e-4   # fp32, different summation order (test_kernels.py's tolerance)
 TIE_RTOL = 1e-5     # a differing argmin is a near-tie if its plain score is this close
 TIE_ATOL = 1e-4
+
+#: (B, S, H, P, N, chunk) of tests/test_kernels.py's ssd_scan tests, on
+#: unit-normal inputs: fp32 3e-4, bf16 5e-2 (that file's tolerances; the
+#: chunked and sequential forms round differently in fp32, bf16 rounds y).
+SSD_TEST_SHAPES = [
+    (1, 32, 2, 8, 16, 8), (2, 128, 3, 64, 128, 128), (1, 72, 2, 32, 64, 16),
+    (2, 64, 2, 16, 32, 16),
+]
+SSD_TEST_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
+#: With the model's input ranges (dt in [1e-3, 0.1], A in [-16, -1], silu'd
+#: x, B, C): a ragged S, chunk 24, the serving shape of phase 8, and one
+#: prefill_32k sequence (checked against the plain chunked form only: the
+#: 32768-step loop is too slow). fp32, summation orders differ: 1e-4.
+SSD_MODEL_SHAPES = [
+    (1, 2000, 80, 64, 128, 256), (2, 200, 80, 64, 128, 24),
+    (4, 2048, 80, 64, 128, 256), (1, 32768, 80, 64, 128, 256),
+]
+SSD_SERVE_SHAPE = (4, 2048, 80, 64, 128, 256)
+SSD_MODEL_TOL = 1e-4
+MAMBA_ARCH = "mamba2-2.7b"
+MAMBA_PARAMS = 2_702_640_640
+DECODE_REL_TOL = 1e-3   # prefill+decode vs longer prefill, relative to max |logit|
 
 
 def log(msg: str) -> None:
@@ -111,6 +148,43 @@ def score_bound_ms(runs: int, k: int, n: int) -> tuple[float, str]:
     flops = 2 * k * n * n + 4 * runs * k * n
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_bound_ms(b: int, s: int, h: int, p: int, n: int, q: int,
+                 itemsize: int) -> tuple[float, str]:
+    """Least time for one ssd_scan call: x, dt, a, B, C read once, y and
+    h_final written once; the work the function needs — CBᵀ once per
+    (b, chunk) (all heads share it), the causal half of W @ x, C @ h_inᵀ and
+    the state update — against the H100's memory rate and fp32 rate."""
+    full, rem = divmod(s, q)
+    pairs = full * q * (q + 1) // 2 + rem * (rem + 1) // 2   # (t, s') with s' <= t
+    nbytes = itemsize * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h + b * h * p * n)
+    flops = 2 * pairs * b * n + 2 * pairs * b * h * p + 4 * b * s * h * p * n
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max(|want|, 1), elementwise, in fp32."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+
+
+def kernel_counters():
+    """Every kernel's launch counter, by name (what a main path reads)."""
+    from repro_torch.kernels.gmsa_score.kernel import gmsa_score_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+    return {"gmsa_score": gmsa_score_cuda, "ssd_scan": ssd_scan_cuda}
+
+
+def reset_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
 def off_tie_mismatches(best, best_ref, s_ref):
@@ -289,9 +363,9 @@ def phase_lockstep(dev):
     return int(mism), float(worst)
 
 
-def device_busy_share(fn) -> str:
-    """Share of one call's wall time the card spent in kernels, from
-    torch.profiler, or "not measured" when the trace shows no device time."""
+def device_profile(fn) -> tuple[float, list[tuple[str, float, int]]]:
+    """One call of ``fn()`` under torch.profiler: (wall seconds, [(kernel
+    name, device µs, count)] sorted by device time, largest first)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -305,12 +379,19 @@ def device_busy_share(fn) -> str:
     # (torch < 2.4 names the field self_cuda_time_total.)
     dev_time = lambda e: getattr(e, "self_device_time_total", None) or getattr(
         e, "self_cuda_time_total", 0.0)
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_us = sum(dev_time(e) for e in events)
+    events = [(e.key, dev_time(e), e.count) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return wall, sorted(events, key=lambda e: -e[1])
+
+
+def device_busy_share(fn) -> str:
+    """Share of one call's wall time the card spent in kernels, from
+    torch.profiler, or "not measured" when the trace shows no device time."""
+    wall, events = device_profile(fn)
+    dev_us = sum(us for _, us, _ in events)
     if dev_us <= 0:
         return "not measured"
-    top = sorted(events, key=lambda e: -dev_time(e))[:4]
-    kernels = ", ".join(f"{e.key[:40]} {dev_time(e) / 1e3:.2f} ms x{e.count}" for e in top)
+    kernels = ", ".join(f"{k[:40]} {us / 1e3:.2f} ms x{c}" for k, us, c in events[:4])
     return (f"device busy {dev_us / 1e3:.2f} ms of {wall * 1e3:.2f} ms wall under the "
             f"profiler ({100 * dev_us / 1e6 / wall:.1f}%); top: {kernels}")
 
@@ -321,7 +402,6 @@ def phase_end_to_end(dev):
     from repro_torch.configs.fleet_256 import FleetConfig, make_fleet_builder
     from repro_torch.core.gmsa import make_kernel_policy
     from repro_torch.core.simulator import simulate_many, summarize
-    from repro_torch.kernels.gmsa_score.kernel import gmsa_score_cuda
 
     cfg = FleetConfig()
     _, build_inputs = make_fleet_builder(cfg, device=dev)
@@ -332,12 +412,13 @@ def phase_end_to_end(dev):
     )
 
     torch.cuda.synchronize()
-    gmsa_score_cuda.launches = 0
+    reset_counts()
     outs = run(policy)
     torch.cuda.synchronize()
-    launches = gmsa_score_cuda.launches
+    counts = read_counts()
+    launches = counts["gmsa_score"]
     log(f"[e2e] simulate_many fleet_256 R={cfg.n_runs} T={cfg.t_slots}: "
-        f"gmsa_score launches {launches}")
+        f"launches {counts}")
     if launches != cfg.t_slots:
         fail(f"end to end: kernel launched {launches} times, expected {cfg.t_slots}")
     for name, x in outs._asdict().items():
@@ -408,6 +489,219 @@ def phase_paper(dev):
         fail(f"paper: GMSA V=1 backlog {res['GMSA V=1']['time_avg_backlog']:.3f} >= 50")
 
 
+def ssd_inputs(gen, b, s, h, p, n, dtype, dev, model_like: bool):
+    """SSD operands: unit-normal (as tests/test_kernels.py makes them), or in
+    the model's own ranges — dt log-uniform in [1e-3, 0.1] and A in
+    [-16, -1] (the init of dt_bias and a_log), x, B, C through silu."""
+    import torch
+    import torch.nn.functional as F
+
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    if model_like:
+        u = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+        dt = torch.exp(u(b, s, h) * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        a = -(1.0 + 15.0 * u(h))
+        x, bm, cm = F.silu(rn(b, s, h, p)), F.silu(rn(b, s, n)), F.silu(rn(b, s, n))
+    else:
+        x, dt, a = rn(b, s, h, p), F.softplus(rn(b, s, h)), -torch.exp(rn(h))
+        bm, cm = rn(b, s, n), rn(b, s, n)
+    return x.to(dtype), dt, a, bm.to(dtype), cm.to(dtype)
+
+
+def phase_ssd_kernel(dev):
+    import torch
+
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models.ssm import ssd_chunked
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [(shape, dname, False, SSD_TEST_TOL[dname])
+             for shape in SSD_TEST_SHAPES for dname in ("float32", "bfloat16")]
+    cases += [(shape, "float32", True, SSD_MODEL_TOL) for shape in SSD_MODEL_SHAPES]
+    worst, main = {"float32": 0.0, "bfloat16": 0.0}, None
+    for (b, s, h, p, n, q), dname, model_like, tol in cases:
+        dtype = getattr(torch, dname)
+        ops = ssd_inputs(gen, b, s, h, p, n, dtype, dev, model_like)
+        y, hf = ssd_scan(*ops, chunk=q)
+        y2, hf2 = ssd_scan(*ops, chunk=q)
+        torch.cuda.synchronize()
+        shape = f"B={b} S={s} H={h} P={p} N={n} chunk={q} {dname}" + (
+            " model-range" if model_like else " unit-normal")
+        if not (torch.equal(y, y2) and torch.equal(hf, hf2)):
+            fail(f"ssd_scan launches differ bitwise at {shape}")
+        long_seq = s > 4096
+        plain = "ssd_chunked" if long_seq else "ssd_scan_ref"
+        y_ref, h_ref = ssd_chunked(*ops, q) if long_seq else ssd_scan_ref(*ops)
+        err_y, err_h = rel_err(y, y_ref), rel_err(hf, h_ref)
+        abs_y = float((y.float() - y_ref.float()).abs().max())
+        msg = (f"[ssd] {shape}: vs {plain} y max_rel_err {err_y:.3e} (max_abs {abs_y:.3e}), "
+               f"h_final max_rel_err {err_h:.3e}, tol {tol:g}")
+        if (b, s, h, p, n, q) == SSD_SERVE_SHAPE:
+            y_c, h_c = ssd_chunked(*ops, q)
+            msg += (f"; vs ssd_chunked y {rel_err(y, y_c):.3e} h_final {rel_err(hf, h_c):.3e}; "
+                    f"ssd_chunked vs ssd_scan_ref y {rel_err(y_c, y_ref):.3e}")
+            del y_c, h_c
+        log(msg)
+        if max(err_y, err_h) > tol:
+            fail(f"ssd_scan off its plain version at {shape}: y {err_y:.3e}, h {err_h:.3e}")
+        worst[dname] = max(worst[dname], err_y, err_h)
+        if model_like and ((b, s, h, p, n, q) == SSD_SERVE_SHAPE or long_seq):
+            t_k = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=5, iters=4)
+            t_c = device_time_ms(lambda: ssd_chunked(*ops, q), reps=1, iters=3)
+            bound, bound_by = ssd_bound_ms(b, s, h, p, n, q, dtype.itemsize)
+            line = (f"[ssd] {shape}: device: kernel {t_k:.3f} ms, plain chunked {t_c:.3f} ms, "
+                    f"bound {bound:.3f} ms ({bound_by}; kernel at "
+                    f"{100 * bound / t_k:.1f}% of it)")
+            if not long_seq:
+                # The sequential plain version is ~14k small launches: its
+                # device time is the profiler's sum over one call.
+                _, events = device_profile(lambda: ssd_scan_ref(*ops))
+                t_p = sum(us for _, us, _ in events) / 1e3
+                c_k = call_time_ms(lambda: ssd_scan(*ops, chunk=q), iters=10)
+                line += (f", plain sequential {t_p:.3f} ms (profiler device sum) | host "
+                         f"wall per wrapper call {c_k:.3f} ms")
+                main = {"max_abs_err": abs_y, "ms": t_k, "plain_ms": t_p,
+                        "plain_chunked_ms": t_c, "bound_ms": bound, "bound_by": bound_by}
+            log(line)
+        del ops, y, hf, y2, hf2, y_ref, h_ref
+    torch.cuda.empty_cache()
+    log(f"[ssd] launches bitwise repeatable at every shape; worst max_rel_err fp32 "
+        f"{worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}")
+    main["max_rel_err_fp32"], main["max_rel_err_bf16"] = worst["float32"], worst["bfloat16"]
+    return main
+
+
+def phase_mamba2(dev, smi):
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models.lm import count_params, init_params, ssd_layer_inputs
+    from repro_torch.serve.step import make_local_exec
+
+    cfg = get_arch(MAMBA_ARCH)
+    if count_params(cfg) != MAMBA_PARAMS:
+        fail(f"{MAMBA_ARCH}: {count_params(cfg)} parameters, expected {MAMBA_PARAMS}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.float32,
+                         device=dev)
+    torch.cuda.synchronize()
+    log(f"[mamba2] {MAMBA_ARCH} full width and depth ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state {cfg.ssm_state}): "
+        f"{MAMBA_PARAMS} random fp32 params initialised on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    vocab = cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(11)
+    batches = [(4, 2048, 16), (1, 1000, 8)]   # (requests, prompt tokens, generated)
+    tokens = [torch.randint(0, vocab, (b, s + 1), generator=gen, device=dev)
+              for b, s, _ in batches]
+    execs = [make_local_exec(cfg, g, device=dev) for _, _, g in batches]
+
+    def serve(i):
+        """One batch as the reference's FleetEngine._execute_jobs runs it."""
+        (b, s, gen_len), (prefill_fn, decode_fn) = batches[i], execs[i]
+        before = kernel_counters()["ssd_scan"].launches
+        t0 = time.perf_counter()
+        logits, cache = prefill_fn(params, tokens[i][:, :s])
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        per_prefill = kernel_counters()["ssd_scan"].launches - before
+        finite = torch.isfinite(logits).all()
+        tok = torch.argmax(logits[:, -1:, :vocab], dim=-1)
+        t0 = time.perf_counter()
+        for _ in range(gen_len):
+            logits, cache = decode_fn(params, cache, tok)
+            finite = finite & torch.isfinite(logits).all()
+            tok = torch.argmax(logits[:, :, :vocab], dim=-1)
+        torch.cuda.synchronize()
+        return per_prefill, bool(finite), t_pre, (time.perf_counter() - t0) / gen_len
+
+    # The main path: both batches, every counter read around them.
+    torch.cuda.synchronize()
+    reset_counts()
+    runs = [serve(i) for i in range(len(batches))]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for (b, s, g), (per_prefill, finite, t_pre, t_dec) in zip(batches, runs):
+        log(f"[mamba2] served {b} x {s}-token prompts + {g} greedy tokens: "
+            f"{per_prefill} ssd_scan launches in the prefill, logits finite {finite}; "
+            f"prefill {t_pre * 1e3:.1f} ms, decode {t_dec * 1e3:.2f} ms/token (first call)")
+        if per_prefill != cfg.num_layers:
+            fail(f"mamba2: {per_prefill} ssd_scan launches per prefill, expected {cfg.num_layers}")
+        if not finite:
+            fail(f"mamba2: non-finite logits serving {b} x {s}")
+    log(f"[mamba2] main path launches {counts}")
+    if counts["ssd_scan"] != cfg.num_layers * len(batches) or counts["gmsa_score"]:
+        fail(f"mamba2: launch counts {counts}")
+
+    # Decode consistency: prefill(t[:, :S]) + decode(t[:, S]) == prefill(t[:, :S+1]).
+    for i, (b, s, _) in enumerate(batches):
+        prefill_fn, decode_fn = execs[i]
+        _, cache = prefill_fn(params, tokens[i][:, :s])
+        out = {}
+        wall, events = device_profile(
+            lambda: out.update(dec=decode_fn(params, cache, tokens[i][:, s:s + 1])[0]))
+        if i == 0:
+            dev_us = sum(us for _, us, _ in events)
+            launched = sum(c for _, _, c in events)
+            log(f"[mamba2] {smi} | one decode step (batch {b}) under torch.profiler: "
+                f"{wall * 1e3:.1f} ms wall, device busy {dev_us / 1e3:.2f} ms "
+                f"({100 * dev_us / 1e6 / wall:.1f}%), {launched} device kernels")
+        dec = out["dec"]
+        full, _ = prefill_fn(params, tokens[i])
+        dec, full = dec[:, -1, :vocab], full[:, -1, :vocab]
+        scale = float(full.abs().max())
+        rel = float((dec - full).abs().max()) / scale
+        pick = torch.argmax(dec, dim=-1)
+        gap = full.max(dim=-1).values - torch.gather(full, -1, pick[:, None])[:, 0]
+        off_tie = int(((pick != torch.argmax(full, dim=-1)) & (gap > DECODE_REL_TOL * scale)).sum())
+        log(f"[mamba2] decode consistency {b} x {s}: prefill+decode vs prefill of S+1, "
+            f"max |diff| / max |logit| = {rel:.3e} (tol {DECODE_REL_TOL:g}), greedy tokens "
+            f"differing off near-ties {off_tie}")
+        if rel > DECODE_REL_TOL or off_tie:
+            fail(f"mamba2: decode consistency {b} x {s}: rel {rel:.3e}, off-tie {off_tie}")
+
+    # Layer 0's real SSD operands through the kernel against the plain version.
+    b, s, _ = batches[0]
+    with torch.inference_mode():
+        lp0 = {name: leaf[0] for name, leaf in params["blocks"].items()}
+        _, x_in, dt, a, bm, cm, _ = ssd_layer_inputs(lp0, params["embed"][tokens[0][:, :s]], cfg)
+        y, hf = ssd_scan(x_in, dt, a, bm, cm, chunk=min(cfg.ssm_chunk, s))
+        y_ref, h_ref = ssd_scan_ref(x_in, dt, a, bm, cm)
+    err_y, err_h = rel_err(y, y_ref), rel_err(hf, h_ref)
+    log(f"[mamba2] layer 0 SSD operands ({b} x {s}) through the kernel vs ssd_scan_ref: "
+        f"y max_rel_err {err_y:.3e}, h_final {err_h:.3e} (tol {SSD_MODEL_TOL:g})")
+    if max(err_y, err_h) > SSD_MODEL_TOL:
+        fail(f"mamba2: layer 0 SSD off its plain version: y {err_y:.3e}, h {err_h:.3e}")
+    del x_in, dt, bm, cm, y, hf, y_ref, h_ref
+
+    # Steady-state wall times: the batch of four, twice more.
+    walls = [serve(0) for _ in range(2)]
+    pre = [w[2] for w in walls]
+    dec = [w[3] for w in walls]
+    log(f"[mamba2] {smi} | prefill wall per batch (4 x 2048, calls 2-3): "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in pre)} ms")
+    log(f"[mamba2] {smi} | decode wall per token (batch 4, calls 2-3, 16 tokens each): "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in dec)} ms")
+    prefill_fn = execs[0][0]
+    wall, events = device_profile(lambda: prefill_fn(params, tokens[0][:, :s]))
+    dev_us = sum(us for _, us, _ in events)
+    k_us = sum(us for k, us, _ in events if "ssd_scan_kernel" in k)
+    top = ", ".join(f"{k[:40]} {us / 1e3:.2f} ms x{c}" for k, us, c in events[:5])
+    share = f"{100 * k_us / dev_us:.1f}%" if dev_us > 0 else "not measured"
+    log(f"[mamba2] {smi} | one prefill under torch.profiler: {wall * 1e3:.1f} ms wall, device "
+        f"busy {dev_us / 1e3:.1f} ms, ssd_scan kernel {k_us / 1e3:.1f} ms = {share} of device "
+        f"time; top: {top}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[mamba2] {smi} | peak device memory {peak:.2f} GiB")
+    return counts["ssd_scan"]
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -424,6 +718,8 @@ def main() -> int:
     mism, lock_rel = phase_lockstep(dev)
     launches, _ = phase_end_to_end(dev)
     phase_paper(dev)
+    ssd = phase_ssd_kernel(dev)
+    ssd_launches = phase_mamba2(dev, smi)
 
     entry = {
         "name": "gmsa_score",
@@ -440,8 +736,24 @@ def main() -> int:
         "max_rel_err": max(main_shape["max_rel_err"], lock_rel),
         "off_tie_mismatches": mism,
     }
+    ssd_entry = {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": str(SOURCES["ssd_scan"].relative_to(ROOT)),
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:29",
+        "launches": ssd_launches,
+        "max_abs_err": ssd["max_abs_err"],
+        "ms": ssd["ms"],
+        "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"],
+        "bound_by": ssd["bound_by"],
+        "library_ms": None,   # no single PyTorch call computes the SSD scan
+        "max_rel_err_fp32": ssd["max_rel_err_fp32"],
+        "max_rel_err_bf16": ssd["max_rel_err_bf16"],
+        "plain_chunked_ms": ssd["plain_chunked_ms"],
+    }
     log(f"[device] {smi}")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, ssd_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,10 +1,13 @@
 """Carry the JAX package's state into the port.
 
-The reference has no weights; its "parameters" are the trace bundle. This
-module turns a ``SimInputs``-shaped bundle of numpy arrays (a mapping or an
-object with the fields as attributes — a caller converts framework arrays
-with ``np.asarray`` first) into the port's :class:`SimInputs`, and stacks
-per-run bundles into the port's leading runs axis.
+* The simulator's "parameters" are the trace bundle: a ``SimInputs``-shaped
+  bundle of numpy arrays (a mapping or an object with the fields as
+  attributes — a caller converts framework arrays with ``np.asarray``
+  first) becomes the port's :class:`SimInputs`, and per-run bundles stack
+  into the port's leading runs axis.
+* A model's parameter pytree (``repro.models.lm.init_params``, leaves
+  through ``np.asarray``) and its decode cache become the port's dicts of
+  tensors, checked leaf for leaf against the port's specs.
 
 Random streams do not carry across (counter-based threefry on one side,
 torch generators on the other), so end-to-end parity runs both engines on
@@ -18,8 +21,10 @@ from collections.abc import Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.simulator import SimInputs
 from repro_torch.device import resolve_device
+from repro_torch.models.lm import _ssm_dims, layer_param_specs, top_param_specs
 
 #: Fields that carry the Monte-Carlo randomness; the rest are shared by runs.
 STOCHASTIC_FIELDS = ("arrivals", "mu")
@@ -61,3 +66,55 @@ def stack_runs(runs: Sequence[SimInputs]) -> SimInputs:
         name: torch.stack([getattr(run, name) for run in runs])
         for name in STOCHASTIC_FIELDS
     })
+
+
+def _leaf(name: str, x, shape: tuple, dev: torch.device) -> torch.Tensor:
+    if not isinstance(x, np.ndarray):
+        raise TypeError(f"leaf {name!r} is {type(x).__name__}, not a numpy array; "
+                        "convert with np.asarray first")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"leaf {name!r} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if x.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: no torch.from_numpy
+        return torch.from_numpy(x.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(np.array(x)).to(dev)
+
+
+def _check_names(what: str, got, want) -> None:
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"{what}: missing leaves {missing}, unexpected leaves {extra}")
+
+
+def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> dict:
+    """A JAX ``init_params`` pytree (numpy leaves) -> the port's params dict
+    on ``device`` (``None``: CUDA). Every name and shape is checked against
+    the port's ``top_param_specs`` / ``layer_param_specs`` (blocks stacked
+    on L); a missing or extra leaf raises. Leaf dtypes are kept."""
+    dev = resolve_device(device)
+    tspecs, lspecs = top_param_specs(cfg), layer_param_specs(cfg)
+    _check_names("params", tree, list(tspecs) + ["blocks"])
+    _check_names("params['blocks']", tree["blocks"], lspecs)
+    out = {name: _leaf(name, tree[name], shape, dev) for name, (shape, _, _) in tspecs.items()}
+    out["blocks"] = {
+        name: _leaf(f"blocks/{name}", tree["blocks"][name], (cfg.num_layers,) + shape, dev)
+        for name, (shape, _, _) in lspecs.items()
+    }
+    return out
+
+
+def cache_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> dict:
+    """A JAX decode cache (``prefill_step`` / ``init_cache``, numpy leaves)
+    -> the port's cache dict on ``device`` (``None``: CUDA), names and
+    shapes checked; ``pos`` becomes int32."""
+    dev = resolve_device(device)
+    _check_names("cache", tree, ["pos", "ssm_state", "conv_state"])
+    dims = _ssm_dims(cfg)
+    b = np.shape(tree["pos"])[0] if np.ndim(tree["pos"]) == 1 else -1
+    shapes = {
+        "pos": (b,),
+        "ssm_state": (cfg.num_layers, b, dims["heads"], cfg.ssm_head_dim, dims["n"]),
+        "conv_state": (cfg.num_layers, b, cfg.ssm_conv_width - 1, dims["conv_dim"]),
+    }
+    out = {name: _leaf(name, tree[name], shape, dev) for name, shape in shapes.items()}
+    out["pos"] = out["pos"].to(torch.int32)
+    return out

@@ -14,4 +14,7 @@ Kernels:
 
 * ``gmsa_score`` — the per-slot GMSA dispatch: the (K, N, N) x (N,) cost
   matvec, the drift-plus-penalty score and the per-type argmin.
+* ``ssd_scan``   — the Mamba-2 chunked SSD forward from a zero state, one
+  block per (b, h) stream with the (P, N) state in shared memory; the
+  model's prefill runs every layer's scan through it.
 """

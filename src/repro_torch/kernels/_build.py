@@ -32,6 +32,7 @@ BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "torch_kernels"
 #: Every kernel of the port, by name -> its CUDA source.
 SOURCES = {
     "gmsa_score": _KERNELS_DIR / "gmsa_score" / "csrc" / "gmsa_score.cu",
+    "ssd_scan": _KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan.cu",
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

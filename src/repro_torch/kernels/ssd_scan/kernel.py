@@ -1,0 +1,87 @@
+"""ctypes binding of the CUDA ``ssd_scan`` kernel (``csrc/ssd_scan.cu``).
+
+The library is built by ``nvcc`` at first use (:mod:`repro_torch.kernels._build`)
+and launched on PyTorch's current stream. Sizes go over as 64-bit integers and
+every offset inside the kernel is 64-bit: at the ``prefill_32k`` shape
+(B = 32, S = 32768, H = 80, P = 64) x has 5.4e9 elements.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+from torch import Tensor
+
+from repro_torch.kernels import _build
+
+#: The kernel's limits: the (P, N) state, a 64-row tile of B and of C, and
+#: the chunk's cumsum arrays must fit one block's shared memory.
+MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024
+_MAX_GRID_Y = 65535
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _launcher():
+    fn = _build.load("ssd_scan").ssd_scan_launch
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [ptr] * 7 + [i64] * 6 + [ctypes.c_int, ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_scan_cuda(
+    x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor, c_mat: Tensor, chunk: int
+) -> tuple[Tensor, Tensor]:
+    """Launch the kernel on contiguous CUDA tensors, S a multiple of ``chunk``.
+
+    x (B,S,H,P), b_mat and c_mat (B,S,N) share one dtype, fp32 or bf16; dt
+    (B,S,H) and a (H,) are fp32. Returns (y (B,S,H,P) in x's dtype, h_final
+    (B,H,P,N) fp32). Increments ``ssd_scan_cuda.launches`` once per launch.
+    """
+    tensors = (x, dt, a, b_mat, c_mat)
+    if any(t.device.type != "cuda" for t in tensors):
+        raise TypeError("ssd_scan_cuda takes CUDA tensors only")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("ssd_scan_cuda operands must share one device")
+    if x.dtype not in _DTYPES or b_mat.dtype != x.dtype or c_mat.dtype != x.dtype:
+        raise TypeError(f"x, b_mat, c_mat must share fp32 or bf16, got "
+                        f"{x.dtype}, {b_mat.dtype}, {c_mat.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"dt and a must be fp32, got {dt.dtype}, {a.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ssd_scan_cuda operands must be contiguous")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, S, H, P), got {tuple(x.shape)}")
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    if (tuple(dt.shape) != (bsz, s, h) or tuple(a.shape) != (h,)
+            or tuple(b_mat.shape) != (bsz, s, n) or tuple(c_mat.shape) != (bsz, s, n)):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
+            f"b {tuple(b_mat.shape)}, c {tuple(c_mat.shape)}"
+        )
+    if not 1 <= chunk <= MAX_CHUNK or s % chunk:
+        raise ValueError(f"chunk {chunk} must be in [1, {MAX_CHUNK}] and divide S={s}")
+    if p > MAX_P or n > MAX_N or bsz > _MAX_GRID_Y or h > _MAX_GRID_Y:
+        raise ValueError(f"P={p}, N={n}, B={bsz}, H={h} outside the kernel's limits "
+                         f"(P <= {MAX_P}, N <= {MAX_N}, B, H <= {_MAX_GRID_Y})")
+    y = torch.empty_like(x)
+    h_final = torch.zeros((bsz, h, p, n), device=x.device, dtype=torch.float32)
+    if bsz and s and h and p and n:
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _launcher()(
+                x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
+                c_mat.data_ptr(), y.data_ptr(), h_final.data_ptr(),
+                bsz, s, h, p, n, chunk, _DTYPES[x.dtype], stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+        ssd_scan_cuda.launches += 1
+    return y, h_final
+
+
+ssd_scan_cuda.launches = 0

@@ -1,0 +1,113 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
+kernel has no CPU mode. This file imports torch, numpy and the port only —
+not JAX, which the machines with the card need not have — so that it runs
+there on its own:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.kernels.gmsa_score import gmsa_score, gmsa_score_ref
+from repro_torch.kernels.gmsa_score.kernel import gmsa_score_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+from repro_torch.models import lm
+from repro_torch.serve.step import make_local_exec
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the port's CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return torch.device("cuda")
+
+
+def _ssd_inputs(seed, b, s, h, p, n, dtype, dev):
+    rng = np.random.default_rng(seed)
+    t = lambda x, d=torch.float32: torch.from_numpy(x.astype(np.float32)).to(dev, d)
+    return (
+        t(rng.standard_normal((b, s, h, p)), dtype),
+        t(np.logaddexp(0.0, rng.standard_normal((b, s, h)))),
+        t(-np.exp(rng.standard_normal(h))),
+        t(rng.standard_normal((b, s, n)), dtype),
+        t(rng.standard_normal((b, s, n)), dtype),
+    )
+
+
+# tests/test_kernels.py's tolerances: fp32 (chunked vs sequential rounding),
+# bf16 (y rounded to bf16).
+SSD_TOL = {torch.float32: 3e-4, torch.bfloat16: 5e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk", [(200, 64), (100, 24), (256, 256)])
+def test_ssd_scan_kernel_matches_plain_version(cuda, s, chunk, dtype):
+    ops = _ssd_inputs(s + chunk, 2, s, 3, 64, 128, dtype, cuda)
+    before = ssd_scan_cuda.launches
+    y, hf = ssd_scan(*ops, chunk=chunk)
+    y2, hf2 = ssd_scan(*ops, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(hf, hf2)
+    y0, h0 = ssd_scan_ref(*ops)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(hf, h0, rtol=tol, atol=tol)
+
+
+def test_ssd_scan_cuda_rejects_what_it_cannot_run(cuda):
+    x, dt, a, bm, cm = _ssd_inputs(1, 1, 64, 2, 64, 128, torch.float32, cuda)
+    with pytest.raises(ValueError, match="divide"):
+        ssd_scan_cuda(x, dt, a, bm, cm, 48)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a, bm, cm, 64)
+    with pytest.raises(TypeError, match="share"):
+        ssd_scan_cuda(x, dt, a, bm.bfloat16(), cm, 64)
+    big = _ssd_inputs(2, 1, 64, 2, 64, 256, torch.float32, cuda)
+    with pytest.raises(ValueError, match="limits"):
+        ssd_scan_cuda(*big, 64)
+
+
+def test_gmsa_score_kernel_matches_plain_version(cuda):
+    rng = np.random.default_rng(0)
+    k, n = 8, 256
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(cuda)
+    ops = (t(rng.random((3, k, n)) * 100), t(rng.random((3, k, n)) * 50),
+           t(rng.random((3, k)) * 40), t(rng.random(k) * 10),
+           t(rng.dirichlet(np.ones(n), (k, n))), t(rng.random(n) * 20))
+    before = gmsa_score_cuda.launches
+    s, b = gmsa_score(*ops)
+    assert gmsa_score_cuda.launches == before + 1
+    s0, b0 = gmsa_score_ref(*ops)
+    torch.testing.assert_close(s, s0, rtol=1e-4, atol=1e-4)
+    picked = torch.gather(s0, -1, b.long()[..., None])[..., 0]
+    torch.testing.assert_close(picked, s0.min(-1).values, rtol=1e-5, atol=1e-4)
+
+
+def test_smoke_model_on_the_card_matches_the_cpu(cuda):
+    """Prefill through the CUDA kernel (one launch per layer) and decode agree
+    with the CPU run of the same weights (tests/test_models.py's 2e-4)."""
+    cfg = get_arch("mamba2-2.7b", "smoke")
+    p = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = {k: v.to(cuda) for k, v in p.items() if k != "blocks"}
+    p_gpu["blocks"] = {k: v.to(cuda) for k, v in p["blocks"].items()}
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 41)))
+    pre, dec = make_local_exec(cfg, 2)
+    before = ssd_scan_cuda.launches
+    logits, cache = pre(p_gpu, tokens[:, :40])
+    assert ssd_scan_cuda.launches == before + cfg.num_layers
+    logits_c, cache_c = lm.prefill_step(p, cfg, tokens[:, :40], cache_dtype=torch.float32)
+    torch.testing.assert_close(logits.cpu(), logits_c, rtol=2e-4, atol=2e-4)
+    step, _ = dec(p_gpu, cache, tokens[:, 40:41])
+    step_c, _ = lm.decode_step(p, cfg, cache_c, tokens[:, 40:41])
+    torch.testing.assert_close(step.cpu(), step_c, rtol=2e-4, atol=2e-4)

@@ -39,7 +39,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.core.simulator' in sys.modules\n"
+        "for need in ('repro_torch.core.simulator', 'repro_torch.models.lm',\n"
+        "             'repro_torch.serve.step', 'repro_torch.kernels.ssd_scan.ops'):\n"
+        "    assert need in sys.modules, need\n"
         "print('ok', len(sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

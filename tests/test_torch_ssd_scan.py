@@ -1,0 +1,124 @@
+"""The port's ssd_scan wrapper against the JAX package's Pallas kernel.
+
+The JAX side runs the Pallas kernel in interpret mode and its sequential
+oracle, as tests/test_kernels.py does; the port's wrapper takes its plain
+sequential PyTorch version for CPU tensors (the CUDA kernel itself is held
+against that plain version by chip_smoke.py and tests/test_torch_cuda.py
+on the card). Inputs are made from seeded numpy and handed to both.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
+from repro.kernels.ssd_scan import ssd_scan_ref as jax_ssd_scan_ref
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+torch.set_float32_matmul_precision("highest")
+
+#: (B, S, H, P, N, chunk) of tests/test_kernels.py's ssd_scan tests.
+SHAPES = [(1, 32, 2, 8, 16, 8), (2, 128, 3, 64, 128, 128), (1, 72, 2, 32, 64, 16)]
+# fp32: the chunked Pallas form and the sequential recurrence round
+# differently (exp of cumsum differences vs products of per-step decays);
+# bf16: y is rounded to bf16 on both sides. test_kernels.py's tolerances.
+TOL = {"float32": 3e-4, "bfloat16": 5e-2}
+
+
+def _inputs(seed, b, s, h, p, n):
+    """Unit-normal x, B, C; dt = softplus(normal); a = -exp(normal)."""
+    rng = np.random.default_rng(seed)
+    return (
+        rng.standard_normal((b, s, h, p)).astype(np.float32),
+        np.logaddexp(0.0, rng.standard_normal((b, s, h))).astype(np.float32),
+        -np.exp(rng.standard_normal(h)).astype(np.float32),
+        rng.standard_normal((b, s, n)).astype(np.float32),
+        rng.standard_normal((b, s, n)).astype(np.float32),
+    )
+
+
+def _cast(arrays, dtype):
+    """The same rounded values for both frameworks: x, B, C in ``dtype``,
+    dt and a in fp32 (the kernel's contract)."""
+    j, t = [], []
+    for i, x in enumerate(arrays):
+        jd = dtype if i in (0, 3, 4) else "float32"
+        xj = jnp.asarray(x).astype(jd)
+        j.append(xj)
+        t.append(torch.from_numpy(np.array(xj.astype(jnp.float32))).to(getattr(torch, jd)))
+    return j, t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SHAPES)
+def test_ssd_scan_matches_jax_kernel_and_ref(b, s, h, p, n, chunk, dtype):
+    j, t = _cast(_inputs(b + s, b, s, h, p, n), dtype)
+    y_k, h_k = jax_ssd_scan(*j, chunk=chunk, interpret=True)
+    y_r, h_r = jax_ssd_scan_ref(*j)
+    y, hf = ssd_scan(*t, chunk=chunk)
+    assert y.dtype == getattr(torch, dtype) and hf.dtype == torch.float32
+    assert tuple(y.shape) == (b, s, h, p) and tuple(hf.shape) == (b, h, p, n)
+    tol = TOL[dtype]
+    for y_j, h_j in ((y_k, h_k), (y_r, h_r)):
+        np.testing.assert_allclose(y.float().numpy(), np.asarray(y_j, np.float32),
+                                   rtol=tol, atol=tol)
+        np.testing.assert_allclose(hf.numpy(), np.asarray(h_j), rtol=tol, atol=tol)
+
+
+def test_ssd_scan_ref_matches_jax_ref_closely():
+    """Both sequential oracles do the same fp32 arithmetic step by step: only
+    the einsum reduction order differs (tight 1e-5)."""
+    x, dt, a, bm, cm = _inputs(3, 2, 40, 3, 16, 32)
+    y_j, h_j = jax_ssd_scan_ref(*(jnp.asarray(v) for v in (x, dt, a, bm, cm)))
+    y, hf = ssd_scan_ref(*(torch.from_numpy(v) for v in (x, dt, a, bm, cm)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(h_j), rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_scan_matches_jax_model_path():
+    """Port wrapper == the JAX model's chunked pure-JAX path (the third
+    formulation; 2e-4 as test_kernels.py)."""
+    b, s, h, p, n = 2, 64, 2, 16, 32
+    x, dt, a, bm, cm = _inputs(7, b, s, h, p, n)
+    y_j, h_j = jax_ssd_chunked(*(jnp.asarray(v) for v in (x, dt, a, bm, cm)), 16)
+    y, hf = ssd_scan(*(torch.from_numpy(v) for v in (x, dt, a, bm, cm)), chunk=16)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(h_j), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("s,chunk", [(45, 8), (45, 16), (45, 32), (45, 64), (70, 24), (24, 24)])
+def test_ssd_scan_chunk_invariance_and_ragged_padding(s, chunk):
+    """Padding S to a chunk multiple with dt = 0 steps is an exact no-op: the
+    result equals the unpadded sequential scan bitwise, whatever the chunk."""
+    x, dt, a, bm, cm = (torch.from_numpy(v) for v in _inputs(s + chunk, 1, s, 2, 8, 16))
+    y, hf = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    y0, h0 = ssd_scan_ref(x, dt, a, bm, cm)
+    assert tuple(y.shape) == (1, s, 2, 8)
+    assert torch.equal(y, y0) and torch.equal(hf, h0)
+
+
+def test_ssd_scan_casts_dt_and_a_to_fp32():
+    x, dt, a, bm, cm = (torch.from_numpy(v) for v in _inputs(11, 1, 16, 2, 8, 16))
+    y, hf = ssd_scan(x, dt.double(), a.double(), bm, cm, chunk=8)
+    y0, h0 = ssd_scan(x, dt, a, bm, cm, chunk=8)
+    assert y.dtype == torch.float32 and hf.dtype == torch.float32
+    assert torch.equal(y, y0) and torch.equal(hf, h0)
+
+
+def test_ssd_scan_rejects_mixed_devices_and_bad_chunk():
+    x, dt, a, bm, cm = (torch.from_numpy(v) for v in _inputs(1, 1, 8, 2, 8, 16))
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan(x, dt, a, bm, cm, chunk=0)
+    with pytest.raises(ValueError, match="devices"):
+        ssd_scan(x, dt, a, bm.to("meta"), cm, chunk=8)
+
+
+def test_ssd_scan_cuda_takes_cuda_tensors_only():
+    """The kernel binding never falls back: CPU tensors raise."""
+    x, dt, a, bm, cm = (torch.from_numpy(v) for v in _inputs(1, 1, 8, 2, 8, 16))
+    with pytest.raises(TypeError, match="CUDA"):
+        ssd_scan_cuda(x, dt, a, bm, cm, 8)
