@@ -23,12 +23,15 @@ Phases, each printing one line or more; any failure exits non-zero:
              same run with ``impl="ref"`` for agreement.
 6. paper   — facebook_4dc, 200 runs: GMSA V=1, GMSA V=100, DATA, RANDOM,
              and GMSA V=1 through the kernel policy.
-7. ssd_scan — the Mamba-2 SSD kernel against its plain sequential version
+7. ssd_scan — the Mamba-2 SSD chain against its plain sequential version
              (and the plain chunked form where the loop is too slow): the
              test shapes in fp32 and bf16 on unit-normal inputs, then with
              the model's own input ranges a ragged S, chunk 24, the serving
              shape and a prefill_32k sequence; bitwise-repeatable launches;
-             device time beside the plain versions and the bound.
+             at the serving shape every workspace of the chain (cum, CBᵀ,
+             entering states) against the plain phase-by-phase version;
+             device time beside the plain versions and the bound, and each
+             of the chain's five kernels' mean time over three profiled calls.
 8. mamba2  — full-width, full-depth mamba2-2.7b (random fp32 weights from a
              seeded generator) served through ``make_local_exec`` as the
              reference's ``FleetEngine._execute_jobs`` does: 4 x 2048-token
@@ -87,6 +90,13 @@ SSD_MODEL_SHAPES = [
 ]
 SSD_SERVE_SHAPE = (4, 2048, 80, 64, 128, 256)
 SSD_MODEL_TOL = 1e-4
+#: The chain's kernels, in launch order (``ssd_scan_<phase>_kernel``).
+SSD_PHASES = ("cumsum", "chunk_cb", "chunk_state", "state_pass", "chunk_scan")
+#: Workspaces against ssd_scan_phases_ref: the fp64 cumsum differs only in
+#: summation order (1e-12 relative); CBᵀ and the entering states are fp32
+#: sums in another order (1e-4 relative to max(|plain|, 1)).
+SSD_CUM_RTOL = 1e-12
+SSD_WORKSPACE_TOL = 1e-4
 MAMBA_ARCH = "mamba2-2.7b"
 MAMBA_PARAMS = 2_702_640_640
 DECODE_REL_TOL = 1e-3   # prefill+decode vs longer prefill, relative to max |logit|
@@ -232,6 +242,29 @@ def phase_device():
     return smi
 
 
+def ptxas_usage(text: str) -> list[str]:
+    """One line per kernel function from an ``nvcc -Xptxas -v`` log: its
+    name (with ``<bf16>`` for the bf16 instantiation), registers, spill
+    stores and loads, shared memory."""
+    import re
+
+    rows = []
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            mangled = m.group(1)
+            short = re.search(r"\d+((?:ssd_scan|gmsa_score)\w*?_kernel)", mangled)
+            rows.append({"name": (short.group(1) if short else mangled)
+                         + ("<bf16>" if "bfloat16" in mangled else "")})
+        elif rows and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            rows[-1]["spills"] = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
+        elif rows and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["regs"] = f"{m.group(1)} registers"
+            rows[-1]["smem"] = f"{smem.group(1) if smem else 0} B static smem"
+    return [", ".join(r.get(k, f"{k} not reported") for k in ("name", "regs", "spills", "smem"))
+            for r in rows]
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -239,9 +272,8 @@ def phase_build():
     logs = _build.build_all()
     secs = time.perf_counter() - t0
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line):
-                log(f"[build] {name}: {line.strip()}")
+        for usage in ptxas_usage(text):
+            log(f"[build] {name}: ptxas {usage}")
     log(f"[build] {len(logs)} kernel(s) built in {secs:.2f} s -> {_build.BUILD_DIR}")
 
 
@@ -508,6 +540,60 @@ def ssd_inputs(gen, b, s, h, p, n, dtype, dev, model_like: bool):
     return x.to(dtype), dt, a, bm.to(dtype), cm.to(dtype)
 
 
+def is_ssd_kernel(name: str) -> bool:
+    """Whether a profiler kernel name is one of the ssd_scan chain's."""
+    return any(f"ssd_scan_{ph}_kernel" in name for ph in SSD_PHASES)
+
+
+def ssd_phase_times(ops, q, calls: int = 3) -> tuple[dict[str, float | None], float]:
+    """``calls`` chain calls under torch.profiler: each phase kernel's mean
+    device time per launch (ms) by name, None where the trace shows none, and
+    the sum of those means."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+    def run():
+        for _ in range(calls):
+            ssd_scan_cuda(*ops, q)
+
+    _, events = device_profile(run)
+    phase = {}
+    for ph in SSD_PHASES:
+        hits = [(us, c) for k, us, c in events if f"ssd_scan_{ph}_kernel" in k]
+        count = sum(c for _, c in hits)
+        phase[ph] = sum(us for us, _ in hits) / count / 1e3 if count else None
+    return phase, sum(v for v in phase.values() if v is not None)
+
+
+def check_ssd_workspaces(ops, q, shape: str) -> dict[str, float]:
+    """Every workspace of one chain call against the plain phase-by-phase
+    version on the same inputs; fails beyond the stated tolerances."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.kernel import _ssd_scan_cuda_phases
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_phases_ref
+
+    got = _ssd_scan_cuda_phases(*ops, q)
+    want = ssd_scan_phases_ref(*ops, q)
+    torch.cuda.synchronize()
+    y, hf, cum, g, h_in = got
+    y_r, hf_r, cum_r, g_r, h_in_r = want
+    tri = torch.ones(q, q, dtype=torch.bool, device=g.device).tril()
+    tiny = torch.finfo(torch.float64).tiny
+    errs = {
+        "cum": float(((cum - cum_r).abs() / cum_r.abs().clamp_min(tiny)).max()),
+        "G": rel_err(g[..., tri], g_r[..., tri]),
+        "h_in": rel_err(h_in, h_in_r),
+        "y": rel_err(y, y_r),
+        "h_final": rel_err(hf, hf_r),
+    }
+    log(f"[ssd] {shape}: workspaces vs ssd_scan_phases_ref: cum {errs['cum']:.3e} "
+        f"(tol {SSD_CUM_RTOL:g} relative), G {errs['G']:.3e}, h_in {errs['h_in']:.3e}, "
+        f"y {errs['y']:.3e}, h_final {errs['h_final']:.3e} (tol {SSD_WORKSPACE_TOL:g})")
+    if errs["cum"] > SSD_CUM_RTOL or max(v for k, v in errs.items() if k != "cum") > SSD_WORKSPACE_TOL:
+        fail(f"ssd_scan workspaces off the plain phase version at {shape}: {errs}")
+    return errs
+
+
 def phase_ssd_kernel(dev):
     import torch
 
@@ -520,7 +606,7 @@ def phase_ssd_kernel(dev):
     cases = [(shape, dname, False, SSD_TEST_TOL[dname])
              for shape in SSD_TEST_SHAPES for dname in ("float32", "bfloat16")]
     cases += [(shape, "float32", True, SSD_MODEL_TOL) for shape in SSD_MODEL_SHAPES]
-    worst, main = {"float32": 0.0, "bfloat16": 0.0}, None
+    worst, main, long_run = {"float32": 0.0, "bfloat16": 0.0}, None, None
     for (b, s, h, p, n, q), dname, model_like, tol in cases:
         dtype = getattr(torch, dname)
         ops = ssd_inputs(gen, b, s, h, p, n, dtype, dev, model_like)
@@ -547,13 +633,22 @@ def phase_ssd_kernel(dev):
         if max(err_y, err_h) > tol:
             fail(f"ssd_scan off its plain version at {shape}: y {err_y:.3e}, h {err_h:.3e}")
         worst[dname] = max(worst[dname], err_y, err_h)
+        del y, hf, y2, hf2, y_ref, h_ref
+        if (b, s, h, p, n, q) == SSD_SERVE_SHAPE:
+            ws_errs = check_ssd_workspaces(ops, q, shape)
+            torch.cuda.empty_cache()
         if model_like and ((b, s, h, p, n, q) == SSD_SERVE_SHAPE or long_seq):
             t_k = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=5, iters=4)
             t_c = device_time_ms(lambda: ssd_chunked(*ops, q), reps=1, iters=3)
             bound, bound_by = ssd_bound_ms(b, s, h, p, n, q, dtype.itemsize)
-            line = (f"[ssd] {shape}: device: kernel {t_k:.3f} ms, plain chunked {t_c:.3f} ms, "
-                    f"bound {bound:.3f} ms ({bound_by}; kernel at "
+            phase, total = ssd_phase_times(ops, q)
+            line = (f"[ssd] {shape}: device: kernel chain {t_k:.3f} ms, plain chunked {t_c:.3f} "
+                    f"ms, bound {bound:.3f} ms ({bound_by}; chain at "
                     f"{100 * bound / t_k:.1f}% of it)")
+            log(f"[ssd] {shape}: chain calls under torch.profiler, mean per launch by phase: "
+                + ", ".join(f"{ph} " + ("not measured" if ms is None else f"{ms:.4f} ms")
+                            for ph, ms in phase.items())
+                + f"; total {total:.4f} ms")
             if not long_seq:
                 # The sequential plain version is ~14k small launches: its
                 # device time is the profiler's sum over one call.
@@ -563,13 +658,19 @@ def phase_ssd_kernel(dev):
                 line += (f", plain sequential {t_p:.3f} ms (profiler device sum) | host "
                          f"wall per wrapper call {c_k:.3f} ms")
                 main = {"max_abs_err": abs_y, "ms": t_k, "plain_ms": t_p,
-                        "plain_chunked_ms": t_c, "bound_ms": bound, "bound_by": bound_by}
+                        "plain_chunked_ms": t_c, "bound_ms": bound, "bound_by": bound_by,
+                        "phase_ms": phase}
+            else:
+                long_run = {"ms_32k": t_k, "plain_chunked_ms_32k": t_c, "bound_ms_32k": bound,
+                            "phase_ms_32k": phase}
             log(line)
-        del ops, y, hf, y2, hf2, y_ref, h_ref
+        del ops
     torch.cuda.empty_cache()
     log(f"[ssd] launches bitwise repeatable at every shape; worst max_rel_err fp32 "
         f"{worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}")
     main["max_rel_err_fp32"], main["max_rel_err_bf16"] = worst["float32"], worst["bfloat16"]
+    main["workspace_rel_err"] = ws_errs
+    main.update(long_run)
     return main
 
 
@@ -691,11 +792,11 @@ def phase_mamba2(dev, smi):
     prefill_fn = execs[0][0]
     wall, events = device_profile(lambda: prefill_fn(params, tokens[0][:, :s]))
     dev_us = sum(us for _, us, _ in events)
-    k_us = sum(us for k, us, _ in events if "ssd_scan_kernel" in k)
+    k_us = sum(us for k, us, _ in events if is_ssd_kernel(k))
     top = ", ".join(f"{k[:40]} {us / 1e3:.2f} ms x{c}" for k, us, c in events[:5])
     share = f"{100 * k_us / dev_us:.1f}%" if dev_us > 0 else "not measured"
     log(f"[mamba2] {smi} | one prefill under torch.profiler: {wall * 1e3:.1f} ms wall, device "
-        f"busy {dev_us / 1e3:.1f} ms, ssd_scan kernel {k_us / 1e3:.1f} ms = {share} of device "
+        f"busy {dev_us / 1e3:.1f} ms, ssd_scan chain {k_us / 1e3:.1f} ms = {share} of device "
         f"time; top: {top}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[mamba2] {smi} | peak device memory {peak:.2f} GiB")
@@ -751,6 +852,12 @@ def main() -> int:
         "max_rel_err_fp32": ssd["max_rel_err_fp32"],
         "max_rel_err_bf16": ssd["max_rel_err_bf16"],
         "plain_chunked_ms": ssd["plain_chunked_ms"],
+        "phase_ms": ssd["phase_ms"],
+        "workspace_rel_err": ssd["workspace_rel_err"],
+        "ms_32k": ssd["ms_32k"],
+        "plain_chunked_ms_32k": ssd["plain_chunked_ms_32k"],
+        "bound_ms_32k": ssd["bound_ms_32k"],
+        "phase_ms_32k": ssd["phase_ms_32k"],
     }
     log(f"[device] {smi}")
     print(json.dumps({"kernels": [entry, ssd_entry]}))

@@ -15,8 +15,8 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.kernels.gmsa_score import gmsa_score, gmsa_score_ref
 from repro_torch.kernels.gmsa_score.kernel import gmsa_score_cuda
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_phases_ref, ssd_scan_ref
+from repro_torch.kernels.ssd_scan.kernel import _ssd_scan_cuda_phases, ssd_scan_cuda
 from repro_torch.models import lm
 from repro_torch.serve.step import make_local_exec
 
@@ -63,6 +63,63 @@ def test_ssd_scan_kernel_matches_plain_version(cuda, s, chunk, dtype):
     tol = SSD_TOL[dtype]
     torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(hf, h0, rtol=tol, atol=tol)
+
+
+def _rel(got, want):
+    """max |got - want| / max(|want|, 1), elementwise."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk", [(512, 128), (192, 24), (384, 96)])
+def test_ssd_scan_chain_workspaces_match_plain_phases(cuda, s, chunk, dtype):
+    """Phase by phase: the fp64 cumsum (summation order only: 1e-12
+    relative), CBᵀ on and below the diagonal and the entering states (fp32
+    sums in another order: 1e-4 relative to max(|plain|, 1)), then y and
+    h_final at the SSD tolerances."""
+    ops = _ssd_inputs(s + chunk, 2, s, 3, 64, 128, dtype, cuda)
+    y, hf, cum, g, h_in = _ssd_scan_cuda_phases(*ops, chunk)
+    y0, h0, cum0, g0, h_in0 = ssd_scan_phases_ref(*ops, chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cum, cum0, rtol=1e-12, atol=0)
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=cuda).tril()
+    assert _rel(g[..., tri], g0[..., tri]) <= 1e-4
+    assert _rel(h_in, h_in0) <= 1e-4
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(hf, h0, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("chunk", [24, 256])
+def test_ssd_scan_chain_repeats_bitwise_and_counts_one_launch_per_call(cuda, chunk):
+    """Every output and workspace repeats bitwise (G where the chain writes
+    it: on and below the diagonal)."""
+    ops = _ssd_inputs(chunk, 2, 4 * chunk, 3, 64, 128, torch.float32, cuda)
+    before = ssd_scan_cuda.launches
+    first = _ssd_scan_cuda_phases(*ops, chunk)
+    assert ssd_scan_cuda.launches == before + 1
+    second = _ssd_scan_cuda_phases(*ops, chunk)
+    assert ssd_scan_cuda.launches == before + 2
+    y, hf = ssd_scan_cuda(*ops, chunk)
+    assert ssd_scan_cuda.launches == before + 3
+    torch.cuda.synchronize()
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=cuda).tril()
+    for name, u, v in zip(("y", "h_final", "cum", "G", "h_in"), first, second):
+        if name == "G":
+            u, v = u[..., tri], v[..., tri]
+        assert torch.equal(u, v), name
+    assert torch.equal(y, first[0]) and torch.equal(hf, first[1])
+
+
+def test_ssd_scan_chain_long_single_sequence_matches_sequential(cuda):
+    """B = 1 over 16 chunks: the entering state is carried through every
+    chunk by state_pass."""
+    ops = _ssd_inputs(16, 1, 16 * 64, 2, 64, 128, torch.float32, cuda)
+    y, hf = ssd_scan(*ops, chunk=64)
+    y0, h0 = ssd_scan_ref(*ops)
+    torch.testing.assert_close(y, y0, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(hf, h0, rtol=3e-4, atol=3e-4)
 
 
 def test_ssd_scan_cuda_rejects_what_it_cannot_run(cuda):

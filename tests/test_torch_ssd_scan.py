@@ -4,7 +4,10 @@ The JAX side runs the Pallas kernel in interpret mode and its sequential
 oracle, as tests/test_kernels.py does; the port's wrapper takes its plain
 sequential PyTorch version for CPU tensors (the CUDA kernel itself is held
 against that plain version by chip_smoke.py and tests/test_torch_cuda.py
-on the card). Inputs are made from seeded numpy and handed to both.
+on the card). The plain phase-by-phase version of the CUDA chain, whose
+workspaces the card tests compare phase by phase, is held here against the
+JAX kernel, the JAX chunked form and the sequential recurrence. Inputs are
+made from seeded numpy and handed to both.
 """
 
 import jax
@@ -16,7 +19,7 @@ import torch
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan import ssd_scan_ref as jax_ssd_scan_ref
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_phases_ref, ssd_scan_ref
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
 
 torch.set_float32_matmul_precision("highest")
@@ -27,6 +30,9 @@ SHAPES = [(1, 32, 2, 8, 16, 8), (2, 128, 3, 64, 128, 128), (1, 72, 2, 32, 64, 16
 # differently (exp of cumsum differences vs products of per-step decays);
 # bf16: y is rounded to bf16 on both sides. test_kernels.py's tolerances.
 TOL = {"float32": 3e-4, "bfloat16": 5e-2}
+#: SHAPES, a ragged S with chunk 24 (3 chunks, the last one padded) and an S
+#: of 6 chunks.
+PHASE_SHAPES = SHAPES + [(1, 70, 2, 8, 16, 24), (2, 96, 2, 16, 32, 16)]
 
 
 def _inputs(seed, b, s, h, p, n):
@@ -122,3 +128,56 @@ def test_ssd_scan_cuda_takes_cuda_tensors_only():
     x, dt, a, bm, cm = (torch.from_numpy(v) for v in _inputs(1, 1, 8, 2, 8, 16))
     with pytest.raises(TypeError, match="CUDA"):
         ssd_scan_cuda(x, dt, a, bm, cm, 8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", PHASE_SHAPES)
+def test_ssd_scan_phases_ref_matches_jax_kernel_and_refs(b, s, h, p, n, chunk, dtype):
+    """The chain's algorithm, phase by phase, against the JAX Pallas kernel
+    (interpret mode), the JAX chunked form and the sequential oracle, at
+    test_kernels.py's tolerances."""
+    j, t = _cast(_inputs(b + s + chunk, b, s, h, p, n), dtype)
+    y, hf, cum, g, h_in = ssd_scan_phases_ref(*t, chunk)
+    nc = -(-s // chunk)
+    assert y.dtype == getattr(torch, dtype) and tuple(y.shape) == (b, s, h, p)
+    assert hf.dtype == torch.float32 and tuple(hf.shape) == (b, h, p, n)
+    assert cum.dtype == torch.float64 and tuple(cum.shape) == (b, h, nc * chunk)
+    assert g.dtype == torch.float32 and tuple(g.shape) == (b, nc, chunk, chunk)
+    assert h_in.dtype == torch.float32 and tuple(h_in.shape) == (b, nc, h, p, n)
+    tol = TOL[dtype]
+    for y_j, h_j in (jax_ssd_scan(*j, chunk=chunk, interpret=True), jax_ssd_scan_ref(*j),
+                     jax_ssd_chunked(*j, chunk)):
+        np.testing.assert_allclose(y.float().numpy(), np.asarray(y_j, np.float32),
+                                   rtol=tol, atol=tol)
+        np.testing.assert_allclose(hf.numpy(), np.asarray(h_j, np.float32), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", PHASE_SHAPES)
+def test_ssd_scan_phases_ref_workspaces_follow_the_recurrence(b, s, h, p, n, chunk):
+    """Each workspace in its layout: cum is the per-chunk fp64 cumsum of
+    a·dt (summation order only: 1e-12), G is C_c B_cᵀ below the diagonal and
+    0 above (fp32 against fp64 sums: 1e-4), h_in[0] = 0 and h_in[c+1] is
+    the sequential recurrence's state after chunk c (chunked against
+    sequential rounding: 3e-4)."""
+    x, dt, a, bm, cm = _inputs(s * chunk, b, s, h, p, n)
+    y, hf, cum, g, h_in = ssd_scan_phases_ref(
+        *(torch.from_numpy(v) for v in (x, dt, a, bm, cm)), chunk)
+    nc = -(-s // chunk)
+    pad = ((0, 0), (0, nc * chunk - s), (0, 0))
+    dt64 = np.pad(dt, pad).astype(np.float64) * a.astype(np.float64)
+    cum_np = dt64.reshape(b, nc, chunk, h).cumsum(2).transpose(0, 3, 1, 2).reshape(b, h, -1)
+    np.testing.assert_allclose(cum.numpy(), cum_np, rtol=1e-12, atol=0)
+    bc, cc = (np.pad(v, pad).astype(np.float64).reshape(b, nc, chunk, n) for v in (bm, cm))
+    g_np = np.tril(np.einsum("bctn,bcun->bctu", cc, bc))
+    np.testing.assert_allclose(g.numpy(), g_np, rtol=1e-4, atol=1e-4)
+    assert not h_in[:, 0].any()
+    for c in range(nc - 1):
+        end = (c + 1) * chunk
+        _, h_seq = ssd_scan_ref(*(torch.from_numpy(np.ascontiguousarray(v[:, :end]))
+                                  for v in (x, dt)), torch.from_numpy(a),
+                                *(torch.from_numpy(np.ascontiguousarray(v[:, :end]))
+                                  for v in (bm, cm)))
+        np.testing.assert_allclose(h_in[:, c + 1].numpy(), h_seq.numpy(), rtol=3e-4, atol=3e-4)
+    y_seq, h_seq = ssd_scan_ref(*(torch.from_numpy(v) for v in (x, dt, a, bm, cm)))
+    np.testing.assert_allclose(hf.numpy(), h_seq.numpy(), rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(y.numpy(), y_seq.numpy(), rtol=3e-4, atol=3e-4)
