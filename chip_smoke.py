@@ -10,9 +10,13 @@ Phases, each printing one line or more; any failure exits non-zero:
              with nvcc (all sources at once) into ``build/torch_kernels/``.
 3. kernels — each kernel against its plain PyTorch version on the card:
              accuracy, argmin agreement up to near-ties, exact ties to the
-             lowest index, bitwise-repeatable launches; device time per
-             launch (CUDA-graph replay, CUDA events) beside the plain
-             version and the bound, and the wrapper's host cost per call.
+             lowest index, bitwise-repeatable launches; ``gmsa_score``'s
+             cost workspace against the plain two-phase version at every
+             shape; device time per launch (CUDA-graph replay, CUDA events)
+             beside the plain version and the bound, each of its two
+             kernels' mean time over five profiled calls beside that
+             phase's own bound, and the wrapper's host cost per call; the
+             edges of a captured call (is the programmatic launch kept?).
 4. lockstep — full fleet_256 (N=256, K=8, T=288, 100 runs): every slot,
              kernel and plain decisions on the same state; decisions that
              differ off a near-tie must number 0. Queues step with the
@@ -68,7 +72,13 @@ SCORE_SHAPES = [
     (None, 9, 129), (None, 16, 256), (100, 8, 256), (1, 128, 1024),
 ]
 MAIN_SHAPE = (100, 8, 256)
+BENCH_SHAPE = (1, 128, 1024)
 SCORE_RTOL = 1e-4   # fp32, different summation order (test_kernels.py's tolerance)
+#: The cost workspace against gmsa_score_phases_ref: both sum in fp64 and
+#: round once to fp32, so they differ by an ulp at most (1e-6 relative).
+SCORE_COST_RTOL = 1e-6
+#: gmsa_score's two kernels, in launch order (``gmsa_<phase>_kernel``).
+SCORE_PHASES = ("cost", "pick")
 TIE_RTOL = 1e-5     # a differing argmin is a near-tie if its plain score is this close
 TIE_ATOL = 1e-4
 
@@ -151,13 +161,29 @@ def call_time_ms(fn, iters: int = 200) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
+def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+    """The larger of bytes over the H100's memory rate and fp32 operations
+    over its fp32 rate, in ms, and which of the two it is."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def score_bound_ms(runs: int, k: int, n: int) -> tuple[float, str]:
     """Least time for one gmsa_score launch: each input read once, each
     output written once, against the H100's memory rate and fp32 rate."""
     nbytes = 4 * (k * n * n + 2 * runs * k * n + runs * k + k + n) + 4 * (runs * k * n + runs * k)
-    flops = 2 * k * n * n + 4 * runs * k * n
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, 2 * k * n * n + 4 * runs * k * n)
+
+
+def score_phase_bounds_ms(runs: int, k: int, n: int) -> dict[str, tuple[float, str]]:
+    """Each of gmsa_score's phases on its own bytes, read and written once:
+    cost reads r and wpue and writes the (K, N) workspace; pick reads q,
+    mu, a, vp and the workspace and writes scores and best."""
+    return {
+        "cost": bound_ms(4 * (k * n * n + n + k * n), 2 * k * n * n),
+        "pick": bound_ms(4 * (2 * runs * k * n + runs * k + k + k * n + runs * k * n + runs * k),
+                         4 * runs * k * n),
+    }
 
 
 def ssd_bound_ms(b: int, s: int, h: int, p: int, n: int, q: int,
@@ -170,8 +196,7 @@ def ssd_bound_ms(b: int, s: int, h: int, p: int, n: int, q: int,
     pairs = full * q * (q + 1) // 2 + rem * (rem + 1) // 2   # (t, s') with s' <= t
     nbytes = itemsize * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h + b * h * p * n)
     flops = 2 * pairs * b * n + 2 * pairs * b * h * p + 4 * b * s * h * p * n
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, flops)
 
 
 def rel_err(got, want) -> float:
@@ -244,17 +269,21 @@ def phase_device():
 
 def ptxas_usage(text: str) -> list[str]:
     """One line per kernel function from an ``nvcc -Xptxas -v`` log: its
-    name (with ``<bf16>`` for the bf16 instantiation), registers, spill
-    stores and loads, shared memory."""
+    name (with ``<bf16>`` for the bf16 instantiation, ``<true>`` or ``<2>``
+    for a bool or int template argument), registers, spill stores and
+    loads, shared memory."""
     import re
 
     rows = []
     for line in text.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
             mangled = m.group(1)
-            short = re.search(r"\d+((?:ssd_scan|gmsa_score)\w*?_kernel)", mangled)
-            rows.append({"name": (short.group(1) if short else mangled)
-                         + ("<bf16>" if "bfloat16" in mangled else "")})
+            short = re.search(r"\d+((?:ssd_scan|gmsa)\w*?_kernel)(?:IL([bi])(\d+)E)?", mangled)
+            name = short.group(1) if short else mangled
+            if short and short.group(2):
+                arg = short.group(3)
+                name += f"<{('false', 'true')[int(arg)] if short.group(2) == 'b' else arg}>"
+            rows.append({"name": name + ("<bf16>" if "bfloat16" in mangled else "")})
         elif rows and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             rows[-1]["spills"] = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
         elif rows and (m := re.search(r"Used (\d+) registers", line)):
@@ -277,46 +306,134 @@ def phase_build():
     log(f"[build] {len(logs)} kernel(s) built in {secs:.2f} s -> {_build.BUILD_DIR}")
 
 
+def phase_times(fn, calls: int, kernels: dict[str, str]) -> tuple[dict[str, float | None], float]:
+    """``calls`` calls of ``fn()`` under torch.profiler: for each phase, the
+    mean device time per launch (ms) of the kernels whose name holds
+    ``kernels[phase]``, None where the trace shows none, and the sum of
+    those means."""
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    _, events = device_profile(run)
+    phase = {}
+    for ph, name in kernels.items():
+        hits = [(us, c) for k, us, c in events if name in k]
+        count = sum(c for _, c in hits)
+        phase[ph] = sum(us for us, _ in hits) / count / 1e3 if count else None
+    return phase, sum(v for v in phase.values() if v is not None)
+
+
+def graph_edges(fn) -> str:
+    """Capture two calls of ``fn()`` in a CUDA graph, as ``device_time_ms``
+    does, and count the graph's edges by type (``cuGraphGetEdges_v2`` from
+    libcuda): whether stream capture kept a programmatic dependent launch
+    as a programmatic edge. "not measured" where this torch or libcuda
+    lacks the calls."""
+    import ctypes
+
+    import torch
+
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        get_edges = ctypes.CDLL("libcuda.so.1").cuGraphGetEdges_v2
+    except (TypeError, OSError, AttributeError) as exc:
+        return f"not measured ({exc})"
+
+    class EdgeData(ctypes.Structure):
+        _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                    ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        fn()
+        fn()
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    get_edges.restype = ctypes.c_int
+    rc = get_edges(handle, None, None, None, ctypes.byref(count))
+    frm, to = (ctypes.c_void_p * count.value)(), (ctypes.c_void_p * count.value)()
+    data = (EdgeData * count.value)()
+    rc = rc or get_edges(handle, frm, to, data, ctypes.byref(count))
+    if rc:
+        return f"not measured (cuGraphGetEdges_v2 returned {rc})"
+    kinds = [(d.type, d.from_port) for d in data[:count.value]]
+    prog = sum(t == 1 for t, _ in kinds)
+    return (f"{count.value} edges, {prog} programmatic (type, from_port): "
+            + ", ".join(f"({t}, {p})" for t, p in kinds))
+
+
 def phase_kernels(dev):
     import torch
 
     from repro_torch.configs.fleet_256 import FleetConfig, make_score_operands
-    from repro_torch.kernels.gmsa_score.kernel import gmsa_score_cuda
-    from repro_torch.kernels.gmsa_score.ref import gmsa_score_ref
+    from repro_torch.kernels.gmsa_score.kernel import _gmsa_score_cuda_phases, gmsa_score_cuda
+    from repro_torch.kernels.gmsa_score.ref import gmsa_score_phases_ref, gmsa_score_ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    worst_rel, main = 0.0, None
+    worst_rel, worst_cost, main, bench = 0.0, 0.0, None, None
     for runs, k, n in SCORE_SHAPES:
+        shape = f"R={runs} K={k} N={n}"
         ops = score_inputs(gen, runs, k, n, dev)
-        s, b = gmsa_score_cuda(*ops)
+        cost, s, b = _gmsa_score_cuda_phases(*ops)
         s2, b2 = gmsa_score_cuda(*ops)
         s_ref, b_ref = gmsa_score_ref(*ops)
+        cost_ref, _, _ = gmsa_score_phases_ref(*ops)
         torch.cuda.synchronize()
         if not (torch.equal(s, s2) and torch.equal(b, b2)):
-            fail(f"gmsa_score launches differ bitwise at R={runs} K={k} N={n}")
+            fail(f"gmsa_score launches differ bitwise at {shape}")
+        cost_rel = float(((cost - cost_ref).abs() / cost_ref.abs().clamp_min(1.0)).max())
+        worst_cost = max(worst_cost, cost_rel)
+        if cost_rel > SCORE_COST_RTOL:
+            fail(f"gmsa_score cost workspace off gmsa_score_phases_ref by {cost_rel:.3e} "
+                 f"(relative) at {shape}")
         err = (s - s_ref).abs()
         if bool((err > SCORE_RTOL + SCORE_RTOL * s_ref.abs()).any()):
-            fail(f"gmsa_score scores off by {float(err.max())} at R={runs} K={k} N={n}")
+            fail(f"gmsa_score scores off by {float(err.max())} at {shape}")
         rel = float((err / s_ref.abs().clamp_min(1.0)).max())
         worst_rel = max(worst_rel, rel)
         mism = off_tie_mismatches(b, b_ref, s_ref)
         if mism:
-            fail(f"gmsa_score argmin differs off near-ties ({mism}) at R={runs} K={k} N={n}")
+            fail(f"gmsa_score argmin differs off near-ties ({mism}) at {shape}")
+        if (runs, k, n) == MAIN_SHAPE:
+            log(f"[kernels] gmsa_score {shape}, two calls captured in a CUDA graph: "
+                f"{graph_edges(lambda: gmsa_score_cuda(*ops))}")
         t_k = device_time_ms(lambda: gmsa_score_cuda(*ops))
         t_p = device_time_ms(lambda: gmsa_score_ref(*ops))
         c_k = call_time_ms(lambda: gmsa_score_cuda(*ops))
         bound, bound_by = score_bound_ms(runs or 1, k, n)
-        log(f"[kernels] gmsa_score R={runs} K={k} N={n}: max_abs_err {float(err.max()):.3e} "
-            f"max_rel_err {rel:.3e} | device: kernel {t_k * 1e3:.2f} us, plain "
-            f"{t_p * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({bound_by}) | host wall per "
-            f"wrapper call {c_k * 1e3:.2f} us")
+        phase, total = phase_times(lambda: gmsa_score_cuda(*ops), 5,
+                                   {ph: f"gmsa_{ph}_kernel" for ph in SCORE_PHASES})
+        phase_bounds = score_phase_bounds_ms(runs or 1, k, n)
+        log(f"[kernels] gmsa_score {shape}: max_abs_err {float(err.max()):.3e} "
+            f"max_rel_err {rel:.3e}, cost workspace {cost_rel:.3e} (tol "
+            f"{SCORE_COST_RTOL:g}) | device: kernels {t_k * 1e3:.2f} us, plain "
+            f"{t_p * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({bound_by}; at "
+            f"{100 * bound / t_k:.1f}% of it) | host wall per wrapper call {c_k * 1e3:.2f} us")
+        log(f"[kernels] gmsa_score {shape}: five calls under torch.profiler, mean per launch: "
+            + ", ".join(f"{ph} " + ("not measured" if phase[ph] is None else
+                                    f"{phase[ph] * 1e3:.2f} us (bound {phase_bounds[ph][0] * 1e3:.3f}"
+                                    f" us, {phase_bounds[ph][1]})") for ph in SCORE_PHASES)
+            + f"; sum {total * 1e3:.2f} us. The pick kernel launches under the cost kernel "
+            f"(programmatic launch), so its span includes its wait; the call's device time "
+            f"beyond the cost kernel is "
+            + ("not measured" if phase["cost"] is None else f"{(t_k - phase['cost']) * 1e3:.2f} us"))
         if (runs, k, n) == MAIN_SHAPE:
             r_mat, w = ops[4], ops[5]
             t_mv = device_time_ms(lambda: torch.mv(r_mat.view(k * n, n), w))
             log(f"[kernels] yardstick for the matvec part alone, torch.mv((K*N, N), N) "
                 f"at K={k} N={n}: {t_mv * 1e3:.2f} us (not the same function)")
             main = {"max_abs_err": float(err.max()), "ms": t_k, "plain_ms": t_p,
-                    "bound_ms": bound, "bound_by": bound_by}
+                    "bound_ms": bound, "bound_by": bound_by, "phase_ms": phase}
+        if (runs, k, n) == BENCH_SHAPE:
+            bench = {"ms_bench": t_k, "plain_ms_bench": t_p, "bound_ms_bench": bound,
+                     "phase_ms_bench": phase}
+        del ops, cost, s, b, s2, b2, s_ref, b_ref, cost_ref
+    torch.cuda.empty_cache()
 
     # Exact ties go to the lowest index; a = 0 rows pick index 0.
     q, mu, a, vp, r, wpue = (x.contiguous() for x in score_inputs(gen, 4, 8, 256, dev))
@@ -347,6 +464,8 @@ def phase_kernels(dev):
     log(f"[kernels] fleet_256 developed-backlog operands: max_rel_err {rel:.3e}, "
         f"argmin agrees up to near-ties")
     main["max_rel_err"] = worst_rel
+    main["workspace_rel_err"] = worst_cost
+    main.update(bench)
     return main
 
 
@@ -418,14 +537,19 @@ def device_profile(fn) -> tuple[float, list[tuple[str, float, int]]]:
 
 def device_busy_share(fn) -> str:
     """Share of one call's wall time the card spent in kernels, from
-    torch.profiler, or "not measured" when the trace shows no device time."""
+    torch.profiler, with gmsa_score's two kernels summed, or "not measured"
+    when the trace shows no device time."""
     wall, events = device_profile(fn)
     dev_us = sum(us for _, us, _ in events)
     if dev_us <= 0:
         return "not measured"
     kernels = ", ".join(f"{k[:40]} {us / 1e3:.2f} ms x{c}" for k, us, c in events[:4])
+    score = [(us, c) for k, us, c in events
+             if any(f"gmsa_{ph}_kernel" in k for ph in SCORE_PHASES)]
     return (f"device busy {dev_us / 1e3:.2f} ms of {wall * 1e3:.2f} ms wall under the "
-            f"profiler ({100 * dev_us / 1e6 / wall:.1f}%); top: {kernels}")
+            f"profiler ({100 * dev_us / 1e6 / wall:.1f}%); gmsa_score kernels "
+            f"{sum(us for us, _ in score) / 1e3:.2f} ms x{sum(c for _, c in score)}; "
+            f"top: {kernels}")
 
 
 def phase_end_to_end(dev):
@@ -545,25 +669,6 @@ def is_ssd_kernel(name: str) -> bool:
     return any(f"ssd_scan_{ph}_kernel" in name for ph in SSD_PHASES)
 
 
-def ssd_phase_times(ops, q, calls: int = 3) -> tuple[dict[str, float | None], float]:
-    """``calls`` chain calls under torch.profiler: each phase kernel's mean
-    device time per launch (ms) by name, None where the trace shows none, and
-    the sum of those means."""
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
-
-    def run():
-        for _ in range(calls):
-            ssd_scan_cuda(*ops, q)
-
-    _, events = device_profile(run)
-    phase = {}
-    for ph in SSD_PHASES:
-        hits = [(us, c) for k, us, c in events if f"ssd_scan_{ph}_kernel" in k]
-        count = sum(c for _, c in hits)
-        phase[ph] = sum(us for us, _ in hits) / count / 1e3 if count else None
-    return phase, sum(v for v in phase.values() if v is not None)
-
-
 def check_ssd_workspaces(ops, q, shape: str) -> dict[str, float]:
     """Every workspace of one chain call against the plain phase-by-phase
     version on the same inputs; fails beyond the stated tolerances."""
@@ -641,7 +746,8 @@ def phase_ssd_kernel(dev):
             t_k = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=5, iters=4)
             t_c = device_time_ms(lambda: ssd_chunked(*ops, q), reps=1, iters=3)
             bound, bound_by = ssd_bound_ms(b, s, h, p, n, q, dtype.itemsize)
-            phase, total = ssd_phase_times(ops, q)
+            phase, total = phase_times(lambda: ssd_scan_cuda(*ops, q), 3,
+                                       {ph: f"ssd_scan_{ph}_kernel" for ph in SSD_PHASES})
             line = (f"[ssd] {shape}: device: kernel chain {t_k:.3f} ms, plain chunked {t_c:.3f} "
                     f"ms, bound {bound:.3f} ms ({bound_by}; chain at "
                     f"{100 * bound / t_k:.1f}% of it)")
@@ -836,6 +942,12 @@ def main() -> int:
         "library_ms": None,
         "max_rel_err": max(main_shape["max_rel_err"], lock_rel),
         "off_tie_mismatches": mism,
+        "phase_ms": main_shape["phase_ms"],
+        "workspace_rel_err": main_shape["workspace_rel_err"],
+        "ms_bench": main_shape["ms_bench"],
+        "plain_ms_bench": main_shape["plain_ms_bench"],
+        "bound_ms_bench": main_shape["bound_ms_bench"],
+        "phase_ms_bench": main_shape["phase_ms_bench"],
     }
     ssd_entry = {
         "name": "ssd_scan",

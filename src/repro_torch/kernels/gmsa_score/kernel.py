@@ -1,9 +1,13 @@
-"""ctypes binding of the CUDA ``gmsa_score`` kernel (``csrc/gmsa_score.cu``).
+"""ctypes binding of the CUDA ``gmsa_score`` kernels (``csrc/gmsa_score.cu``).
 
-The library is built by ``nvcc`` at first use (:mod:`repro_torch.kernels._build`)
-and launched on PyTorch's current stream. q, mu, a and vp are passed with
-their element strides, so the simulator's (R, N, K) backlogs are read in
-place through a transposed view — no per-slot transpose copy.
+The library is built by ``nvcc`` at first use (:mod:`repro_torch.kernels._build`).
+One call of ``gmsa_score_launch`` launches two kernels on PyTorch's current
+stream — the card-wide cost matvec, then the per-run score and argmin as a
+programmatic dependent launch — and that call is what
+``gmsa_score_cuda.launches`` counts as one launch. The wrapper allocates the
+(K, N) cost workspace; it is freed after the call. q, mu, a and vp are
+passed with their element strides, so the simulator's (R, N, K) backlogs
+are read in place through a transposed view — no per-slot transpose copy.
 """
 
 from __future__ import annotations
@@ -16,17 +20,18 @@ from torch import Tensor
 
 from repro_torch.kernels import _build
 
-#: Shared memory holds the (N,) cost row; the card allows 227 KB a block.
-MAX_N = 56 * 1024
-_MAX_GRID_Y = 65535
+#: The cost kernel stages wpue in fp64 in shared memory: 8·N bytes of the
+#: 227 KB (232,448 bytes) a block may hold.
+MAX_N = 232_448 // 8
+#: The pick kernel's grid is (runs, ceil(K / 8)).
+_MAX_RUNS, _MAX_K = 2**31 - 1, 8 * 65535
 
 
 @functools.cache
 def _launcher():
-    lib = _build.load("gmsa_score")
-    fn = lib.gmsa_score_launch
+    fn = _build.load("gmsa_score").gmsa_score_launch
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 10 + [ptr]
+    fn.argtypes = [ptr] * 9 + [i32] * 4 + [i64] * 10 + [ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -36,24 +41,14 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _runs_per_block(r_runs: int, k: int, sms: int) -> int:
-    """Chunk the runs so the grid roughly fills the card once: each block
-    re-reads r[k] (from L2 after the first), so more chunks than SMs only
-    adds traffic."""
-    chunks = max(1, min(r_runs, sms // max(k, 1)))
-    rpb = -(-r_runs // chunks)
-    return max(rpb, -(-r_runs // _MAX_GRID_Y))
-
-
-def gmsa_score_cuda(
+def _gmsa_score_cuda_phases(
     q: Tensor, mu: Tensor, a: Tensor, vp: Tensor, r: Tensor, wpue: Tensor
-) -> tuple[Tensor, Tensor]:
-    """Launch the kernel on fp32 CUDA tensors.
-
-    Shapes: q, mu (*B, K, N); a (*B, K); vp (K,) or (*B, K); r (K, N, N);
-    wpue (N,). Returns (scores (*B, K, N) fp32, best (*B, K) int32).
-    Increments ``gmsa_score_cuda.launches`` once per kernel launch.
-    """
+) -> tuple[Tensor, Tensor, Tensor]:
+    """:func:`gmsa_score_cuda` returning the cost workspace too, in the
+    layout of :func:`~repro_torch.kernels.gmsa_score.ref.gmsa_score_phases_ref`:
+    (cost (K, N) fp32, scores (*B, K, N) fp32, best (*B, K) int32). The main
+    path calls it only through :func:`gmsa_score_cuda`; called directly, it
+    checks the two phases apart on the card. Counts one launch."""
     tensors = (q, mu, a, vp, r, wpue)
     if any(t.device.type != "cuda" or t.dtype != torch.float32 for t in tensors):
         raise TypeError("gmsa_score_cuda takes fp32 CUDA tensors only")
@@ -67,35 +62,51 @@ def gmsa_score_cuda(
             f"shape mismatch: q {tuple(q.shape)}, mu {tuple(mu.shape)}, "
             f"r {tuple(r.shape)}, wpue {tuple(wpue.shape)}"
         )
-    if n > MAX_N:
-        raise ValueError(f"N={n} exceeds the kernel's shared-memory limit {MAX_N}")
     runs = 1
     for d in batch:
         runs *= d
+    if n > MAX_N or k > _MAX_K or runs > _MAX_RUNS:
+        raise ValueError(f"N={n}, K={k}, {runs} runs outside the kernels' limits "
+                         f"(N <= {MAX_N}, K <= {_MAX_K}, runs <= {_MAX_RUNS})")
     q3 = q.reshape(runs, k, n)
     mu3 = mu.reshape(runs, k, n)
     a2 = a.broadcast_to(batch + (k,)).reshape(runs, k)
     vp2 = vp.broadcast_to(batch + (k,)).reshape(runs, k)
     r = r.contiguous()
     wpue = wpue.contiguous()
-    scores = torch.empty((runs, k, n), device=q.device, dtype=torch.float32)
-    best = torch.empty((runs, k), device=q.device, dtype=torch.int32)
+    dev = q.device
+    cost = torch.empty((k, n), device=dev, dtype=torch.float32)
+    scores = torch.empty((runs, k, n), device=dev, dtype=torch.float32)
+    best = torch.empty((runs, k), device=dev, dtype=torch.int32)
     if runs and k and n:
-        dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
-        rpb = _runs_per_block(runs, k, _sm_count(dev))
-        with torch.cuda.device(q.device):
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             rc = _launcher()(
                 q3.data_ptr(), mu3.data_ptr(), a2.data_ptr(), vp2.data_ptr(),
-                r.data_ptr(), wpue.data_ptr(), scores.data_ptr(), best.data_ptr(),
-                runs, k, n, rpb,
+                r.data_ptr(), wpue.data_ptr(), cost.data_ptr(), scores.data_ptr(),
+                best.data_ptr(), runs, k, n, _sm_count(index),
                 *q3.stride(), *mu3.stride(), *a2.stride(), *vp2.stride(),
                 stream,
             )
         if rc != 0:
             raise RuntimeError(f"gmsa_score kernel launch failed: CUDA error {rc}")
         gmsa_score_cuda.launches += 1
-    return scores.reshape(batch + (k, n)), best.reshape(batch + (k,))
+    return cost, scores.reshape(batch + (k, n)), best.reshape(batch + (k,))
+
+
+def gmsa_score_cuda(
+    q: Tensor, mu: Tensor, a: Tensor, vp: Tensor, r: Tensor, wpue: Tensor
+) -> tuple[Tensor, Tensor]:
+    """Launch the kernels on fp32 CUDA tensors.
+
+    Shapes: q, mu (*B, K, N); a (*B, K); vp (K,) or (*B, K); r (K, N, N);
+    wpue (N,). Returns (scores (*B, K, N) fp32, best (*B, K) int32).
+    Increments ``gmsa_score_cuda.launches`` once per call: one launch is
+    one call of the two-kernel chain.
+    """
+    _, scores, best = _gmsa_score_cuda_phases(q, mu, a, vp, r, wpue)
+    return scores, best
 
 
 gmsa_score_cuda.launches = 0

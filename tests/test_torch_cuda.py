@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.kernels.gmsa_score import gmsa_score, gmsa_score_ref
-from repro_torch.kernels.gmsa_score.kernel import gmsa_score_cuda
+from repro_torch.kernels.gmsa_score import gmsa_score, gmsa_score_phases_ref, gmsa_score_ref
+from repro_torch.kernels.gmsa_score.kernel import _gmsa_score_cuda_phases, gmsa_score_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_phases_ref, ssd_scan_ref
 from repro_torch.kernels.ssd_scan.kernel import _ssd_scan_cuda_phases, ssd_scan_cuda
 from repro_torch.models import lm
@@ -149,6 +149,84 @@ def test_gmsa_score_kernel_matches_plain_version(cuda):
     torch.testing.assert_close(s, s0, rtol=1e-4, atol=1e-4)
     picked = torch.gather(s0, -1, b.long()[..., None])[..., 0]
     torch.testing.assert_close(picked, s0.min(-1).values, rtol=1e-5, atol=1e-4)
+
+
+def _score_ops(seed, runs, k, n, layout, dev):
+    """gmsa_score operands with q and mu in one of the layouts the kernel
+    tells apart: ``k_contig`` (the simulator's (R, N, K) buffers through
+    .mT), ``n_contig`` (contiguous (R, K, N)), ``strided`` (every second
+    element of a wider buffer: the scalar path), ``r_unaligned`` (n_contig,
+    with r contiguous but 4 bytes off 16-byte alignment: the cost kernel's
+    scalar path)."""
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
+    q, mu = rng.random((runs, k, n)) * 100, rng.random((runs, k, n)) * 50
+    r = rng.random((k, n, n), dtype=np.float32)
+    r /= r.sum(-1, keepdims=True)
+    a, vp, wpue = t(rng.random((runs, k)) * 40), t(rng.random(k) * 10), t(rng.random(n) * 20)
+    r = t(r)
+    if layout == "k_contig":
+        q, mu = t(np.swapaxes(q, -1, -2)).mT, t(np.swapaxes(mu, -1, -2)).mT
+    elif layout == "strided":
+        wide = lambda x: torch.repeat_interleave(t(x), 2, dim=-1)[..., ::2]
+        q, mu = wide(q), wide(mu)
+    else:
+        q, mu = t(q), t(mu)
+    if layout == "r_unaligned":
+        flat = torch.empty(r.numel() + 1, device=dev)
+        flat[1:] = r.flatten()
+        r = flat[1:].view(k, n, n)
+        assert r.is_contiguous() and r.data_ptr() % 16
+    return q, mu, a, vp, r, wpue
+
+
+def _check_scores(s, b, s0):
+    """Scores within the fp32 summation-order tolerance of the plain
+    version; a differing argmin only on a near-tie (1e-5 relative)."""
+    torch.testing.assert_close(s, s0, rtol=1e-4, atol=1e-4)
+    picked = torch.gather(s0, -1, b.long()[..., None])[..., 0]
+    torch.testing.assert_close(picked, s0.min(-1).values, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["k_contig", "n_contig", "strided", "r_unaligned"])
+@pytest.mark.parametrize("runs,k,n", [(3, 8, 256), (2, 9, 129), (4, 1, 4), (2, 5, 130),
+                                      (1, 128, 1024)])
+def test_gmsa_score_chain_matches_plain_phases(cuda, runs, k, n, layout):
+    """The cost workspace against gmsa_score_phases_ref (both accumulate in
+    fp64 and round once: 1e-6 relative), scores and argmin against the
+    plain version; calls repeat bitwise and each counts one launch."""
+    ops = _score_ops(runs * k + n, runs, k, n, layout, cuda)
+    before = gmsa_score_cuda.launches
+    cost, s, b = _gmsa_score_cuda_phases(*ops)
+    s2, b2 = gmsa_score(*ops)
+    assert gmsa_score_cuda.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(s, s2) and torch.equal(b, b2)
+    assert s.shape == (runs, k, n) and b.shape == (runs, k) and b.dtype == torch.int32
+    cost0, s0p, _ = gmsa_score_phases_ref(*ops)
+    assert _rel(cost, cost0) <= 1e-6
+    _check_scores(s, b, s0p)
+    _check_scores(s, b, gmsa_score_ref(*ops)[0])
+
+
+@pytest.mark.parametrize("layout", ["k_contig", "n_contig"])
+def test_gmsa_score_chain_ties_zero_arrivals_and_nan(cuda, layout):
+    """Exact ties go to the lowest index, a = 0 rows to index 0, and a NaN
+    score wins at its index, as in torch.argmin."""
+    # clone() keeps each operand's strides, so the layout survives.
+    q, mu, a, vp, r, wpue = (x.clone() for x in _score_ops(21, 4, 8, 256, layout, cuda))
+    lo, hi = 37, 201
+    q[..., lo] = -1e4
+    q[..., hi], mu[..., hi], r[:, hi, :] = q[..., lo], mu[..., lo], r[:, lo, :]
+    a[:, 3] = 0.0
+    q[2, 6, 77] = float("nan")
+    s, b = gmsa_score(q, mu, a, vp, r, wpue)
+    want = torch.full((4, 8), lo, dtype=torch.int32, device=cuda)
+    want[:, 3] = 0
+    want[2, 6] = 77
+    assert torch.equal(b, want)
+    assert torch.equal(s[..., lo], s[..., hi])
+    assert torch.equal(b, torch.argmin(s, dim=-1).to(torch.int32))
 
 
 def test_smoke_model_on_the_card_matches_the_cpu(cuda):

@@ -14,8 +14,8 @@ import torch
 
 from repro.kernels.gmsa_score import gmsa_score as jax_gmsa_score
 from repro_torch.core.gmsa import gmsa_dispatch
-from repro_torch.kernels.gmsa_score import gmsa_score, gmsa_score_ref
-from repro_torch.kernels.gmsa_score.kernel import gmsa_score_cuda
+from repro_torch.kernels.gmsa_score import gmsa_score, gmsa_score_phases_ref, gmsa_score_ref
+from repro_torch.kernels.gmsa_score.kernel import _gmsa_score_cuda_phases, gmsa_score_cuda
 
 torch.set_float32_matmul_precision("highest")
 
@@ -81,6 +81,54 @@ def test_gmsa_score_runs_axis_matches_vmapped_jax(k, n, dtype):
     _check_best(b_t.numpy(), s_j)
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "transposed"])
+@pytest.mark.parametrize("runs", [(), (3,)], ids=["single", "runs"])
+@pytest.mark.parametrize("k,n", SHAPES)
+def test_gmsa_score_phases_ref_matches_jax(k, n, runs, layout):
+    """The CUDA chain's two-phase algorithm in plain PyTorch: its cost
+    workspace against the JAX matvec, its scores and argmin against the
+    Pallas kernel (vmapped over runs), with q and mu given contiguous or as
+    the simulator's transposed (R, N, K) view. fp32, summation order: 1e-4."""
+    q, mu, a, vp, r, wpue = _inputs(k * 1000 + n + 2, k, n, runs=runs)
+    cost_j = jnp.einsum("kij,j->ki", jnp.asarray(r), jnp.asarray(wpue))
+    kernel = lambda qq, mm, aa: jax_gmsa_score(
+        qq, mm, aa, jnp.asarray(vp), jnp.asarray(r), jnp.asarray(wpue), interpret=True)
+    if runs:
+        kernel = jax.vmap(kernel)
+    s_j, _ = kernel(jnp.asarray(q), jnp.asarray(mu), jnp.asarray(a))
+    if layout == "transposed":
+        as_view = lambda x: torch.from_numpy(np.ascontiguousarray(np.swapaxes(x, -1, -2))).mT
+        q_t, mu_t = as_view(q), as_view(mu)
+        assert k == 1 or (q_t.stride(-2) == 1 and not q_t.is_contiguous())
+    else:
+        q_t, mu_t = torch.from_numpy(q), torch.from_numpy(mu)
+    cost, s_t, b_t = gmsa_score_phases_ref(
+        q_t, mu_t, *(torch.from_numpy(x) for x in (a, vp, r, wpue)))
+    assert cost.dtype == s_t.dtype == torch.float32 and b_t.dtype == torch.int32
+    assert tuple(cost.shape) == (k, n)
+    assert tuple(s_t.shape) == runs + (k, n) and tuple(b_t.shape) == runs + (k,)
+    np.testing.assert_allclose(cost.numpy(), np.asarray(cost_j), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-4, atol=1e-4)
+    _check_best(b_t.numpy(), s_j)
+
+
+def test_gmsa_score_phases_ref_ties_and_zero_arrivals():
+    """The two-phase version keeps the contract: exact ties to the lowest
+    index, a = 0 rows to index 0, a NaN score wins as in torch.argmin."""
+    q, mu, a, vp, r, wpue = (torch.from_numpy(x) for x in _inputs(17, 8, 64, runs=(2,)))
+    lo, hi = 5, 40
+    q[..., lo] = -1e4
+    q[..., hi], mu[..., hi], r[:, hi, :] = q[..., lo], mu[..., lo], r[:, lo, :]
+    a[:, 3] = 0.0
+    q[1, 6, 50] = float("nan")
+    _, s, b = gmsa_score_phases_ref(q, mu, a, vp, r, wpue)
+    want = torch.full((2, 8), lo, dtype=torch.int32)
+    want[:, 3] = 0
+    want[1, 6] = 50
+    assert torch.equal(b, want)
+    assert torch.equal(b, torch.argmin(s, dim=-1).to(torch.int32))
+
+
 def test_gmsa_score_reads_transposed_operands():
     """The simulator hands (R, N, K) backlogs as transposed views and a
     strided arrivals column; the result equals the contiguous call exactly."""
@@ -135,6 +183,8 @@ def test_gmsa_score_cuda_refuses_cpu_tensors():
     ops = [torch.from_numpy(x) for x in _inputs(13, 2, 8)]
     with pytest.raises(TypeError, match="CUDA"):
         gmsa_score_cuda(*ops)
+    with pytest.raises(TypeError, match="CUDA"):
+        _gmsa_score_cuda_phases(*ops)
     assert gmsa_score_ref(*ops)[1].dtype == torch.int32
 
 
