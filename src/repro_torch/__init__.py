@@ -4,13 +4,21 @@ A second package beside the JAX reference :mod:`repro`. It mirrors that
 package's layout module for module (``repro.core.gmsa`` ->
 ``repro_torch.core.gmsa`` and so on) and imports nothing of it:
 
-    repro_torch.core      — queues (Eq. 1), energy model, GMSA, baselines,
-                            Iridium placement, the time-slotted simulator
-    repro_torch.kernels   — hand-written CUDA kernels (``gmsa_score``) with
-                            their plain PyTorch versions beside them
-    repro_torch.traces    — arrival / price / PUE / bandwidth / dataset traces
-    repro_torch.configs   — the paper's 4-DC scenario and the N = 256 fleet
-    repro_torch.bridge    — numpy trace bundles -> the port's ``SimInputs``
+    repro_torch.core       — queues (Eq. 1), energy model, GMSA, baselines,
+                             Iridium placement, the time-slotted simulator,
+                             V-sweep grids
+    repro_torch.kernels    — hand-written CUDA kernels (``gmsa_score``,
+                             ``ssd_scan``) with their plain PyTorch versions
+    repro_torch.traces     — arrival / price / PUE / bandwidth / dataset traces
+    repro_torch.configs    — the paper's 4-DC scenario, the N = 256 fleet and
+                             the Mamba-2 2.7B model config
+    repro_torch.models     — the Mamba-2 language model (prefill, decode)
+    repro_torch.serve      — the serving engine's local executor
+    repro_torch.telemetry  — the flight recorder's device side: levels, the
+                             event ring, histograms, SLOs
+    repro_torch.benchmarks — the paper's Figs. 5 and 6, the simulator bench
+                             and ``python -m repro_torch.benchmarks.paper_repro``
+    repro_torch.bridge     — numpy trace bundles and parameter trees -> the port
 
 Device rule: every entry point that makes tensors takes ``device=None``,
 which means ``"cuda"``, and raises when no CUDA device is present; the CPU

@@ -14,6 +14,10 @@ optimum is a vertex: all type-k mass goes to
 Every function takes optional leading Monte-Carlo run dimensions on the
 per-run state (q, arrivals, mu); the cost table ``e`` and the raw
 ``(r, wpue)`` operands are shared by all runs.
+
+V is a number, a 0-d tensor, or a tensor with the batch's leading shape and
+trailing ones — ``(V, 1)`` against a (V, R) batch of a sweep — and each
+function appends the trailing dims its operand needs (:func:`per_lane`).
 """
 
 from __future__ import annotations
@@ -22,6 +26,15 @@ import dataclasses
 
 import torch
 from torch import Tensor
+
+
+def per_lane(v: float | Tensor, trailing: int) -> float | Tensor:
+    """V against an operand with ``trailing`` more dims than the batch: a
+    number or 0-d tensor is returned as it is (so its products stay those
+    of a scalar); a batched V gets ``trailing`` unit dims appended."""
+    if isinstance(v, Tensor) and v.ndim:
+        return v.reshape(v.shape + (1,) * trailing)
+    return v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,13 +60,13 @@ def drift_plus_penalty_scores(
         arrivals: (..., K) arrivals this slot.
         mu: (..., N, K) service rates this slot.
         e: (K, N) per-job manager energy costs.
-        v: scalar V.
+        v: V, a scalar or batched as :func:`per_lane` takes it.
 
     Returns:
         (..., K, N) scores.
     """
     drift = (q - mu).mT
-    return arrivals.unsqueeze(-1) * (drift + v * e)
+    return arrivals.unsqueeze(-1) * (drift + per_lane(v, 2) * e)
 
 
 def gmsa_dispatch(
@@ -89,7 +102,8 @@ def gmsa_dispatch(
             )
         p = torch.ones(arrivals.shape[-1], dtype=torch.float32,
                        device=arrivals.device) if p_it is None else p_it
-        vp = torch.as_tensor(v, dtype=torch.float32, device=p.device) * p   # (K,)
+        v = torch.as_tensor(v, dtype=torch.float32, device=p.device)
+        vp = per_lane(v, 1) * p                                  # (K,) or (*B, K)
         if impl == "kernel":
             from repro_torch.kernels.gmsa_score.ops import gmsa_score
 

@@ -13,7 +13,9 @@ Monte-Carlo replication is a leading runs axis written out: ``arrivals`` and
 run. The slot loop is a Python loop; each slot runs every run at once.
 
 Policies have the signature ``(generator, q, arrivals, mu, e, aux, scalar)
--> f``; ``scalar`` carries a control parameter (GMSA's V). Performance
+-> f``; ``scalar`` carries a control parameter (GMSA's V): 0-d, or with the
+batch's leading shape and trailing ones, as a sweep's ``(V, 1)`` against a
+(V, R) batch (:mod:`repro_torch.core.sweep`). Performance
 structure kept from the reference engine:
 
   * the (T, K, N) energy tables are computed once, before the loop, and
@@ -27,6 +29,11 @@ Policies that declare ``wants_wpue = True`` receive ``aux = (data_dist,
 omega_t * pue_t)``; with ``wants_r = True`` as well, the slot's ratio
 tensor is appended: ``aux = (data_dist, wpue_t, r_t)``. A policy marked
 ``static_r = True`` fed a time-varying (T, K, N, N) ratio trace raises.
+
+``telemetry`` (a :class:`~repro_torch.telemetry.config.TelemetryConfig`)
+at SUMMARY or above adds the per-slot per-site backlog stream and, with a
+histogram spec, the per-site energy-cost histograms; ``None`` or OFF runs
+exactly the operations of the engine without telemetry.
 """
 
 from __future__ import annotations
@@ -38,6 +45,11 @@ from torch import Tensor
 
 from repro_torch.core.queues import queue_step
 from repro_torch.device import resolve_device
+from repro_torch.telemetry.config import TelemetryConfig
+from repro_torch.telemetry.config import enabled as _tel_enabled
+from repro_torch.telemetry.config import histograms as _tel_hist
+from repro_torch.telemetry.metrics import hist_series
+from repro_torch.telemetry.ring import EventRing, TelemetryFrame, ring_init
 
 
 class SimInputs(NamedTuple):
@@ -125,13 +137,35 @@ def _check_policy(policy: PolicyFn, r_varying: bool) -> None:
         )
 
 
+def _scalar_for(scalar: float | Tensor, batch: tuple[int, ...], dev) -> Tensor:
+    """The control parameter as fp32 on ``dev``: 0-d, or the batch's
+    leading shape followed by ones (``(V, 1)`` for a (V, R) batch)."""
+    scalar = torch.as_tensor(scalar, dtype=torch.float32, device=dev)
+    lead = tuple(scalar.shape)
+    fits = [batch[:j] + (1,) * (len(batch) - j) for j in range(len(batch) + 1)]
+    if lead and lead not in fits:
+        raise ValueError(
+            f"scalar of shape {lead} does not fit the batch {batch}: pass a "
+            "0-d scalar or the batch's leading dims followed by ones, e.g. "
+            "(V, 1) for a (V, R) batch"
+        )
+    return scalar
+
+
+def _stacked_ring(batch: tuple[int, ...], dev) -> EventRing:
+    """``ring_init(1)`` with the batch's leading dims, as a vmap stacks it."""
+    return EventRing(*(x.expand(batch + tuple(x.shape)).clone()
+                       for x in ring_init(1, device=dev)))
+
+
 def simulate(
     inputs: SimInputs,
     policy: PolicyFn,
     generator: torch.Generator | None = None,
     scalar: float | Tensor = 0.0,
     health: Tensor | None = None,
-) -> SimOutputs:
+    telemetry: TelemetryConfig | None = None,
+) -> SimOutputs | tuple[SimOutputs, TelemetryFrame]:
     """Run the trace-driven simulation under ``policy`` for every run at once.
 
     ``generator`` feeds the policy's randomness (RANDOM) and is passed only
@@ -139,19 +173,27 @@ def simulate(
     degraded-mode factor: service rates scale as ``mu * health`` (0 = dead,
     interior = straggler), applied once before the loop; an all-ones trace
     is an exact identity.
+
+    With ``telemetry`` at SUMMARY or above the call returns ``(outputs,
+    TelemetryFrame)``: ``metrics["q_site"]`` is the ([R,] T, N) per-site
+    backlog after each slot, ``metrics["site_cost_hist"]`` (with
+    ``telemetry.hist``) the ([R,] N, n_buckets) histogram over slots of each
+    site's energy bill, and the ring is ``ring_init(1)`` per run (this
+    engine records no events in its loop).
     """
+    tel_on = _tel_enabled(telemetry)
     if health is not None:
         h = torch.as_tensor(health, dtype=inputs.mu.dtype, device=inputs.mu.device)
         inputs = inputs._replace(mu=inputs.mu * h[:, :, None])
     t_slots, k_types = inputs.arrivals.shape[-2:]
-    batch = tuple(inputs.arrivals.shape[:-2])                  # () or (R,)
+    batch = tuple(inputs.arrivals.shape[:-2])                  # (), (R,) or (V, R)
     n = inputs.mu.shape[-2]
     dev = inputs.arrivals.device
     q = torch.zeros(batch + (n, k_types), dtype=torch.float32, device=dev)
     e_cost_all, e_raw_all = energy_tables(
         inputs.r, inputs.omega * inputs.pue, inputs.pue, inputs.p_it
     )                                                          # (T, K, N)
-    scalar = torch.as_tensor(scalar, dtype=torch.float32, device=dev)
+    scalar = _scalar_for(scalar, batch, dev)
 
     dd_varying = inputs.data_dist.ndim == 3
     r_varying = inputs.r.ndim == 4
@@ -190,11 +232,41 @@ def simulate(
         else:
             f = f_all[..., t, :, :]
         q, out = slot_step(q, f, arrivals, mu, e_cost_all[t], e_raw_all[t])
+        if tel_on:
+            out = out + (q.sum(dim=-1),)                       # (..., N) per-site q
         cols.append(out)
-    cost, energy, btot, bavg, f_trace = (
-        torch.stack(c, dim=len(batch)) for c in zip(*cols)
-    )
-    return SimOutputs(cost, energy, btot, bavg, q, f_trace)
+    stacked = [torch.stack(c, dim=len(batch)) for c in zip(*cols)]
+    cost, energy, btot, bavg, f_trace = stacked[:5]
+    outs = SimOutputs(cost, energy, btot, bavg, q, f_trace)
+    if not tel_on:
+        return outs
+    metrics = {"q_site": stacked[5]}
+    if _tel_hist(telemetry):
+        # Each site's bill per slot, sum_k (f·A) * e_cost, derived after the
+        # loop from the stacked dispatch trace.
+        site_cost = torch.einsum("...tnk,...tk,tkn->...tn", f_trace, inputs.arrivals,
+                                 e_cost_all)
+        metrics["site_cost_hist"] = hist_series(telemetry.hist, site_cost, axis=-2)
+    return outs, TelemetryFrame(ring=_stacked_ring(batch, dev), metrics=metrics)
+
+
+def build_runs(
+    build_inputs: Callable[[torch.Generator, int], SimInputs],
+    generator: torch.Generator,
+    n_runs: int,
+    device=None,
+) -> SimInputs:
+    """``build_inputs(generator, n_runs)``, checked to run on ``device``
+    (``None``: CUDA): the generator and the built tensors must live there."""
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator lives on {generator.device}, not {dev}")
+    inputs = build_inputs(generator, n_runs)
+    if inputs.arrivals.device.type != dev.type:
+        raise ValueError(
+            f"build_inputs made tensors on {inputs.arrivals.device}, not {dev}"
+        )
+    return inputs
 
 
 def simulate_many(
@@ -205,24 +277,19 @@ def simulate_many(
     scalar: float | Tensor = 0.0,
     health: Tensor | None = None,
     device=None,
-) -> SimOutputs:
+    telemetry: TelemetryConfig | None = None,
+) -> SimOutputs | tuple[SimOutputs, TelemetryFrame]:
     """Monte-Carlo replication: fresh stochastic traces + policy randomness
     per run, all runs in one batched simulation.
 
     ``build_inputs(generator, n_runs)`` draws the stacked (R, ...) arrivals
     and service rates; the deterministic traces (prices, PUE, ratios — and
     ``health``, when given) are shared. ``device=None`` means CUDA; the
-    generator and the built inputs must live on that device.
+    generator and the built inputs must live on that device. ``telemetry``
+    as in :func:`simulate`: the frame's tensors carry the runs axis.
     """
-    dev = resolve_device(device)
-    if generator.device.type != dev.type:
-        raise ValueError(f"generator lives on {generator.device}, not {dev}")
-    inputs = build_inputs(generator, n_runs)
-    if inputs.arrivals.device.type != dev.type:
-        raise ValueError(
-            f"build_inputs made tensors on {inputs.arrivals.device}, not {dev}"
-        )
-    return simulate(inputs, policy, generator, scalar, health)
+    inputs = build_runs(build_inputs, generator, n_runs, device)
+    return simulate(inputs, policy, generator, scalar, health, telemetry)
 
 
 def summarize(outs: SimOutputs) -> dict:

@@ -1,0 +1,90 @@
+"""Parameter-sweep grids: a whole V-grid of Monte-Carlo runs in one slot loop.
+
+A Fig.-6 V-sweep as seven ``simulate_many`` calls runs seven slot loops.
+Here the swept control parameter becomes a leading batch axis on top of
+the runs axis, so one loop of T slots serves every (V, run) lane:
+
+    sweep_grid(build, gmsa_policy, generator, 1000, V_GRID)   # (V, R, T) out
+
+The lanes are **paired**: the traces are drawn once and every V lane sees
+the same per-run traces (``arrivals`` and ``mu`` are expanded over V, not
+copied), exactly as calling ``simulate_many`` per point with the same seed.
+V reaches the policy as a ``(V, 1)`` scalar (:func:`repro_torch.core.gmsa
+.per_lane`). Through the ``gmsa_score`` kernel the V·R lanes fold into the
+kernel's runs axis: still one launch per slot.
+
+Policy randomness is shared across lanes as well: a state-independent
+policy (DATA, RANDOM, GREEDY — none reads the scalar) is simulated once on
+the (R,) batch and its outputs are expanded over V. A state-dependent
+policy that consumes the generator has no such sharing here and raises.
+
+Axes: outputs are :class:`SimOutputs` whose tensors carry a leading
+``(len(scalars),)`` axis, then the inputs' runs axis.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch import Tensor
+
+from repro_torch.core.simulator import (
+    PolicyFn,
+    SimInputs,
+    SimOutputs,
+    build_runs,
+    simulate,
+)
+
+
+def simulate_sweep(
+    inputs: SimInputs,
+    policy: PolicyFn,
+    generator: torch.Generator | None,
+    scalars,
+) -> SimOutputs:
+    """Run one trace bundle (with or without a runs axis) under ``policy``
+    at every scalar in ``scalars``, all lanes in one slot loop. Outputs
+    carry a leading ``(len(scalars),)`` axis."""
+    dev = inputs.arrivals.device
+    scalars = torch.as_tensor(scalars, dtype=torch.float32, device=dev)
+    if scalars.ndim != 1:
+        raise ValueError(f"scalars must be 1-D, got shape {tuple(scalars.shape)}")
+    n_points = scalars.shape[0]
+    lanes = lambda x: x.expand((n_points,) + tuple(x.shape))
+    if getattr(policy, "state_independent", False):
+        # The scalar reaches neither the decisions nor the queues: one
+        # simulation, the same outputs in every lane.
+        outs = simulate(inputs, policy, generator, scalars[0])
+        return SimOutputs(*(lanes(x) for x in outs))
+    if getattr(policy, "consumes_key", True):
+        raise ValueError(
+            "simulate_sweep shares policy randomness across V lanes only for "
+            "state-independent policies; a state-dependent policy that "
+            "consumes the generator would draw a different stream per lane. "
+            "Run it per point with simulate_many instead."
+        )
+    batch = tuple(inputs.arrivals.shape[:-2])
+    grid = inputs._replace(arrivals=lanes(inputs.arrivals), mu=lanes(inputs.mu))
+    return simulate(grid, policy, None, scalars.reshape((n_points,) + (1,) * len(batch)))
+
+
+def sweep_grid(
+    build_inputs: Callable[[torch.Generator, int], SimInputs],
+    policy: PolicyFn,
+    generator: torch.Generator,
+    n_runs: int,
+    scalars,
+    device=None,
+) -> SimOutputs:
+    """A full Monte-Carlo sweep at every scalar: ``build_inputs(generator,
+    n_runs)`` once, then :func:`simulate_sweep` on the built bundle.
+
+    Every scalar lane sees the same per-run traces, as ``simulate_many``
+    per point with a generator seeded alike would. ``device=None`` means
+    CUDA; the generator and the built inputs must live on that device.
+    Outputs: leading ``(len(scalars), n_runs)``.
+    """
+    inputs = build_runs(build_inputs, generator, n_runs, device)
+    return simulate_sweep(inputs, policy, generator, scalars)

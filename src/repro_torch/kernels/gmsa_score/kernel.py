@@ -41,6 +41,16 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _fold_runs(x: Tensor, runs: int, k: int, n: int, k_contig: bool) -> Tensor:
+    """(*B, K, N) -> (runs, K, N): a view where the batch dims fold into one
+    stride, else one copy — laid out K-contiguous when ``k_contig`` (the
+    simulator's (R, N, K) buffers seen through .mT), so that q and a copied
+    mu share the pick kernel's coalesced layout."""
+    if k_contig:
+        return x.mT.reshape(runs, n, k).mT
+    return x.reshape(runs, k, n)
+
+
 def _gmsa_score_cuda_phases(
     q: Tensor, mu: Tensor, a: Tensor, vp: Tensor, r: Tensor, wpue: Tensor
 ) -> tuple[Tensor, Tensor, Tensor]:
@@ -68,8 +78,9 @@ def _gmsa_score_cuda_phases(
     if n > MAX_N or k > _MAX_K or runs > _MAX_RUNS:
         raise ValueError(f"N={n}, K={k}, {runs} runs outside the kernels' limits "
                          f"(N <= {MAX_N}, K <= {_MAX_K}, runs <= {_MAX_RUNS})")
-    q3 = q.reshape(runs, k, n)
-    mu3 = mu.reshape(runs, k, n)
+    k_contig = q.stride(-2) == 1
+    q3 = _fold_runs(q, runs, k, n, k_contig)
+    mu3 = _fold_runs(mu, runs, k, n, k_contig)
     a2 = a.broadcast_to(batch + (k,)).reshape(runs, k)
     vp2 = vp.broadcast_to(batch + (k,)).reshape(runs, k)
     r = r.contiguous()
@@ -100,8 +111,12 @@ def gmsa_score_cuda(
 ) -> tuple[Tensor, Tensor]:
     """Launch the kernels on fp32 CUDA tensors.
 
-    Shapes: q, mu (*B, K, N); a (*B, K); vp (K,) or (*B, K); r (K, N, N);
-    wpue (N,). Returns (scores (*B, K, N) fp32, best (*B, K) int32).
+    Shapes: q, mu (*B, K, N); a and vp (K,), (*B, K) or any shape that
+    broadcasts to (*B, K), such as a sweep's (V, 1, K) vp; r (K, N, N);
+    wpue (N,). Returns (scores (*B, K, N) fp32, best (*B, K) int32). The
+    batch dims fold into the kernels' runs axis; an operand whose batch dims
+    do not fold into one stride (a (V, R) mu expanded over V with stride 0)
+    is copied first, into q's layout.
     Increments ``gmsa_score_cuda.launches`` once per call: one launch is
     one call of the two-kernel chain.
     """

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from repro_torch.device import resolve_device
+
 #: Facebook Hadoop production trace rate used by the paper.
 FACEBOOK_MONTHLY_JOBS = 350_000
 
@@ -23,6 +25,25 @@ _MINUTES_PER_MONTH = 30 * 24 * 60
 def rate_per_slot(slot_minutes: float, monthly_jobs: float = FACEBOOK_MONTHLY_JOBS) -> float:
     """Poisson rate per slot for a given slot length (paper: 5-minute slots)."""
     return monthly_jobs * slot_minutes / _MINUTES_PER_MONTH
+
+
+def poisson_arrivals(
+    generator: torch.Generator,
+    t_slots: int,
+    k_types: int,
+    lam: float | Tensor,
+    a_max: float | None = None,
+    device=None,
+) -> Tensor:
+    """(T, K) Poisson arrival counts on ``device`` (``None``: CUDA),
+    optionally truncated at A_max (the paper's finite A^k_max; for the
+    defaults P[X > 3*lam] ~ 1e-9)."""
+    dev = resolve_device(device)
+    rate = torch.as_tensor(lam, dtype=torch.float32, device=dev).broadcast_to((k_types,))
+    draws = torch.poisson(rate.expand(t_slots, k_types).contiguous(), generator=generator)
+    if a_max is not None:
+        draws = torch.clamp_max(draws, a_max)
+    return draws
 
 
 def poisson_table(lam, max_value: int) -> np.ndarray:
@@ -94,3 +115,34 @@ def poisson_pair_from_tables(
     u_arr = torch.rand(tuple(batch) + (t_slots, k_types), generator=generator, device=dev)
     u_mu = torch.rand(tuple(batch) + (t_slots, n, k2), generator=generator, device=dev)
     return poisson_counts_from_uniforms(u_arr, u_mu, arr_cdf, mu_cdf)
+
+
+def _inverse_cdf(u: Tensor, cdf: Tensor) -> Tensor:
+    """Counts for uniforms ``u`` of shape ``(*T, *cdf.shape[:-1])``: the
+    first index whose CDF value is >= u, each table searching its own draws."""
+    batch_dims = tuple(cdf.shape[:-1])
+    m1 = cdf.shape[-1]
+    if not batch_dims:
+        return torch.searchsorted(cdf, u.reshape(-1)).reshape(u.shape).to(torch.float32)
+    t_shape = tuple(u.shape[: u.ndim - len(batch_dims)])
+    flat = u.reshape(-1, cdf.reshape(-1, m1).shape[0]).T.contiguous()     # (B, prod T)
+    out = torch.searchsorted(cdf.reshape(-1, m1).contiguous(), flat)
+    return out.T.reshape(t_shape + batch_dims).to(torch.float32)
+
+
+def poisson_from_table(generator: torch.Generator, cdf: Tensor, shape: tuple) -> Tensor:
+    """Exact truncated-Poisson draws by inverse CDF (binary search), on the
+    table's device.
+
+    Args:
+        generator: torch generator on the table's device.
+        cdf: (..., M+1) tables; leading dims must equal ``shape``'s trailing
+            dims (e.g. cdf (N, K, M+1) with shape (T, N, K)).
+        shape: output shape (leading axes = time/slot axes).
+    Returns: float32 counts in [0, M].
+    """
+    batch_dims = tuple(cdf.shape[:-1])
+    if batch_dims and tuple(shape[len(shape) - len(batch_dims):]) != batch_dims:
+        raise ValueError(f"shape {tuple(shape)} does not end in the tables' dims {batch_dims}")
+    u = torch.rand(tuple(shape), generator=generator, device=cdf.device)
+    return _inverse_cdf(u, cdf)

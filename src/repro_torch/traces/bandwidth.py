@@ -24,3 +24,22 @@ def bandwidth_draw(
     u = torch.rand((2, n_sites), generator=generator, device=dev)
     up, down = lo + (hi - lo) * u
     return up, down
+
+
+def bandwidth_trace(
+    generator: torch.Generator,
+    t_slots: int,
+    n_sites: int,
+    lo: float = BW_MIN_GBPS,
+    hi: float = BW_MAX_GBPS,
+    wobble: float = 0.15,
+    device=None,
+) -> tuple[Tensor, Tensor]:
+    """(T, N) time-varying (up, down) bandwidths: the static draw of
+    :func:`bandwidth_draw` times a uniform factor in [1 - wobble, 1 + wobble]
+    per slot — "other applications sharing the same links" (paper Sec. II)."""
+    dev = resolve_device(device)
+    up0, down0 = bandwidth_draw(generator, n_sites, lo, hi, device=dev)
+    u = 1.0 + wobble * (2.0 * torch.rand((t_slots, n_sites), generator=generator, device=dev) - 1.0)
+    d = 1.0 + wobble * (2.0 * torch.rand((t_slots, n_sites), generator=generator, device=dev) - 1.0)
+    return up0[None, :] * u, down0[None, :] * d

@@ -37,6 +37,41 @@ def dataset_distribution(
     return g / g.sum(dim=-1, keepdim=True)
 
 
+def service_rate_trace(
+    generator: torch.Generator,
+    t_slots: int,
+    lam: float | Tensor,
+    capacity_shares: Tensor | tuple = DEFAULT_CAPACITY_SHARES,
+    k_types: int = 1,
+    io_slowdown: Tensor | None = None,
+    mu_max: float | None = None,
+    device=None,
+) -> Tensor:
+    """(T, N, K) Poisson service rates on ``device`` (``None``: CUDA).
+
+    Args:
+        generator: torch generator on ``device``.
+        t_slots: number of slots.
+        lam: (K,) or scalar arrival rate (jobs/slot) — capacities scale off it.
+        capacity_shares: (N,) per-DC capacity as a fraction of total lam.
+        k_types: number of job types.
+        io_slowdown: optional (N,) multiplier in (0, 1] from the network I/O
+            (slower links -> lower effective service rate).
+        mu_max: optional truncation enforcing the paper's finite mu_max.
+    """
+    dev = resolve_device(device)
+    shares = torch.as_tensor(capacity_shares, dtype=torch.float32, device=dev)     # (N,)
+    rate = torch.as_tensor(lam, dtype=torch.float32, device=dev).broadcast_to((k_types,))
+    mean = shares[:, None] * rate[None, :]                                          # (N, K)
+    if io_slowdown is not None:
+        mean = mean * torch.as_tensor(io_slowdown, dtype=torch.float32, device=dev)[:, None]
+    mu = torch.poisson(mean.expand((t_slots,) + tuple(mean.shape)).contiguous(),
+                       generator=generator)
+    if mu_max is not None:
+        mu = torch.clamp_max(mu, mu_max)
+    return mu
+
+
 def io_slowdown_from_bandwidth(
     up: Tensor, down: Tensor, data_dist: Tensor, compute_seconds: float = 300.0,
     job_gb: float = JOB_INTERMEDIATE_GB, reads: Tensor | None = None,

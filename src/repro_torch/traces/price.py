@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -89,3 +90,14 @@ def price_trace(
 
     trace = base[None, :] * weekly + amp[None, :] * diurnal + noise
     return torch.clamp_min(trace, 1.0)  # prices stay positive
+
+
+def load_price_csv(path, n_sites: int, device=None) -> Tensor:
+    """Load a real (T, N) electricity-price ($/MWh) trace from a CSV the caller names (slot rows
+    x site columns) onto ``device`` (``None``: CUDA)."""
+    data = np.loadtxt(path, delimiter=",", dtype=np.float32)
+    if data.ndim == 1:
+        data = data[:, None]
+    if data.shape[1] != n_sites:
+        raise ValueError(f"expected {n_sites} columns, got {data.shape[1]}")
+    return torch.from_numpy(data).to(resolve_device(device))

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -30,3 +31,14 @@ def pue_trace(
     noise = 0.004 * torch.randn((t_slots, len(sites)), generator=generator, device=dev)
     trace = base[None, :] + amp[None, :] * diurnal + noise
     return torch.clamp_min(trace, 1.0)  # PUE >= 1 by definition
+
+
+def load_pue_csv(path, n_sites: int, device=None) -> Tensor:
+    """Load a real (T, N) PUE trace from a CSV the caller names (slot rows
+    x site columns) onto ``device`` (``None``: CUDA)."""
+    data = np.loadtxt(path, delimiter=",", dtype=np.float32)
+    if data.ndim == 1:
+        data = data[:, None]
+    if data.shape[1] != n_sites:
+        raise ValueError(f"expected {n_sites} columns, got {data.shape[1]}")
+    return torch.from_numpy(data).to(resolve_device(device))

@@ -8,17 +8,24 @@ there on its own:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.configs.fleet_256 import FleetConfig, make_fleet_builder
+from repro_torch.core.gmsa import make_kernel_policy
+from repro_torch.core.simulator import simulate_many
+from repro_torch.core.sweep import sweep_grid
 from repro_torch.kernels.gmsa_score import gmsa_score, gmsa_score_phases_ref, gmsa_score_ref
 from repro_torch.kernels.gmsa_score.kernel import _gmsa_score_cuda_phases, gmsa_score_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_phases_ref, ssd_scan_ref
 from repro_torch.kernels.ssd_scan.kernel import _ssd_scan_cuda_phases, ssd_scan_cuda
 from repro_torch.models import lm
 from repro_torch.serve.step import make_local_exec
+from repro_torch.telemetry import SUMMARY, HistogramSpec, TelemetryConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -246,3 +253,65 @@ def test_smoke_model_on_the_card_matches_the_cpu(cuda):
     step, _ = dec(p_gpu, cache, tokens[:, 40:41])
     step_c, _ = lm.decode_step(p, cfg, cache_c, tokens[:, 40:41])
     torch.testing.assert_close(step.cpu(), step_c, rtol=2e-4, atol=2e-4)
+
+
+def _small_fleet(cuda):
+    cfg = dataclasses.replace(FleetConfig(), n_sites=32, k_types=3, t_slots=24)
+    return cfg, make_fleet_builder(cfg, device=cuda)[1]
+
+
+SWEEP_V = (0.01, 1.0, 100.0)
+
+
+def test_kernel_sweep_grid_one_launch_per_slot_and_lanes_bitwise(cuda):
+    """A kernel-policy sweep_grid folds the V x R lanes into the kernel's
+    runs axis: exactly T launches per call. Each lane's decisions and final
+    queues equal simulate_many at its V with the same seed, bit for bit;
+    the per-slot sums to 1e-6 relative (a reduction may split a larger
+    batch differently)."""
+    cfg, build = _small_fleet(cuda)
+    policy = make_kernel_policy(None)
+    gen = lambda: torch.Generator(device=cuda).manual_seed(3)
+    before = gmsa_score_cuda.launches
+    grid = sweep_grid(build, policy, gen(), 5, SWEEP_V)
+    torch.cuda.synchronize()
+    assert gmsa_score_cuda.launches == before + cfg.t_slots
+    assert grid.f_trace.shape == (3, 5, cfg.t_slots, cfg.n_sites, cfg.k_types)
+    for i, v in enumerate(SWEEP_V):
+        per = simulate_many(build, policy, gen(), 5, v)
+        assert torch.equal(grid.f_trace[i], per.f_trace)
+        assert torch.equal(grid.q_final[i], per.q_final)
+        for name in ("cost", "energy", "backlog_total", "backlog_avg"):
+            torch.testing.assert_close(getattr(grid, name)[i], getattr(per, name),
+                                       rtol=1e-6, atol=0.0, msg=name)
+
+
+def test_kernel_sweep_grid_matches_the_plain_policy(cuda):
+    """The same sweep through the plain policy on the card: decisions agree
+    off near-ties (test_torch_simulator.py's 0.999)."""
+    _, build = _small_fleet(cuda)
+    gen = lambda: torch.Generator(device=cuda).manual_seed(4)
+    k = sweep_grid(build, make_kernel_policy(None), gen(), 4, SWEEP_V)
+    p = sweep_grid(build, make_kernel_policy(None, impl="ref"), gen(), 4, SWEEP_V)
+    assert float((k.f_trace == p.f_trace).all(-2).float().mean()) >= 0.999
+
+
+def test_telemetry_off_is_bitwise_and_summary_adds_streams_on_the_card(cuda):
+    cfg, build = _small_fleet(cuda)
+    policy = make_kernel_policy(None)
+    run = lambda tel: simulate_many(build, policy, torch.Generator(device=cuda).manual_seed(5),
+                                    4, cfg.v, telemetry=tel)
+    base = run(None)
+    for other in (run(TelemetryConfig()), run(TelemetryConfig(hist=HistogramSpec()))):
+        for a, b in zip(base, other):
+            assert torch.equal(a, b)
+    before = gmsa_score_cuda.launches
+    outs, frame = run(TelemetryConfig(level=SUMMARY, hist=HistogramSpec()))
+    assert gmsa_score_cuda.launches == before + cfg.t_slots
+    for a, b in zip(base, outs):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(frame.metrics["q_site"].sum(-1), base.backlog_total,
+                               rtol=1e-6, atol=1e-6)
+    counts = frame.metrics["site_cost_hist"]
+    assert counts.shape == (4, cfg.n_sites, HistogramSpec().n_buckets)
+    assert bool((counts.sum(-1) == cfg.t_slots).all())

@@ -10,6 +10,7 @@ import dataclasses
 import math
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -228,3 +229,112 @@ def test_fleet_builder_by_distribution():
     sig = np.array([s.noise_std for s in sites]) / math.sqrt(1 - 0.81)
     se_mean = math.sqrt(np.sum(sig**2)) / len(sites)
     assert np.all(np.abs(tpl_t.omega.numpy().mean(1) - det.mean(1)) < 5 * se_mean)
+
+
+def test_poisson_arrivals_by_distribution_and_truncation():
+    """Poisson(lam) per type: over 20000 slots the mean is within 5 standard
+    errors (sqrt(lam / 20000)) of lam and the variance within 5% of it, on
+    both sides. Truncation at a_max is exact: the truncated draw is the
+    untruncated one from the same seed, clamped."""
+    t_slots, lam = 20000, [3.0, 40.5]
+    got = ta.poisson_arrivals(_gen(4), t_slots, 2, torch.tensor(lam), device=CPU).numpy()
+    want = np.asarray(ja.poisson_arrivals(jax.random.key(4), t_slots, 2, jnp.asarray(lam)))
+    assert got.shape == want.shape == (t_slots, 2) and got.dtype == np.float32
+    for x in (got, want):
+        assert np.all(np.abs(x.mean(0) - lam) < 5 * np.sqrt(np.asarray(lam) / t_slots))
+        np.testing.assert_allclose(x.var(0), lam, rtol=0.05)
+    cut = ta.poisson_arrivals(_gen(4), t_slots, 2, torch.tensor(lam), a_max=38.0, device=CPU)
+    assert np.array_equal(cut.numpy(), np.minimum(got, 38.0))
+    j_cut = np.asarray(ja.poisson_arrivals(jax.random.key(4), t_slots, 2, jnp.asarray(lam), 38.0))
+    assert np.array_equal(j_cut, np.minimum(want, 38.0))
+    scalar = ta.poisson_arrivals(_gen(5), 10, 3, 7.0, device=CPU)
+    assert tuple(scalar.shape) == (10, 3)
+
+
+@pytest.mark.parametrize("table_shape,shape", [((), (500,)), ((3, 2), (40, 3, 2)),
+                                               ((4,), (6, 5, 4))])
+def test_poisson_from_table_counts_from_jax_uniforms(table_shape, shape):
+    """JAX's own uniforms through the port's inverse CDF: identical counts."""
+    rng = np.random.default_rng(len(shape))
+    cdf = ja.poisson_table(rng.uniform(1, 30, table_shape), 64)
+    key = jax.random.key(sum(shape))
+    want = np.asarray(ja.poisson_from_table(key, jnp.asarray(cdf), shape))
+    u = np.array(jax.random.uniform(key, shape))
+    got = ta._inverse_cdf(torch.from_numpy(u), torch.from_numpy(cdf)).numpy()
+    assert got.dtype == np.float32
+    assert np.array_equal(got, want)
+    drawn = ta.poisson_from_table(_gen(6), torch.from_numpy(cdf), shape)
+    assert tuple(drawn.shape) == shape and float(drawn.max()) <= 64
+    with pytest.raises(ValueError, match="tables' dims"):
+        ta.poisson_from_table(_gen(6), torch.from_numpy(ja.poisson_table([1.0, 2.0], 8)), (5, 3))
+
+
+def test_poisson_from_table_by_distribution():
+    """A 40.5-rate table (the paper's per-slot rate), 20000 draws: mean
+    within 5 standard errors and variance within 5%."""
+    cdf = torch.from_numpy(ja.poisson_table(40.5, 128))
+    x = ta.poisson_from_table(_gen(7), cdf, (20000,)).numpy()
+    assert abs(x.mean() - 40.5) < 5 * math.sqrt(40.5 / 20000)
+    np.testing.assert_allclose(x.var(), 40.5, rtol=0.05)
+
+
+def test_service_rate_trace_by_distribution_and_truncation():
+    """Poisson(shares_i * lam_k * slowdown_i) per (site, type): over 5000
+    slots each cell's mean is within 5 standard errors of its rate and its
+    variance within 10%, on both sides; mu_max truncation is exact."""
+    t_slots, lam = 5000, [20.0, 8.0]
+    shares, slow = (0.3, 0.2, 0.9, 0.6), np.float32([0.9, 1.0, 0.5, 0.8])
+    rate = np.asarray(shares)[:, None] * np.asarray(lam)[None] * slow[:, None]
+    got = td.service_rate_trace(_gen(8), t_slots, torch.tensor(lam), shares, 2,
+                                torch.from_numpy(slow), device=CPU).numpy()
+    want = np.asarray(jd.service_rate_trace(jax.random.key(8), t_slots, jnp.asarray(lam),
+                                            shares, 2, jnp.asarray(slow)))
+    assert got.shape == want.shape == (t_slots, 4, 2) and got.dtype == np.float32
+    for x in (got, want):
+        assert np.all(np.abs(x.mean(0) - rate) < 5 * np.sqrt(rate / t_slots))
+        np.testing.assert_allclose(x.var(0), rate, rtol=0.10)
+    cut = td.service_rate_trace(_gen(8), t_slots, torch.tensor(lam), shares, 2,
+                                torch.from_numpy(slow), mu_max=10.0, device=CPU)
+    assert np.array_equal(cut.numpy(), np.minimum(got, 10.0))
+    default = td.service_rate_trace(_gen(9), 7, 40.5, device=CPU)
+    assert tuple(default.shape) == (7, 4, 1)
+
+
+@pytest.mark.parametrize("loader", ["price", "pue"])
+def test_csv_loaders_match_jax(tmp_path, loader):
+    port, ref = {"price": (tp.load_price_csv, jp.load_price_csv),
+                 "pue": (tpue.load_pue_csv, jpue.load_pue_csv)}[loader]
+    rng = np.random.default_rng(1)
+    table = rng.uniform(1.0, 80.0, (12, 4))
+    path = tmp_path / "trace.csv"
+    np.savetxt(path, table, delimiter=",")
+    got = port(path, 4, device=CPU)
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), np.asarray(ref(str(path), 4)))
+    one = tmp_path / "one.csv"
+    np.savetxt(one, table[:, 0], delimiter=",")
+    assert np.array_equal(port(one, 1, device=CPU).numpy(), np.asarray(ref(str(one), 1)))
+    with pytest.raises(ValueError, match="expected 3 columns"):
+        port(path, 3, device=CPU)
+
+
+def test_bandwidth_trace_static_part_and_wobble():
+    """The static part is exactly the port's bandwidth_draw from the same
+    seed (wobble 0); the per-slot factor is uniform on [1 - w, 1 + w]: over
+    64 x 2000 samples its mean is within 0.005 of 1 and its variance within
+    5% of w^2 / 3, on both sides."""
+    t_slots, n, w = 2000, 64, 0.15
+    up, down = tbw.bandwidth_trace(_gen(3), t_slots, n, wobble=0.0, device=CPU)
+    up0, down0 = tbw.bandwidth_draw(_gen(3), n, device=CPU)
+    assert torch.equal(up, up0.expand(t_slots, n)) and torch.equal(down, down0.expand(t_slots, n))
+    up, down = tbw.bandwidth_trace(_gen(3), t_slots, n, wobble=w, device=CPU)
+    j_up, j_down = jbw.bandwidth_trace(jax.random.key(3), t_slots, n, wobble=w)
+    for x in (up.numpy(), down.numpy(), np.asarray(j_up), np.asarray(j_down)):
+        assert x.shape == (t_slots, n)
+        base = (x.max(0) + x.min(0)) / 2             # the static draw, to within the noise
+        assert np.all((x.min(0) >= 0.1 * (1 - w) - 1e-6) & (x.max(0) <= 2.0 * (1 + w) + 1e-6))
+        f = x / base
+        assert abs(f.mean() - 1.0) < 0.005
+        np.testing.assert_allclose(f.var(), w * w / 3, rtol=0.05)
+    f_t = up.numpy() / up0.numpy()
+    assert f_t.min() >= 1 - w - 1e-6 and f_t.max() <= 1 + w + 1e-6
