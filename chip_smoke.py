@@ -63,7 +63,24 @@ Phases, each printing one line or more; any failure exits non-zero:
              histograms: outputs bitwise equal to the OFF call, per-site
              backlog summing to the total backlog, every (run, site)
              histogram counting T slots; the wall it adds.
-12. results — one JSON line of per-kernel numbers, then the device line.
+12. staged — stage-structured jobs (``repro_torch.jobs``): (a) the staged
+             paper scenario (facebook_4dc_stages, canonical mix, 200 runs)
+             through ``repro_torch.benchmarks.jobs_bench``, gated by the
+             reference's asserts (aware cheaper than oblivious, WAN GB > 0),
+             each arm beside the JAX package's recorded values (read, not
+             gated); (b) full fleet_256 (R = 100) with a drawn K = 8, S = 3
+             mix on the fleet's backbone through
+             ``stage_oblivious(make_kernel_policy(None), pin_map=True)``:
+             exactly T kernel launches per ``simulate_staged_many`` call, 0
+             off-tie decision mismatches against the plain version in
+             lockstep, ``single_stage_dag`` through the kernel equal to
+             ``simulate`` (dispatch and queues bitwise, sums within 1e-6),
+             wall per call, device busy share, peak memory, and the
+             stage-aware arm at the same size; (c) one aware-arm paper run's
+             TRACE flight record through ``collect_records`` ->
+             ``write_jsonl`` -> ``python -m repro_torch.telemetry.report
+             --check``, which must exit 0.
+13. results — one JSON line of per-kernel numbers, then the device line.
 
 Numbers are measured on whatever card runs this; the bound uses the H100
 SXM's published peaks (3.35 TB/s, 67 TFLOP/s fp32) at its 700 W limit.
@@ -73,6 +90,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -149,6 +167,18 @@ SWEEP_SUM_RTOL = 1e-6
 RECORDED_CHECKS = {"frac_slots_gmsa_cheapest": 0.986, "gmsa_v1_max_avg_backlog": 4.7,
                    "reduction_at_v100": 0.276}
 FIGURE_RUNS = 1000
+#: The staged paper scenario's figures as the JAX package recorded them on
+#: the CPU (BENCH_sim.json, jobs_*_50runs): printed beside the port's for
+#: reading; the card draws its own traces, so they are not gates.
+RECORDED_JOBS = {"saving_frac": 0.0131, "oblivious": 3827.2, "aware": 3777.2}
+#: The fleet staged mix: K = 8 job types of up to S = 3 stages, drawn from
+#: this seed; 100 GB inputs; shuffle WAN at 0.03 job-energy per GB.
+STAGED_MIX_SEED = 17
+STAGED_S_MAX = 3
+#: simulate_staged over single_stage_dag against simulate: the per-slot sums
+#: are the same fp32 values reduced over (N, K, 1) after the loop instead of
+#: (N, K) per slot (relative to max(|x|, 1)).
+STAGED_IDENTITY_RTOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -1140,6 +1170,216 @@ def phase_telemetry(dev, smi, cfg=None) -> int:
     return counts["gmsa_score"]
 
 
+def staged_fleet(cfg, dev):
+    """fleet_256 with a drawn K = 8, S = 3 stage mix and the fleet's own
+    backbone: ``(build, dag, wan)``."""
+    import torch
+
+    from repro_torch.configs.fleet_256 import make_fleet_builder, make_serve_grid
+    from repro_torch.jobs import chain_dag, shuffle_volumes_from_selectivity, validate_dag
+    from repro_torch.placement import wan_topology
+    from repro_torch.traces.stages import staged_mix_profile
+
+    _, build = make_fleet_builder(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(STAGED_MIX_SEED)
+    mask, compute, sel = staged_mix_profile(gen, cfg.k_types, STAGED_S_MAX, min_stages=2,
+                                            device=dev)
+    dag = chain_dag(compute, shuffle_volumes_from_selectivity(100.0, sel), mask)
+    validate_dag(dag)
+    _, _, _, up, down, _, _ = make_serve_grid(cfg, cfg.k_types, cfg.t_slots, device=dev)
+    return build, dag, wan_topology(up, down, energy_per_gb=0.03)
+
+
+def lockstep_policy(p_it, tally):
+    """A base policy that scores every slot with the kernel and with its
+    plain version on the same aggregate state, steps with the kernel's
+    decision, and adds the off-tie mismatches and near-tie flips to
+    ``tally`` (device tensors)."""
+    import torch
+
+    from repro_torch.kernels.gmsa_score.kernel import gmsa_score_cuda
+    from repro_torch.kernels.gmsa_score.ref import gmsa_score_ref
+
+    def policy(generator, q, arrivals, mu, e, aux, scalar):
+        _, wpue, r_t = aux
+        vp = scalar * p_it
+        _, b = gmsa_score_cuda(q.mT, mu.mT, arrivals, vp, r_t, wpue)
+        s_ref, b_ref = gmsa_score_ref(q.mT, mu.mT, arrivals, vp, r_t, wpue)
+        picked = torch.gather(s_ref, -1, b.long().unsqueeze(-1)).squeeze(-1)
+        low = s_ref.min(dim=-1).values
+        near = (picked - low).abs() <= TIE_ATOL + TIE_RTOL * low.abs()
+        diff = b != b_ref
+        tally["mism"] += (diff & ~near).sum()
+        tally["flips"] += (diff & near).sum()
+        idx = torch.arange(q.shape[-2], device=q.device)
+        return (idx[:, None] == b.unsqueeze(-2)).to(q.dtype)
+
+    policy.consumes_key = False
+    policy.wants_wpue = True
+    policy.wants_r = True
+    return policy
+
+
+def phase_staged(dev, smi, cfg=None, paper_runs=None) -> int:
+    import tempfile
+
+    import torch
+
+    from repro_torch.benchmarks import jobs_bench
+    from repro_torch.configs.facebook_4dc_stages import StagedPaperConfig
+    from repro_torch.configs.fleet_256 import FleetConfig
+    from repro_torch.core.gmsa import make_kernel_policy
+    from repro_torch.core.simulator import simulate_many
+    from repro_torch.jobs import (
+        make_staged_policy,
+        simulate_staged_many,
+        single_stage_dag,
+        stage_oblivious,
+        summarize_staged,
+    )
+    from repro_torch.telemetry import HistogramSpec, cross_check, read_jsonl
+
+    # (a) the staged paper scenario, both arms, as jobs_bench runs them.
+    runs = paper_runs or StagedPaperConfig().n_runs
+    reset_counts()
+    res = jobs_bench.run(runs, dev)
+    for name, arm in res["arms"].items():
+        s = arm["summary"]
+        if not all(math.isfinite(x) for x in s.values()):
+            fail(f"staged: paper {name} arm summary not finite: {s}")
+        log(f"[staged] paper {name:<9} {runs} runs: total $/slot {s['time_avg_total_cost']:.1f} "
+            f"(JAX package, BENCH_sim.json: {RECORDED_JOBS[name]}), compute "
+            f"{s['time_avg_compute_cost']:.1f}, WAN {s['time_avg_wan_cost']:.1f}, WAN GB "
+            f"{s['total_wan_gb']:.0f}, backlog {s['time_avg_backlog']:.3f}, completed "
+            f"{s['jobs_completed']:.0f}; {smi} | {arm['us_per_run']:.1f} us per run "
+            f"(best of 4 warm calls), first call +{arm['first_call_us'] / 1e3:.0f} ms")
+    log(f"[staged] paper saving_frac {res['saving_frac']:.4f} (JAX package, BENCH_sim.json: "
+        f"{RECORDED_JOBS['saving_frac']}), WAN GB saved {res['wan_gb_saved']:.0f}; launches "
+        f"{read_counts()} (N = 4 dispatches on the table path)")
+    try:
+        jobs_bench.verify(res)
+    except AssertionError as exc:
+        fail(f"staged: paper: {exc}")
+
+    # (b) full fleet_256 through the kernel.
+    cfg = cfg or FleetConfig()
+    build, dag, wan = staged_fleet(cfg, dev)
+    gen = lambda: torch.Generator(device=dev).manual_seed(7)
+    kernel_arm = stage_oblivious(make_kernel_policy(None), pin_map=True)
+    run = lambda pol, d=dag: simulate_staged_many(build, d, wan, pol, gen(), cfg.n_runs, cfg.v,
+                                                  device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reset_counts()
+    outs = run(kernel_arm)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    depth = dag.stage_mask.sum(1).tolist()
+    log(f"[staged] fleet_256 N={cfg.n_sites} K={cfg.k_types} S={dag.s_max} (depths "
+        f"{[int(x) for x in depth]}) T={cfg.t_slots} R={cfg.n_runs}: "
+        f"stage_oblivious(make_kernel_policy(None), pin_map=True) launches {counts}")
+    if counts["gmsa_score"] != cfg.t_slots:
+        fail(f"staged: gmsa_score launched {counts['gmsa_score']} times, expected {cfg.t_slots}")
+    want = (cfg.n_runs, cfg.t_slots, cfg.n_sites, cfg.k_types, dag.s_max)
+    if tuple(outs.f_trace.shape) != want:
+        fail(f"staged: f_trace shape {tuple(outs.f_trace.shape)}, expected {want}")
+    for name, x in outs._asdict().items():
+        if not bool(torch.isfinite(x).all()):
+            fail(f"staged: non-finite {name}")
+    summ = summarize_staged(outs)
+    if not all(math.isfinite(x) for x in summ.values()):
+        fail(f"staged: summarize_staged not finite: {summ}")
+    log(f"[staged] summarize_staged: {json.dumps(summ)}")
+    log(f"[staged] {smi} | peak device memory of the call {peak / 2**30:.2f} GiB "
+        f"({(peak - mem0) / 2**30:.2f} GiB above the {mem0 / 2**30:.2f} GiB held before it; "
+        f"f_trace alone {outs.f_trace.numel() * 4 / 2**30:.2f} GiB)")
+    del outs
+
+    tally = {"mism": torch.zeros((), dtype=torch.int64, device=dev),
+             "flips": torch.zeros((), dtype=torch.int64, device=dev)}
+    p_it = torch.ones(cfg.k_types, device=dev)
+    lock = run(stage_oblivious(lockstep_policy(p_it, tally), pin_map=True))
+    torch.cuda.synchronize()
+    mism = int(tally["mism"])
+    decisions = cfg.t_slots * cfg.n_runs * cfg.k_types
+    log(f"[staged] lockstep: {decisions} decisions, kernel and plain on the same aggregate "
+        f"state every slot: off-tie mismatches {mism}, near-tie flips {int(tally['flips'])}")
+    if mism != 0:
+        fail(f"staged: {mism} off-tie decision mismatches in lockstep")
+    del lock
+
+    one = single_stage_dag(cfg.k_types, device=dev)
+    st = run(make_kernel_policy(None), one)
+    base = simulate_many(build, make_kernel_policy(None), gen(), cfg.n_runs, cfg.v, device=dev)
+    if not (torch.equal(st.f_trace[..., 0], base.f_trace)
+            and torch.equal(st.q_final[..., 0], base.q_final)):
+        fail("staged: single_stage_dag through the kernel differs from simulate in f_trace "
+             "or q_final")
+    errs = {name: rel_err(getattr(st, name), getattr(base, name))
+            for name in ("cost", "energy", "backlog_total")}
+    bitwise = [name for name in errs if torch.equal(getattr(st, name), getattr(base, name))]
+    log(f"[staged] single_stage_dag through the kernel == simulate: f_trace and q_final bitwise; "
+        f"sums max_rel_err {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+        f"(tol {STAGED_IDENTITY_RTOL:g}); bitwise too: {bitwise or 'none'}")
+    if max(errs.values()) > STAGED_IDENTITY_RTOL:
+        fail(f"staged: single-stage sums off simulate by {max(errs.values()):.3e}")
+    del st, base
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        obl = run(kernel_arm)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log(f"[staged] {smi} | wall per simulate_staged_many call, kernel arm (calls 2-4): "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms; median "
+        f"{statistics.median(walls) * 1e3:.1f} ms")
+    log(f"[staged] {smi} | {device_busy_share(lambda: run(kernel_arm))}")
+    obl_backlog = float(obl.backlog_avg.mean())
+    obl_final = float(obl.q_final.sum(dim=(-3, -2, -1)).mean())
+    del obl
+
+    aware_arm = make_staged_policy(dag, wan)
+    aware_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        aware = run(aware_arm)
+        torch.cuda.synchronize()
+        aware_walls.append(time.perf_counter() - t0)
+    for name, x in aware._asdict().items():
+        if not bool(torch.isfinite(x).all()):
+            fail(f"staged: aware arm non-finite {name}")
+    s_aw = summarize_staged(aware)
+    log(f"[staged] {smi} | stage-aware arm at the same size, wall per call (calls 1-3): "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in aware_walls)} ms")
+    log(f"[staged] fleet backlog (mean per queue; final total per run): kernel oblivious arm "
+        f"{obl_backlog:.3f}; {obl_final:.1f}, aware arm {s_aw['time_avg_backlog']:.3f}; "
+        f"{s_aw['final_backlog_total']:.1f}; total $/slot oblivious "
+        f"{summ['time_avg_total_cost']:.1f}, aware {s_aw['time_avg_total_cost']:.1f}")
+    del aware
+    torch.cuda.empty_cache()
+
+    # (c) the aware arm's flight record, checked by the report tool.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "staged_flight_record.jsonl"
+        records = jobs_bench.flight_record(path, dev, hist=HistogramSpec())
+        check = cross_check(read_jsonl(path))
+        out = subprocess.run([sys.executable, "-m", "repro_torch.telemetry.report", str(path),
+                              "--check", "--percentiles"], capture_output=True, text=True,
+                             timeout=300, cwd=ROOT,
+                             env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    tail = [line for line in out.stdout.splitlines() if "cross-check" in line or "✓" in line
+            or "✗" in line]
+    log(f"[staged] flight record: {len(records)} records; report --check exit "
+        f"{out.returncode}: " + " | ".join(x.strip() for x in tail))
+    if out.returncode != 0 or not check["ok"]:
+        fail(f"staged: flight record cross-check failed: {out.stdout[-2000:]} {out.stderr[-2000:]}")
+    return counts["gmsa_score"]
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -1161,6 +1401,7 @@ def main() -> int:
     sweep_launches = phase_sweep(dev, smi)
     phase_figures(dev, smi)
     tel_launches = phase_telemetry(dev, smi)
+    staged_launches = phase_staged(dev, smi)
 
     entry = {
         "name": "gmsa_score",
@@ -1170,6 +1411,7 @@ def main() -> int:
         "launches": launches,
         "launches_sweep_grid": sweep_launches,
         "launches_telemetry": tel_launches,
+        "launches_staged": staged_launches,
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],

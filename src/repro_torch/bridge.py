@@ -5,6 +5,9 @@
   attributes — a caller converts framework arrays with ``np.asarray``
   first) becomes the port's :class:`SimInputs`, and per-run bundles stack
   into the port's leading runs axis.
+* A stage chain (``repro.jobs.dag.StageDag``) and a WAN model
+  (``repro.placement.wan.WanModel``), fields as numpy arrays, become the
+  port's :class:`~repro_torch.jobs.dag.StageDag` / :class:`WanModel`.
 * A model's parameter pytree (``repro.models.lm.init_params``, leaves
   through ``np.asarray``) and its decode cache become the port's dicts of
   tensors, checked leaf for leaf against the port's specs.
@@ -24,7 +27,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.simulator import SimInputs
 from repro_torch.device import resolve_device
+from repro_torch.jobs.dag import StageDag
 from repro_torch.models.lm import _ssm_dims, layer_param_specs, top_param_specs
+from repro_torch.placement.wan import WanModel
 
 #: Fields that carry the Monte-Carlo randomness; the rest are shared by runs.
 STOCHASTIC_FIELDS = ("arrivals", "mu")
@@ -45,6 +50,53 @@ def sim_inputs_from_numpy(fields, device=None) -> SimInputs:
             )
         out[name] = torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
     return SimInputs(**out)
+
+
+def _fields_f32(cls, fields, shapes: dict, dev: torch.device):
+    """numpy fields of the NamedTuple ``cls`` -> fp32 tensors on ``dev``,
+    each checked against its expected shape (``None`` skips the check)."""
+    out = {}
+    for name in cls._fields:
+        x = fields[name] if isinstance(fields, Mapping) else getattr(fields, name)
+        if not isinstance(x, np.ndarray):
+            raise TypeError(
+                f"{cls.__name__} field {name!r} is {type(x).__name__}, not a numpy "
+                "array; convert with np.asarray first"
+            )
+        if not np.issubdtype(x.dtype, np.floating):
+            raise TypeError(f"{cls.__name__} field {name!r} has dtype {x.dtype}, not a float")
+        want = shapes[name]
+        if want is not None and tuple(x.shape) != want:
+            raise ValueError(
+                f"{cls.__name__} field {name!r} has shape {tuple(x.shape)}, expected {want}"
+            )
+        out[name] = torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+    return out
+
+
+def dag_from_numpy(fields, device=None) -> StageDag:
+    """numpy ``StageDag`` fields (``compute``, ``shuffle_gb``,
+    ``stage_mask``, all (K, S) floats) -> the port's :class:`StageDag` on
+    ``device`` (``None``: CUDA), cast to float32."""
+    dev = resolve_device(device)
+    compute = fields["compute"] if isinstance(fields, Mapping) else fields.compute
+    ks = tuple(np.shape(compute))
+    if len(ks) != 2:
+        raise ValueError(f"StageDag field 'compute' has shape {ks}, expected (K, S)")
+    return StageDag(**_fields_f32(StageDag, fields, dict.fromkeys(StageDag._fields, ks), dev))
+
+
+def wan_from_numpy(fields, device=None) -> WanModel:
+    """numpy ``WanModel`` fields (``up``/``down`` (N,), ``link_bw`` (N, N),
+    ``energy_per_gb`` 0-d) -> the port's :class:`WanModel` on ``device``
+    (``None``: CUDA), cast to float32."""
+    dev = resolve_device(device)
+    up = fields["up"] if isinstance(fields, Mapping) else fields.up
+    n = tuple(np.shape(up))
+    if len(n) != 1:
+        raise ValueError(f"WanModel field 'up' has shape {n}, expected (N,)")
+    shapes = {"up": n, "down": n, "link_bw": n + n, "energy_per_gb": ()}
+    return WanModel(**_fields_f32(WanModel, fields, shapes, dev))
 
 
 def stack_runs(runs: Sequence[SimInputs]) -> SimInputs:

@@ -160,3 +160,37 @@ def make_score_operands(cfg: FleetConfig, warm_slots: int = 48, device=None):
     wpue = template.omega[0] * template.pue[0]
     e, _ = energy_row(template.r, wpue, template.pue[0], template.p_it)
     return q, mu, a, vp, template.r, wpue, e
+
+
+def make_serve_grid(cfg: FleetConfig, k_classes: int, slots: int, device=None):
+    """The fleet scenario re-cut as a serving pod grid, on ``device``
+    (``None``: CUDA).
+
+    Returns ``(omega, pue, r, up, down, layout, shares)``: the same seeded
+    site climates and backbone as the batch scenario, a ``k_classes``-dataset
+    layout, Iridium ratios over it, and the Dirichlet capacity shares
+    (summing to ``cfg.headroom`` of offered load) as a tuple of floats.
+
+    The draws come from one generator seeded with ``cfg.trace_seed``, in
+    :func:`make_fleet_builder`'s order (prices, PUE, backbone, layout), so
+    with ``k_classes == cfg.k_types`` and ``slots == cfg.t_slots`` its
+    ``omega``, ``pue``, ``r`` and ``layout`` equal the builder template's
+    ``omega``, ``pue``, ``r`` and ``data_dist`` bit for bit. Another
+    ``slots`` draws another number of price and PUE samples, and so moves
+    the backbone and layout draws that follow.
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(cfg.trace_seed)
+    sites = fleet_sites(cfg)
+    omega = price_trace(gen, slots, cfg.slot_minutes, sites, device=dev)
+    pue = pue_trace(gen, slots, cfg.slot_minutes, sites, device=dev)
+    up, down = bandwidth_draw(gen, cfg.n_sites, lo=cfg.bw_lo_gbps,
+                              hi=cfg.bw_hi_gbps, device=dev)
+    layout = dataset_distribution(gen, k_classes, cfg.n_sites,
+                                  conc=cfg.dataset_conc, device=dev)
+    r = build_task_allocation(
+        layout, up, down,
+        size=1.0, manager_share=cfg.manager_share, map_share=cfg.map_share,
+    )
+    shares = tuple(float(s) for s in fleet_capacity_shares(cfg))
+    return omega, pue, r, up, down, layout, shares

@@ -19,3 +19,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "device is available here; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def as_float32(x, device=None) -> torch.Tensor:
+    """``x`` as an fp32 tensor: a tensor stays on its device unless
+    ``device`` is named; anything else (numbers, nested lists) is made on
+    ``device`` (``None``: CUDA, as :func:`resolve_device` rules)."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x.to(torch.float32)
+    return torch.as_tensor(x, dtype=torch.float32, device=resolve_device(device))

@@ -216,3 +216,31 @@ def test_paper_repro_and_record_writer(untouched, tmp_path, capsys, monkeypatch)
     assert history[0]["backend"] == "cpu" and history[0]["torch_version"] == torch.__version__
     assert history[0]["benches"] == [rec] and "git_sha" in history[0]
     assert list(tmp_path.iterdir()) == [path]
+
+
+def test_jobs_bench_quick_asserts_records_and_flight_record(untouched, tmp_path, capsys):
+    """``python -m repro_torch.benchmarks.jobs_bench --device cpu --quick``:
+    the JAX bench's rows, its two asserts, a flight record that passes
+    ``report --check`` and a record under the ``torch_jobs_bench`` label."""
+    from repro_torch.benchmarks import jobs_bench
+    from repro_torch.telemetry import report
+
+    fr, rec = tmp_path / "fr.jsonl", tmp_path / "records.json"
+    result = jobs_bench.main(["--device", CPU, "--quick", "--telemetry", str(fr),
+                              "--record", str(rec)])
+    assert result["n_runs"] == 4 and set(result["arms"]) == {"oblivious", "aware"}
+    assert result["saving_frac"] > 0.0
+    history = json.loads(rec.read_text())
+    assert [h["label"] for h in history] == ["torch_jobs_bench"]
+    assert [b["name"] for b in history[0]["benches"]] == [
+        "jobs_oblivious_4runs_per_run", "jobs_aware_4runs_per_run", "jobs_aware_saving"]
+    assert report.main([str(fr), "--check"]) == 0
+    assert "cross-check [OK] kind=staged" in capsys.readouterr().out
+    bad = {**result, "saving_frac": -0.01}
+    with pytest.raises(AssertionError, match="stage-aware"):
+        jobs_bench.verify(bad)
+    no_gb = {**result, "arms": {**result["arms"], "aware": {
+        **result["arms"]["aware"],
+        "summary": {**result["arms"]["aware"]["summary"], "total_wan_gb": 0.0}}}}
+    with pytest.raises(AssertionError, match="WAN GB"):
+        jobs_bench.verify(no_gb)

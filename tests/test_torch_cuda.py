@@ -15,17 +15,33 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.configs.fleet_256 import FleetConfig, make_fleet_builder
+from repro_torch.configs.fleet_256 import FleetConfig, make_fleet_builder, make_serve_grid
 from repro_torch.core.gmsa import make_kernel_policy
 from repro_torch.core.simulator import simulate_many
 from repro_torch.core.sweep import sweep_grid
+from repro_torch.jobs import (
+    chain_dag,
+    shuffle_volumes_from_selectivity,
+    simulate_staged_many,
+    stage_oblivious,
+    summarize_staged,
+)
 from repro_torch.kernels.gmsa_score import gmsa_score, gmsa_score_phases_ref, gmsa_score_ref
 from repro_torch.kernels.gmsa_score.kernel import _gmsa_score_cuda_phases, gmsa_score_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_phases_ref, ssd_scan_ref
 from repro_torch.kernels.ssd_scan.kernel import _ssd_scan_cuda_phases, ssd_scan_cuda
 from repro_torch.models import lm
 from repro_torch.serve.step import make_local_exec
-from repro_torch.telemetry import SUMMARY, HistogramSpec, TelemetryConfig
+from repro_torch.placement import wan_topology
+from repro_torch.telemetry import (
+    SUMMARY,
+    TRACE,
+    HistogramSpec,
+    TelemetryConfig,
+    collect_records,
+    cross_check,
+)
+from repro_torch.traces.stages import staged_mix_profile
 
 pytestmark = pytest.mark.cuda
 
@@ -315,3 +331,55 @@ def test_telemetry_off_is_bitwise_and_summary_adds_streams_on_the_card(cuda):
     counts = frame.metrics["site_cost_hist"]
     assert counts.shape == (4, cfg.n_sites, HistogramSpec().n_buckets)
     assert bool((counts.sum(-1) == cfg.t_slots).all())
+
+
+def _staged_fleet(cuda):
+    """fleet_256's widths (N = 256, K = 8) over 24 slots with a drawn K = 8,
+    S = 3 mix (100 GB inputs) and the fleet's backbone, as chip_smoke.py's
+    staged phase builds it at full size."""
+    cfg = dataclasses.replace(FleetConfig(), t_slots=24)
+    _, build = make_fleet_builder(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    mask, compute, sel = staged_mix_profile(gen, cfg.k_types, 3, min_stages=2, device=cuda)
+    dag = chain_dag(compute, shuffle_volumes_from_selectivity(100.0, sel), mask)
+    _, _, _, up, down, _, _ = make_serve_grid(cfg, cfg.k_types, cfg.t_slots, device=cuda)
+    return cfg, build, dag, wan_topology(up, down, energy_per_gb=0.03)
+
+
+def test_staged_fleet_kernel_policy_launches_once_per_slot_and_matches_plain(cuda):
+    """``stage_oblivious(make_kernel_policy(None))`` on the staged engine:
+    exactly T launches per call, finite outputs, decisions equal the plain
+    policy's off near-ties (test_torch_simulator.py's 0.999)."""
+    cfg, build, dag, wan = _staged_fleet(cuda)
+    gen = lambda: torch.Generator(device=cuda).manual_seed(6)
+    before = gmsa_score_cuda.launches
+    k = simulate_staged_many(build, dag, wan, stage_oblivious(make_kernel_policy(None),
+                                                              pin_map=True), gen(), 6, cfg.v)
+    torch.cuda.synchronize()
+    assert gmsa_score_cuda.launches == before + cfg.t_slots
+    assert k.f_trace.shape == (6, cfg.t_slots, cfg.n_sites, cfg.k_types, 3)
+    for name, x in k._asdict().items():
+        assert bool(torch.isfinite(x).all()), name
+    p = simulate_staged_many(build, dag, wan, stage_oblivious(
+        make_kernel_policy(None, impl="ref"), pin_map=True), gen(), 6, cfg.v)
+    assert gmsa_score_cuda.launches == before + cfg.t_slots
+    assert float((k.f_trace == p.f_trace).all(-3).float().mean()) >= 0.999
+    s = summarize_staged(k)
+    assert all(np.isfinite(v) for v in s.values()) and s["total_wan_gb"] > 0.0
+
+
+def test_collect_records_accepts_cuda_outputs(cuda):
+    """The host decoder moves CUDA tensors to the host itself; one run is
+    indexed out of the batch first."""
+    cfg, build, dag, wan = _staged_fleet(cuda)
+    tel = TelemetryConfig(level=TRACE, hist=HistogramSpec())
+    outs, frame = simulate_staged_many(build, dag, wan, stage_oblivious(make_kernel_policy(None)),
+                                       torch.Generator(device=cuda).manual_seed(2), 2, cfg.v,
+                                       telemetry=tel)
+    one = type(outs)(*(x[0] for x in outs))
+    one_frame = type(frame)(type(frame.ring)(*(x[0] for x in frame.ring)),
+                            {name: x[0] for name, x in frame.metrics.items()})
+    assert one.cost.is_cuda
+    records = collect_records(one, one_frame, cfg=tel, summary=summarize_staged(one))
+    assert records[0]["kind"] == "staged" and records[0]["t_slots"] == cfg.t_slots
+    assert cross_check(records)["ok"]

@@ -40,7 +40,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "for need in ('repro_torch.core.simulator', 'repro_torch.models.lm',\n"
-        "             'repro_torch.serve.step', 'repro_torch.kernels.ssd_scan.ops'):\n"
+        "             'repro_torch.serve.step', 'repro_torch.kernels.ssd_scan.ops',\n"
+        "             'repro_torch.jobs.engine', 'repro_torch.placement.wan'):\n"
         "    assert need in sys.modules, need\n"
         "print('ok', len(sys.modules))\n"
     )
