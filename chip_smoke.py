@@ -17,7 +17,11 @@ Phases, each printing one line or more; any failure exits non-zero:
              beside the plain version and the bound, each of its two
              kernels' mean time over five profiled calls beside that
              phase's own bound, and the wrapper's host cost per call; the
-             edges of a captured call (is the programmatic launch kept?).
+             edges of a captured call (is the programmatic launch kept?);
+             and with one ratio tensor per run at the placement controller's
+             (R, K, N) = (100, 8, 256): scores, cost workspace and argmin
+             against both plain versions, a non-contiguous r, each kernel's
+             time against its bound, the matvec's ``torch.matmul`` time.
 4. lockstep — full fleet_256 (N=256, K=8, T=288, 100 runs): every slot,
              kernel and plain decisions on the same state; decisions that
              differ off a near-tie must number 0. Queues step with the
@@ -80,7 +84,28 @@ Phases, each printing one line or more; any failure exits non-zero:
              TRACE flight record through ``collect_records`` ->
              ``write_jsonl`` -> ``python -m repro_torch.telemetry.report
              --check``, which must exit 0.
-13. results — one JSON line of per-kernel numbers, then the device line.
+13. placement — the two-timescale controller (``repro_torch.placement``):
+             (a) the paper scenario (facebook_4dc, N = 4, the table path)
+             through ``repro_torch.benchmarks.placement_bench`` at 1000 runs,
+             drifting and under the ForestCity loss, gated by the reference's
+             assert (adaptive cheaper than static), each saving beside the
+             JAX package's CPU record (read, not gated), and its
+             epoch x move-budget sweep at 64 runs per cell; (b) full
+             fleet_256 placed (N = 256, K = 8, T = 288, R = 100, W = 48,
+             drifting ingest toward the priciest sites) through
+             ``make_kernel_policy(None)``: drifting, a permanent site loss at
+             slot 144, and one call with stragglers, link faults and regions
+             at once — exactly T kernel launches per call, 0 off-tie
+             mismatches in lockstep against the plain version and against
+             the table policy (``gmsa_policy`` on the controller's energy
+             rows) with and without the loss, W = T equal to ``simulate``,
+             an all-ones alive mask bitwise equal to none, every bill
+             finite; wall per call, device busy share, peak memory, static
+             against adaptive; (c) ``sweep_placed_budgets`` over three move
+             budgets (T launches per call, each lane's decisions, queues and
+             layouts bitwise the per-budget call's, sums within 1e-6); (d)
+             one fleet run's TRACE flight record through ``report --check``.
+14. results — one JSON line of per-kernel numbers, then the device line.
 
 Numbers are measured on whatever card runs this; the bound uses the H100
 SXM's published peaks (3.35 TB/s, 67 TFLOP/s fp32) at its 700 W limit.
@@ -102,17 +127,22 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12
 
-#: (R runs or None, K, N): the test shape set, the fleet main-path shape,
-#: the largest kernel-bench shape and, last (so that the shapes before it
-#: draw the same operands as before it was added), the fleet V-sweep's
-#: (7 V x 100 runs folded into one runs axis).
+#: (R runs or None, K, N, r per run): the test shape set, the fleet
+#: main-path shape, the largest kernel-bench shape, the fleet V-sweep's (7 V
+#: x 100 runs folded into one runs axis) and, last, the placement
+#: controller's per-run ratios. Each later shape is appended, so that the
+#: shapes before it draw the same operands as before it was added.
 SCORE_SHAPES = [
-    (None, 1, 4), (None, 4, 17), (None, 8, 128), (None, 8, 256),
-    (None, 9, 129), (None, 16, 256), (100, 8, 256), (1, 128, 1024), (700, 8, 256),
+    (None, 1, 4, False), (None, 4, 17, False), (None, 8, 128, False), (None, 8, 256, False),
+    (None, 9, 129, False), (None, 16, 256, False), (100, 8, 256, False), (1, 128, 1024, False),
+    (700, 8, 256, False), (100, 8, 256, True),
 ]
-MAIN_SHAPE = (100, 8, 256)
-SWEEP_SHAPE = (700, 8, 256)
-BENCH_SHAPE = (1, 128, 1024)
+MAIN_SHAPE = (100, 8, 256, False)
+SWEEP_SHAPE = (700, 8, 256, False)
+#: (R, K, N) with one (K, N, N) ratio tensor per run: the placement
+#: controller's fleet shape after its first epoch boundary.
+PER_RUN_SHAPE = (100, 8, 256, True)
+BENCH_SHAPE = (1, 128, 1024, False)
 #: Scores against the one-phase gmsa_score_ref, at every shape: within
 #: SCORE_RTOL of the size of the terms, a * (|q| + |mu| + |vp * cost|). Where
 #: q - mu + vp * cost cancels, each side's fp32 rounding is an ulp of those
@@ -179,6 +209,30 @@ STAGED_S_MAX = 3
 #: are the same fp32 values reduced over (N, K, 1) after the loop instead of
 #: (N, K) per slot (relative to max(|x|, 1)).
 STAGED_IDENTITY_RTOL = 1e-6
+#: The placement scenario as the JAX package's placement_bench recorded it
+#: on the CPU (BENCH_sim.json, placement_adaptive_saving and
+#: placement_fault_adaptive_saving): printed beside the port's, not gated.
+RECORDED_PLACEMENT = {"drifting": 0.154, "fault": 0.091}
+PLACEMENT_PAPER_RUNS = 1000
+PLACEMENT_SWEEP_RUNS = 64
+#: fleet_256 placed: W = 48 slots per epoch, a drifting ingest walk (seed 7,
+#: pull 0.5 toward the day-mean omega * PUE), 25% fresh ingest and 5% growth
+#: per epoch, the biggest attractor lost at slot 144 for good; the degraded
+#: call's straggler / link-fault seed (sites die with 5% of straggler
+#: onsets; links degrade, none is severed); the budget sweep.
+PLACED_W = 48
+PLACED_INGEST_SEED = 7
+PLACED_FAULT_SLOT = 144
+PLACED_DEGRADED_SEED = 23
+PLACED_REGIONS = 8
+PLACED_BUDGETS = (0.25, 0.5, 1.0)
+#: PlacedOutputs fields that do not depend on dispatch under the adaptive
+#: rule: the layouts, their ratios and every WAN, sync and recovery bill.
+PLACED_LAYOUT_FIELDS = ("placements", "r_trace", "wan_cost", "wan_energy", "wan_gb",
+                        "wan_latency_s", "sync_cost", "recovery_cost", "recovery_gb", "mu_scale")
+#: Controller sums against simulate (W = T) and budget lanes against their
+#: per-budget calls: the same fp32 values reduced over another shape.
+PLACED_SUM_RTOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -237,20 +291,23 @@ def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def score_bound_ms(runs: int, k: int, n: int) -> tuple[float, str]:
-    """Least time for one gmsa_score launch: each input read once, each
-    output written once, against the H100's memory rate and fp32 rate."""
-    nbytes = 4 * (k * n * n + 2 * runs * k * n + runs * k + k + n) + 4 * (runs * k * n + runs * k)
-    return bound_ms(nbytes, 2 * k * n * n + 4 * runs * k * n)
+def score_bound_ms(runs: int, k: int, n: int, r_runs: int = 1) -> tuple[float, str]:
+    """Least time for one gmsa_score launch: each input (``r_runs`` ratio
+    tensors: 1 shared or one per run) read once, each output written once,
+    against the H100's memory rate and fp32 rate."""
+    nbytes = (4 * (r_runs * k * n * n + 2 * runs * k * n + runs * k + k + n)
+              + 4 * (runs * k * n + runs * k))
+    return bound_ms(nbytes, 2 * r_runs * k * n * n + 4 * runs * k * n)
 
 
-def score_phase_bounds_ms(runs: int, k: int, n: int) -> dict[str, tuple[float, str]]:
+def score_phase_bounds_ms(runs: int, k: int, n: int, r_runs: int = 1) -> dict[str, tuple[float, str]]:
     """Each of gmsa_score's phases on its own bytes, read and written once:
-    cost reads r and wpue and writes the (K, N) workspace; pick reads q,
-    mu, a, vp and the workspace and writes scores and best."""
+    cost reads r and wpue and writes the (r_runs, K, N) workspace; pick
+    reads q, mu, a, vp and the workspace and writes scores and best."""
+    ws = r_runs * k * n
     return {
-        "cost": bound_ms(4 * (k * n * n + n + k * n), 2 * k * n * n),
-        "pick": bound_ms(4 * (2 * runs * k * n + runs * k + k + k * n + runs * k * n + runs * k),
+        "cost": bound_ms(4 * (r_runs * k * n * n + n + ws), 2 * r_runs * k * n * n),
+        "pick": bound_ms(4 * (2 * runs * k * n + runs * k + k + ws + runs * k * n + runs * k),
                          4 * runs * k * n),
     }
 
@@ -301,9 +358,10 @@ def off_tie_mismatches(best, best_ref, s_ref):
     return int(((best != best_ref) & ~near).sum())
 
 
-def score_inputs(gen, runs, k, n, device):
+def score_inputs(gen, runs, k, n, device, per_run_r: bool = False):
     """Operands in the simulator's layout: q, mu are (R, N, K) read through
-    a transposed (R, K, N) view, a is a strided slot column."""
+    a transposed (R, K, N) view, a is a strided slot column; r is (K, N, N),
+    or (R, K, N, N) with ``per_run_r``."""
     import torch
 
     batch = () if runs is None else (runs,)
@@ -312,7 +370,8 @@ def score_inputs(gen, runs, k, n, device):
     mu = (rand(*batch, n, k) * 50).mT
     a = (rand(*batch, 2, k) * 40)[..., 1, :]
     vp = rand(k) * 10
-    g = torch._standard_gamma(torch.ones(k, n, n, device=device), generator=gen)
+    r_shape = (batch if per_run_r else ()) + (k, n, n)
+    g = torch._standard_gamma(torch.ones(r_shape, device=device), generator=gen)
     r = g / g.sum(-1, keepdim=True)
     wpue = rand(n) * 20
     return q, mu, a, vp, r, wpue
@@ -444,10 +503,13 @@ def phase_kernels(dev):
     from repro_torch.kernels.gmsa_score.ref import gmsa_score_phases_ref, gmsa_score_ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    worst_rel, worst_cost, main, sweep, bench = 0.0, 0.0, None, None, None
-    for runs, k, n in SCORE_SHAPES:
-        shape = f"R={runs} K={k} N={n}"
-        ops = score_inputs(gen, runs, k, n, dev)
+    worst_rel, worst_cost, main, sweep, bench, per_run = 0.0, 0.0, None, None, None, None
+    for runs, k, n, per_run_r in SCORE_SHAPES:
+        key = (runs, k, n, per_run_r)
+        r_runs = runs if per_run_r else 1
+        shape = f"R={runs} K={k} N={n}" + (f", r per run ({runs}, {k}, {n}, {n})"
+                                           if per_run_r else "")
+        ops = score_inputs(gen, runs, k, n, dev, per_run_r=per_run_r)
         cost, s, b = _gmsa_score_cuda_phases(*ops)
         s2, b2 = gmsa_score_cuda(*ops)
         s_ref, b_ref = gmsa_score_ref(*ops)
@@ -455,6 +517,16 @@ def phase_kernels(dev):
         torch.cuda.synchronize()
         if not (torch.equal(s, s2) and torch.equal(b, b2)):
             fail(f"gmsa_score launches differ bitwise at {shape}")
+        if per_run_r:
+            if tuple(cost.shape) != (runs, k, n):
+                fail(f"gmsa_score per-run r: cost workspace shape {tuple(cost.shape)}")
+            r = ops[4]
+            r_strided = r.transpose(0, 1).contiguous().transpose(0, 1)   # same values, not contiguous
+            s3, b3 = gmsa_score_cuda(*ops[:4], r_strided, ops[5])
+            if not (torch.equal(s, s3) and torch.equal(b, b3)):
+                fail(f"gmsa_score: a non-contiguous per-run r differs from its contiguous copy "
+                     f"at {shape}")
+            del r_strided, s3, b3, r
         cost_rel = float(((cost - cost_ref).abs() / cost_ref.abs().clamp_min(1.0)).max())
         worst_cost = max(worst_cost, cost_rel)
         if cost_rel > SCORE_COST_RTOL:
@@ -476,16 +548,16 @@ def phase_kernels(dev):
         mism = off_tie_mismatches(b, b_ref, s_ref)
         if mism:
             fail(f"gmsa_score argmin differs off near-ties ({mism}) at {shape}")
-        if (runs, k, n) == MAIN_SHAPE:
+        if key == MAIN_SHAPE:
             log(f"[kernels] gmsa_score {shape}, two calls captured in a CUDA graph: "
                 f"{graph_edges(lambda: gmsa_score_cuda(*ops))}")
         t_k = device_time_ms(lambda: gmsa_score_cuda(*ops))
         t_p = device_time_ms(lambda: gmsa_score_ref(*ops))
         c_k = call_time_ms(lambda: gmsa_score_cuda(*ops))
-        bound, bound_by = score_bound_ms(runs or 1, k, n)
+        bound, bound_by = score_bound_ms(runs or 1, k, n, r_runs=r_runs)
         phase, total = phase_times(lambda: gmsa_score_cuda(*ops), 5,
                                    {ph: f"gmsa_{ph}_kernel" for ph in SCORE_PHASES})
-        phase_bounds = score_phase_bounds_ms(runs or 1, k, n)
+        phase_bounds = score_phase_bounds_ms(runs or 1, k, n, r_runs=r_runs)
         log(f"[kernels] gmsa_score {shape}: max_abs_err {float(err.max()):.3e} "
             f"max_rel_err {rel:.3e}, {err_terms:.3e} of the terms' size (tol {SCORE_RTOL:g})"
             f", vs gmsa_score_phases_ref max_abs_err {float(err_ph.max()):.3e}, "
@@ -501,19 +573,32 @@ def phase_kernels(dev):
             f"(programmatic launch), so its span includes its wait; the call's device time "
             f"beyond the cost kernel is "
             + ("not measured" if phase["cost"] is None else f"{(t_k - phase['cost']) * 1e3:.2f} us"))
-        if (runs, k, n) == MAIN_SHAPE:
+        if key == MAIN_SHAPE:
             r_mat, w = ops[4], ops[5]
             t_mv = device_time_ms(lambda: torch.mv(r_mat.view(k * n, n), w))
             log(f"[kernels] yardstick for the matvec part alone, torch.mv((K*N, N), N) "
                 f"at K={k} N={n}: {t_mv * 1e3:.2f} us (not the same function)")
             main = {"max_abs_err": float(err.max()), "ms": t_k, "plain_ms": t_p,
                     "bound_ms": bound, "bound_by": bound_by, "phase_ms": phase}
-        if (runs, k, n) == SWEEP_SHAPE:
+        if key == SWEEP_SHAPE:
             sweep = {"ms_sweep": t_k, "plain_ms_sweep": t_p, "bound_ms_sweep": bound,
                      "phase_ms_sweep": phase}
-        if (runs, k, n) == BENCH_SHAPE:
+        if key == BENCH_SHAPE:
             bench = {"ms_bench": t_k, "plain_ms_bench": t_p, "bound_ms_bench": bound,
                      "phase_ms_bench": phase}
+        if key == PER_RUN_SHAPE:
+            r_mat = ops[4].view(runs * k * n, n)
+            t_lib = device_time_ms(lambda: torch.matmul(r_mat, ops[5]))
+            nbytes = 4 * runs * k * n * n
+            log(f"[kernels] gmsa_score {shape}: r alone {nbytes / 1e6:.1f} MB, "
+                f"{nbytes / (t_k * 1e-3) / 1e9:.0f} GB/s over the call; a non-contiguous r gives "
+                f"the same bits; library matvec torch.matmul(r.view(R*K*N, N), wpue) "
+                f"{t_lib * 1e3:.2f} us")
+            per_run = {"ms_per_run_r": t_k, "plain_ms_per_run_r": t_p,
+                       "bound_ms_per_run_r": bound, "bound_by_per_run_r": bound_by,
+                       "library_ms_per_run_r": t_lib, "phase_ms_per_run_r": phase,
+                       "max_abs_err_per_run_r": float(err.max())}
+            del r_mat
         del ops, q, mu, a, vp, terms, cost, s, b, s2, b2, s_ref, b_ref, cost_ref, s_ph
     torch.cuda.empty_cache()
 
@@ -549,6 +634,7 @@ def phase_kernels(dev):
     main["workspace_rel_err"] = worst_cost
     main.update(sweep)
     main.update(bench)
+    main.update(per_run)
     return main
 
 
@@ -1380,6 +1466,381 @@ def phase_staged(dev, smi, cfg=None, paper_runs=None) -> int:
     return counts["gmsa_score"]
 
 
+def placed_lockstep_policy(p_it, tally):
+    """A carried-r policy that scores every slot with the kernel, its plain
+    version on the same per-run operands, and the table path
+    (``drift_plus_penalty_scores`` on the controller's energy rows, as
+    ``gmsa_policy`` decides), steps with the kernel's decision, and adds the
+    off-tie mismatches and near-tie flips against each to ``tally``."""
+    import torch
+
+    from repro_torch.core.gmsa import drift_plus_penalty_scores
+    from repro_torch.kernels.gmsa_score.kernel import gmsa_score_cuda
+    from repro_torch.kernels.gmsa_score.ref import gmsa_score_ref
+
+    def near(s, b, b_other):
+        picked = torch.gather(s, -1, b.long().unsqueeze(-1)).squeeze(-1)
+        low = s.min(dim=-1).values
+        tie = (picked - low).abs() <= TIE_ATOL + TIE_RTOL * low.abs()
+        diff = b != b_other
+        return (diff & ~tie).sum(), (diff & tie).sum()
+
+    def policy(generator, q, arrivals, mu, e, aux, scalar):
+        _, wpue, r_t = aux
+        vp = scalar * p_it
+        _, b = gmsa_score_cuda(q.mT, mu.mT, arrivals, vp, r_t, wpue)
+        s_ref, b_ref = gmsa_score_ref(q.mT, mu.mT, arrivals, vp, r_t, wpue)
+        s_tab = drift_plus_penalty_scores(q, arrivals, mu, e, scalar)
+        b_tab = torch.argmin(s_tab, dim=-1).to(torch.int32)
+        for name, sc, other in (("ref", s_ref, b_ref), ("table", s_tab, b_tab)):
+            m, f = near(sc, b, other)
+            tally[f"mism_{name}"] += m
+            tally[f"flips_{name}"] += f
+        idx = torch.arange(q.shape[-2], device=q.device)
+        return (idx[:, None] == b.unsqueeze(-2)).to(q.dtype)
+
+    policy.consumes_key = False
+    policy.wants_wpue = True
+    policy.wants_r = True
+    return policy
+
+
+def placed_fleet(cfg, dev):
+    """fleet_256 placed: ``(build, up, down, pcfg, ingest, sizes, bias)`` —
+    the fleet's own backbone (``make_serve_grid``), W = 48, 25% fresh
+    ingest per epoch drifting toward the day-mean omega * PUE (data piles up
+    at the priciest sites), 5% growth per epoch, uncapped."""
+    import torch
+
+    from repro_torch.configs.fleet_256 import make_fleet_builder, make_serve_grid
+    from repro_torch.placement import PlacementConfig
+    from repro_torch.traces.drift import dataset_growth_trace, ingest_drift_trace
+
+    _, build = make_fleet_builder(cfg, device=dev)
+    omega, pue, _, up, down, _, _ = make_serve_grid(cfg, cfg.k_types, cfg.t_slots, device=dev)
+    day = (omega * pue).mean(dim=0)
+    bias = day / day.sum()
+    n_epochs = cfg.t_slots // PLACED_W
+    ingest = ingest_drift_trace(torch.Generator(device=dev).manual_seed(PLACED_INGEST_SEED),
+                                n_epochs, cfg.k_types, cfg.n_sites, bias=bias,
+                                bias_strength=0.5, device=dev)
+    sizes = dataset_growth_trace(n_epochs, cfg.k_types, 100.0, 0.05, device=dev)
+    pcfg = PlacementConfig(epoch_slots=PLACED_W, growth=0.25,
+                           manager_share=cfg.manager_share, map_share=cfg.map_share)
+    return build, up, down, pcfg, ingest, sizes, bias
+
+
+def phase_placement(dev, smi, cfg=None, paper_runs=None, sweep_runs=None) -> dict:
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.benchmarks import placement_bench
+    from repro_torch.configs.fleet_256 import FleetConfig, make_fleet_builder
+    from repro_torch.core.baselines import static_placement_rule
+    from repro_torch.core.gmsa import gmsa_policy, make_kernel_policy
+    from repro_torch.core.simulator import simulate_many
+    from repro_torch.core.sweep import sweep_placed_budgets
+    from repro_torch.placement import (
+        PlacedOutputs,
+        make_adaptive_rule,
+        simulate_placed,
+        simulate_placed_many,
+        summarize_placed,
+    )
+    from repro_torch.telemetry import (
+        TRACE,
+        HistogramSpec,
+        TelemetryConfig,
+        collect_records,
+        cross_check,
+        read_jsonl,
+        write_jsonl,
+    )
+    from repro_torch.traces.bandwidth import link_fault_trace, scheduled_link_fault_trace
+    from repro_torch.traces.faults import (
+        health_to_alive,
+        health_trace,
+        region_assignment,
+        scheduled_failure_trace,
+    )
+
+    # (a) the paper scenario, as placement_bench runs it (N = 4: the table path).
+    runs = paper_runs or PLACEMENT_PAPER_RUNS
+    reset_counts()
+    for key, fault in (("drifting", False), ("fault", True)):
+        res = placement_bench.run(runs, dev, fault=fault)
+        for name, arm in res["arms"].items():
+            s = arm["summary"]
+            if not all(math.isfinite(x) for x in s.values()):
+                fail(f"placement: paper {key} {name} arm summary not finite: {s}")
+            extra = (f", recovery $/slot {s['time_avg_recovery_cost']:.4f}, recovery GB "
+                     f"{s['total_recovery_gb']:.1f}, slots to SLO {arm['recovery_slots_to_slo']}"
+                     if fault else "")
+            log(f"[placement] paper {key} {name:<8} {runs} runs: total $/slot "
+                f"{s['time_avg_total_cost']:.2f}, WAN $/slot {s['time_avg_wan_cost']:.3f}, sync "
+                f"{s['time_avg_sync_cost']:.4f}, WAN GB {s['total_wan_gb']:.1f}, backlog "
+                f"{s['time_avg_backlog']:.3f}{extra}; {smi} | {arm['us_per_run']:.1f} us per "
+                f"run (best of 4 warm calls), first call +{arm['first_call_us'] / 1e3:.0f} ms")
+        log(f"[placement] paper {key} saving_frac {res['saving_frac']:.4f} (JAX package on the "
+            f"CPU, BENCH_sim.json: {RECORDED_PLACEMENT[key]}; the card draws its own traces)")
+        try:
+            placement_bench.verify(res)
+        except AssertionError as exc:
+            fail(f"placement: paper {key}: {exc}")
+    frontier, _ = placement_bench.sweep(sweep_runs or PLACEMENT_SWEEP_RUNS, dev)
+    log("[placement] paper sweep (W, budget: total $/slot, WAN GB): " + "; ".join(
+        f"{c['epoch_slots']}, {c['move_budget']}: {c['summary']['time_avg_total_cost']:.1f}, "
+        f"{c['summary']['total_wan_gb']:.0f}" for c in frontier)
+        + f"; launches {read_counts()} (N = 4 dispatches on the table path)")
+
+    # (b) full fleet_256 placed through the kernel.
+    cfg = cfg or FleetConfig()
+    build, up, down, pcfg, ingest, sizes, bias = placed_fleet(cfg, dev)
+    p_it = torch.ones(cfg.k_types, device=dev)
+    policy = make_kernel_policy(None, p_it)
+    rule = make_adaptive_rule(up, temp=2.0)
+    fault_site = int(bias.argmax())
+    lost = scheduled_failure_trace(cfg.t_slots, cfg.n_sites,
+                                   [(fault_site, PLACED_FAULT_SLOT, None)], device=dev)
+    gen = lambda: torch.Generator(device=dev).manual_seed(7)
+    run = lambda pol=policy, rl=rule, pc=pcfg, **kw: simulate_placed_many(
+        build, up, down, pol, rl, gen(), cfg.n_runs, pc, scalar=cfg.v, ingest=ingest,
+        sizes_gb=sizes, device=dev, **kw)
+    label = (f"fleet_256 placed N={cfg.n_sites} K={cfg.k_types} T={cfg.t_slots} "
+             f"R={cfg.n_runs} W={PLACED_W}")
+
+    def checked(name, outs):
+        for field, x in outs._asdict().items():
+            if not bool(torch.isfinite(x).all()):
+                fail(f"placement: {name}: non-finite {field}")
+        if tuple(outs.f_trace.shape) != (cfg.n_runs, cfg.t_slots, cfg.n_sites, cfg.k_types):
+            fail(f"placement: {name}: f_trace shape {tuple(outs.f_trace.shape)}")
+        return summarize_placed(outs)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    calls, launches = {}, {}
+    for name, kw in (("drifting", {}), ("site loss", {"alive": lost})):
+        reset_counts()
+        outs = run(**kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts["gmsa_score"] != cfg.t_slots:
+            fail(f"placement: {name}: gmsa_score launched {counts['gmsa_score']} times, "
+                 f"expected {cfg.t_slots}")
+        calls[name], launches[name] = outs, counts["gmsa_score"]
+        s = checked(name, outs)
+        log(f"[placement] {label}, {name}: launches {counts}; summarize_placed "
+            f"{json.dumps({k: float(f'{v:.6g}') for k, v in s.items()})}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[placement] {smi} | peak device memory of those two calls {peak / 2**30:.2f} GiB "
+        f"({(peak - mem0) / 2**30:.2f} GiB above the {mem0 / 2**30:.2f} GiB held before; "
+        f"r_trace alone {calls['drifting'].r_trace.numel() * 4 / 2**30:.2f} GiB)")
+
+    ones = run(alive=torch.ones_like(lost))
+    for field, a, b in zip(ones._fields, ones, calls["drifting"]):
+        if not torch.equal(a, b):
+            fail(f"placement: an all-ones alive mask differs from no mask in {field}")
+    log("[placement] an all-ones alive mask: every output bitwise equal to no mask")
+    del ones
+
+    hgen = torch.Generator(device=dev).manual_seed(PLACED_DEGRADED_SEED)
+    health = health_trace(hgen, cfg.t_slots, cfg.n_sites, death_prob=0.05, device=dev)
+    # Degraded links only (no severing): a move across a severed link bills
+    # +inf by design, and every fleet bill here must be finite.
+    link = link_fault_trace(hgen, cfg.t_slots, cfg.n_sites, sever_frac=0.0, device=dev)
+    regions = region_assignment(cfg.n_sites, PLACED_REGIONS, device=dev)
+    alive_h = health_to_alive(health)
+    reset_counts()
+    t0 = time.perf_counter()
+    deg = run(alive=alive_h, health=health, link_health=link, regions=regions)
+    torch.cuda.synchronize()
+    t_deg = time.perf_counter() - t0
+    counts = read_counts()
+    if counts["gmsa_score"] != cfg.t_slots:
+        fail(f"placement: degraded: gmsa_score launched {counts['gmsa_score']} times")
+    s = checked("degraded", deg)
+    edges = int(((1 - alive_h[1:]) * alive_h[:-1]).sum() + (1 - alive_h[0]).sum())
+    log(f"[placement] {label}, stragglers + link faults + {PLACED_REGIONS} regions ("
+        f"{edges} death edges, {float((link < 1).float().mean()):.4f} of link-slots degraded): "
+        f"launches {counts}; {smi} | wall {t_deg * 1e3:.1f} ms; summarize_placed "
+        f"{json.dumps({k: float(f'{v:.6g}') for k, v in s.items()})}")
+    del deg, health, link, alive_h
+
+    # Severed links at the loss, from the second priciest site (which sheds
+    # data) to the three cheapest (which take it): the recovery routes its
+    # evacuation around them, and a move across one bills +inf by design
+    # (the boundary move of that slot, the recovery's own). The layouts and
+    # WAN bills do not read the backlog (the adaptive rule reads prices,
+    # service rates and sizes), so the same call through the kernel-free
+    # table policy is their plain reference, bitwise, +inf included.
+    order = torch.argsort(bias, descending=True).tolist()
+    cut = scheduled_link_fault_trace(
+        cfg.t_slots, cfg.n_sites,
+        [(order[1], j, PLACED_FAULT_SLOT, PLACED_FAULT_SLOT + PLACED_W, 0.0) for j in order[-3:]],
+        device=dev)
+    reset_counts()
+    sev = run(alive=lost, link_health=cut)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["gmsa_score"] != cfg.t_slots:
+        fail(f"placement: severed: gmsa_score launched {counts['gmsa_score']} times")
+    plain = run(pol=gmsa_policy, alive=lost, link_health=cut)
+    e_cut = PLACED_FAULT_SLOT // PLACED_W
+    inf_at = {"wan_cost": e_cut, "wan_energy": e_cut, "wan_latency_s": e_cut,
+              "recovery_cost": PLACED_FAULT_SLOT}
+    for field, x, ref in zip(sev._fields, sev, plain):
+        col = inf_at.get(field)
+        rest = x if col is None else torch.cat([x[..., :col], x[..., col + 1:]], dim=-1)
+        if not bool(torch.isfinite(rest).all()) or bool(torch.isnan(x).any()):
+            fail(f"placement: severed: {field} not finite where no severed link is in force")
+        if field in PLACED_LAYOUT_FIELDS and not torch.equal(x, ref):
+            fail(f"placement: severed: {field} differs from the table policy's call")
+    log(f"[placement] {label}, site {fault_site} lost and site {order[1]}'s links to the three "
+        f"cheapest sites {order[-3:]} severed "
+        f"over slots [{PLACED_FAULT_SLOT}, {PLACED_FAULT_SLOT + PLACED_W}): launches {counts}; "
+        f"runs billed +inf: boundary move {int(torch.isinf(sev.wan_cost).any(-1).sum())}, "
+        f"recovery {int(torch.isinf(sev.recovery_cost).any(-1).sum())} of {cfg.n_runs}; "
+        f"recovery GB {float(sev.recovery_gb.sum(-1).mean()):.1f} per run; layouts, r and WAN "
+        f"bills bitwise equal to the table policy's call; every other field finite")
+    del sev, plain, cut
+
+    # Lockstep: kernel against its plain version and the table path, on the
+    # same state every slot, with and without the loss.
+    for name, kw in (("drifting", {}), ("site loss", {"alive": lost})):
+        tally = {k: torch.zeros((), dtype=torch.int64, device=dev)
+                 for k in ("mism_ref", "flips_ref", "mism_table", "flips_table")}
+        lock = run(pol=placed_lockstep_policy(p_it, tally), **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(lock.f_trace, calls[name].f_trace):
+            fail(f"placement: lockstep {name}: the stepped decisions differ from the kernel call")
+        t = {k: int(v) for k, v in tally.items()}
+        log(f"[placement] lockstep {name}: {cfg.t_slots * cfg.n_runs * cfg.k_types} decisions, "
+            f"per-run r after slot {PLACED_W}: kernel vs gmsa_score_ref off-tie mismatches "
+            f"{t['mism_ref']}, near-tie flips {t['flips_ref']}; kernel vs the table path "
+            f"(gmsa_policy on the controller's energy rows) off-tie {t['mism_table']}, "
+            f"near-tie {t['flips_table']}")
+        if t["mism_ref"] or t["mism_table"]:
+            fail(f"placement: lockstep {name}: off-tie mismatches {t}")
+        del lock
+
+    one_epoch = dataclasses.replace(pcfg, epoch_slots=cfg.t_slots)
+    w_t = simulate_placed_many(build, up, down, policy, rule, gen(), cfg.n_runs, one_epoch,
+                               scalar=cfg.v, device=dev)
+    base = simulate_many(build, policy, gen(), cfg.n_runs, cfg.v, device=dev)
+    if not (torch.equal(w_t.f_trace, base.f_trace) and torch.equal(w_t.q_final, base.q_final)):
+        fail("placement: W = T through the kernel differs from simulate in f_trace or q_final")
+    errs = {name: rel_err(getattr(w_t, name), getattr(base, name))
+            for name in ("cost", "energy", "backlog_total", "backlog_avg")}
+    log(f"[placement] W = T through the kernel == simulate: f_trace and q_final bitwise; sums "
+        f"max_rel_err {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} (tol "
+        f"{PLACED_SUM_RTOL:g})")
+    if max(errs.values()) > PLACED_SUM_RTOL:
+        fail(f"placement: W = T sums off simulate by {max(errs.values()):.3e}")
+    del w_t, base
+
+    static = checked("static", run(rl=static_placement_rule))
+    adaptive = summarize_placed(calls["drifting"])
+    log(f"[placement] fleet static vs adaptive total $/slot: {static['time_avg_total_cost']:.2f} "
+        f"vs {adaptive['time_avg_total_cost']:.2f} (saving "
+        f"{1 - adaptive['time_avg_total_cost'] / static['time_avg_total_cost']:.4f}); dispatch "
+        f"{static['time_avg_dispatch_cost']:.2f} vs {adaptive['time_avg_dispatch_cost']:.2f}, "
+        f"WAN {adaptive['time_avg_wan_cost']:.4f}, sync {static['time_avg_sync_cost']:.4f} vs "
+        f"{adaptive['time_avg_sync_cost']:.4f}")
+    del calls
+
+    for name, kw in (("drifting", {}), ("site loss", {"alive": lost})):
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(**kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        log(f"[placement] {smi} | wall per simulate_placed_many call, {name} (calls 2-4): "
+            f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms; median "
+            f"{statistics.median(walls) * 1e3:.1f} ms")
+        log(f"[placement] {smi} | {name}: {device_busy_share(lambda: run(**kw))}")
+    torch.cuda.empty_cache()
+
+    # (c) the move-budget sweep: every (budget, run) lane in one loop.
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    grid = sweep_placed_budgets(build, up, down, policy, rule, gen(), cfg.n_runs, pcfg,
+                                PLACED_BUDGETS, scalar=cfg.v, ingest=ingest, sizes_gb=sizes,
+                                device=dev)
+    torch.cuda.synchronize()
+    t_grid = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if counts["gmsa_score"] != cfg.t_slots:
+        fail(f"placement: sweep: gmsa_score launched {counts['gmsa_score']} times")
+    sweep_launches = counts["gmsa_score"]
+    worst, per_walls, totals = 0.0, [], []
+    for i, mb in enumerate(PLACED_BUDGETS):
+        t0 = time.perf_counter()
+        per = run(pc=dataclasses.replace(pcfg, move_budget=mb))
+        torch.cuda.synchronize()
+        per_walls.append(time.perf_counter() - t0)
+        lane = PlacedOutputs(*(x[i] for x in grid))
+        for field in ("f_trace", "q_final", "placements", "r_trace"):
+            if not torch.equal(getattr(lane, field), getattr(per, field)):
+                fail(f"placement: sweep lane {mb} differs from simulate_placed_many in {field}")
+        for field in ("cost", "energy", "backlog_total", "backlog_avg", "wan_cost", "wan_gb",
+                      "sync_cost", "wan_latency_s"):
+            worst = max(worst, rel_err(getattr(lane, field), getattr(per, field)))
+        totals.append(summarize_placed(lane)["time_avg_total_cost"])
+        del per, lane
+    log(f"[placement] sweep_placed_budgets {PLACED_BUDGETS} x {cfg.n_runs} runs: launches "
+        f"{counts}; every lane's f_trace, q_final, placements and r_trace bitwise equal to "
+        f"simulate_placed_many at its budget; sums and bills max_rel_err {worst:.3e} (tol "
+        f"{PLACED_SUM_RTOL:g}); total $/slot by budget "
+        + ", ".join(f"{mb}: {c:.2f}" for mb, c in zip(PLACED_BUDGETS, totals)))
+    if worst > PLACED_SUM_RTOL:
+        fail(f"placement: sweep lane sums off the per-budget calls by {worst:.3e}")
+    log(f"[placement] {smi} | sweep call {t_grid * 1e3:.1f} ms (first call) against the three "
+        f"per-budget calls {', '.join(f'{w * 1e3:.1f}' for w in per_walls)} ms; peak "
+        f"{(peak - mem0) / 2**30:.2f} GiB above the start")
+    del grid
+    torch.cuda.empty_cache()
+
+    # (d) one fleet run's flight record (the template run, the site loss).
+    template, _ = make_fleet_builder(cfg, device=dev)
+    tcfg = TelemetryConfig(level=TRACE, hist=HistogramSpec())
+    reset_counts()
+    outs, frame = simulate_placed(template, up, down, policy, rule, None, pcfg, scalar=cfg.v,
+                                  ingest=ingest, sizes_gb=sizes, alive=lost, telemetry=tcfg)
+    torch.cuda.synchronize()
+    if read_counts()["gmsa_score"] != cfg.t_slots:
+        fail(f"placement: flight record run launched {read_counts()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "placed_flight_record.jsonl"
+        records = collect_records(outs, frame, cfg=tcfg, summary=summarize_placed(outs),
+                                  meta={"scenario": "fleet_256 placed", "site_lost": fault_site})
+        write_jsonl(records, path)
+        check = cross_check(read_jsonl(path))
+        out = subprocess.run([sys.executable, "-m", "repro_torch.telemetry.report", str(path),
+                              "--check"], capture_output=True, text=True, timeout=300, cwd=ROOT,
+                             env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    codes = {}
+    for rec in records:
+        if rec["type"] == "event":
+            codes[rec["code"]] = codes.get(rec["code"], 0) + 1
+    tail = [line for line in out.stdout.splitlines() if "cross-check" in line or "✓" in line
+            or "✗" in line]
+    log(f"[placement] flight record: {len(records)} records, events {codes}; report --check "
+        f"exit {out.returncode}: " + " | ".join(x.strip() for x in tail))
+    if out.returncode != 0 or not check["ok"]:
+        fail(f"placement: flight record cross-check failed: {out.stdout[-2000:]} "
+             f"{out.stderr[-2000:]}")
+    return {"launches_placed": launches["drifting"], "launches_placed_sweep": sweep_launches}
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -1402,6 +1863,7 @@ def main() -> int:
     phase_figures(dev, smi)
     tel_launches = phase_telemetry(dev, smi)
     staged_launches = phase_staged(dev, smi)
+    placed = phase_placement(dev, smi)
 
     entry = {
         "name": "gmsa_score",
@@ -1412,6 +1874,8 @@ def main() -> int:
         "launches_sweep_grid": sweep_launches,
         "launches_telemetry": tel_launches,
         "launches_staged": staged_launches,
+        "launches_placed": placed["launches_placed"],
+        "launches_placed_sweep": placed["launches_placed_sweep"],
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -1430,6 +1894,13 @@ def main() -> int:
         "plain_ms_bench": main_shape["plain_ms_bench"],
         "bound_ms_bench": main_shape["bound_ms_bench"],
         "phase_ms_bench": main_shape["phase_ms_bench"],
+        "ms_per_run_r": main_shape["ms_per_run_r"],
+        "plain_ms_per_run_r": main_shape["plain_ms_per_run_r"],
+        "bound_ms_per_run_r": main_shape["bound_ms_per_run_r"],
+        "bound_by_per_run_r": main_shape["bound_by_per_run_r"],
+        "library_ms_per_run_r": main_shape["library_ms_per_run_r"],
+        "phase_ms_per_run_r": main_shape["phase_ms_per_run_r"],
+        "max_abs_err_per_run_r": main_shape["max_abs_err_per_run_r"],
     }
     ssd_entry = {
         "name": "ssd_scan",

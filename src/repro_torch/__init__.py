@@ -9,7 +9,11 @@ package's layout module for module (``repro.core.gmsa`` ->
                              V-sweep grids
     repro_torch.kernels    — hand-written CUDA kernels (``gmsa_score``,
                              ``ssd_scan``) with their plain PyTorch versions
-    repro_torch.traces     — arrival / price / PUE / bandwidth / dataset traces
+    repro_torch.traces     — arrival / price / PUE / bandwidth / dataset
+                             traces, dataset drift, site and link faults
+    repro_torch.placement  — the WAN model, replica selection and the
+                             two-timescale placement controller
+    repro_torch.checkpoint — the control plane's elastic shrink on site loss
     repro_torch.configs    — the paper's 4-DC scenario, the N = 256 fleet and
                              the Mamba-2 2.7B model config
     repro_torch.models     — the Mamba-2 language model (prefill, decode)

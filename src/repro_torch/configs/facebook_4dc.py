@@ -10,6 +10,8 @@
 ``make_sim_builder`` returns (template, build_inputs): the deterministic
 traces are drawn once from ``trace_seed``; ``build_inputs(generator,
 n_runs)`` draws fresh arrivals and service rates for every run.
+``site_bandwidths`` returns the (up, down) the template's ratios were built
+from — the placement controller rebuilds its ratios with them.
 """
 
 from __future__ import annotations
@@ -66,6 +68,25 @@ def make_stochastic(arr_cdf, mu_cdf, t_slots: int):
     return stochastic
 
 
+def _site_traces(cfg: PaperSimConfig, dev: torch.device):
+    """The seeded stream's first draws: (generator, omega, pue, up, down)."""
+    gen = torch.Generator(device=dev).manual_seed(cfg.trace_seed)
+    sites = FACEBOOK_SITES[: cfg.n_sites]
+    omega = price_trace(gen, cfg.t_slots, cfg.slot_minutes, sites, device=dev)
+    pue = pue_trace(gen, cfg.t_slots, cfg.slot_minutes, sites, device=dev)
+    up, down = bandwidth_draw(gen, cfg.n_sites, device=dev)
+    return gen, omega, pue, up, down
+
+
+def site_bandwidths(cfg: PaperSimConfig, device=None):
+    """(up, down) (N,) Gb/s: the access links :func:`make_sim_builder`
+    draws from the same seeded stream on ``device`` (``None``: CUDA), so
+    ``build_task_allocation(template.data_dist, up, down, ...)`` with the
+    config's shares is the template's ``r`` bit for bit."""
+    _, _, _, up, down = _site_traces(cfg, resolve_device(device))
+    return up, down
+
+
 def make_sim_builder(cfg: PaperSimConfig, device=None) -> tuple[SimInputs, Callable]:
     """Build the paper's simulation inputs on ``device`` (``None``: CUDA).
 
@@ -76,11 +97,7 @@ def make_sim_builder(cfg: PaperSimConfig, device=None) -> tuple[SimInputs, Calla
         fresh (R, ...) arrivals and service rates.
     """
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(cfg.trace_seed)
-    sites = FACEBOOK_SITES[: cfg.n_sites]
-    omega = price_trace(gen, cfg.t_slots, cfg.slot_minutes, sites, device=dev)
-    pue = pue_trace(gen, cfg.t_slots, cfg.slot_minutes, sites, device=dev)
-    up, down = bandwidth_draw(gen, cfg.n_sites, device=dev)
+    gen, omega, pue, up, down = _site_traces(cfg, dev)
     data_dist = dataset_distribution(gen, cfg.k_types, cfg.n_sites, device=dev)
     r = build_task_allocation(
         data_dist, up, down,

@@ -98,15 +98,16 @@ def static_placement_rule(d: Tensor, obs) -> Tensor:
 
     Never re-places. Survivor-aware: when ``obs.alive`` reports dead sites,
     the layout renormalizes over the survivors; with every site alive the
-    input ``d`` is returned untouched, bit for bit.
+    input ``d`` is returned untouched, bit for bit. ``d`` is (..., K, N)
+    with optional leading run dimensions; ``alive`` is (N,) or carries them.
     """
     alive = getattr(obs, "alive", None)
     if alive is None:
         return d
     alive = torch.as_tensor(alive, dtype=d.dtype, device=d.device)
-    masked = d * alive[None, :]
-    held = masked.sum(dim=1, keepdim=True)
-    n_alive = torch.clamp_min(alive.sum(), 1.0)
-    uniform = (alive / n_alive).broadcast_to(masked.shape)
+    masked = d * alive.unsqueeze(-2)
+    held = masked.sum(dim=-1, keepdim=True)
+    n_alive = torch.clamp_min(alive.sum(dim=-1, keepdim=True), 1.0)
+    uniform = (alive / n_alive).unsqueeze(-2).broadcast_to(masked.shape)
     dropped = torch.where(held > 1e-9, masked / torch.clamp_min(held, 1e-9), uniform)
-    return torch.where((alive < 0.5).any(), dropped, d)
+    return torch.where((alive < 0.5).any(dim=-1)[..., None, None], dropped, d)

@@ -99,17 +99,18 @@ def build_task_allocation(
     When DC i manages a type-k job, its compute splits into a manager-local
     share (``manager_share``) at i, data-local map work (``map_share`` of
     the remainder) proportional to the type-k dataset distribution, and
-    Iridium-placed reduce work (the rest).
+    Iridium-placed reduce work (the rest). A (..., K, N) ``data_dist`` with
+    leading run dimensions gives one tensor per run.
 
     Returns:
-        (K, N, N) ratio tensor r[k, i, j], row-stochastic over j.
+        (..., K, N, N) ratio tensor r[..., k, i, j], row-stochastic over j.
     """
     data_dist = torch.as_tensor(data_dist, dtype=torch.float32)
     n = data_dist.shape[-1]
     reduce_r, _ = iridium_reduce_placement(data_dist, up, down, size)
-    base = map_share * data_dist + (1.0 - map_share) * reduce_r            # (K, N)
+    base = map_share * data_dist + (1.0 - map_share) * reduce_r            # (..., K, N)
     eye = torch.eye(n, dtype=torch.float32, device=data_dist.device)
-    return manager_share * eye[None, :, :] + (1.0 - manager_share) * base[:, None, :]
+    return manager_share * eye + (1.0 - manager_share) * base.unsqueeze(-2)
 
 
 def make_allocation_rebuilder(

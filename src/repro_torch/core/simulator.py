@@ -99,9 +99,10 @@ def energy_tables(r: Tensor, wpue: Tensor, pue: Tensor, p_it: Tensor) -> tuple[T
 
 
 def energy_row(r: Tensor, wpue_t: Tensor, pue_t: Tensor, p_it: Tensor) -> tuple[Tensor, Tensor]:
-    """(K, N) dispatch-cost and raw-energy tables for ONE slot."""
-    e_cost = torch.einsum("kij,j->ki", r, wpue_t)
-    e_raw = torch.einsum("kij,j->ki", r, pue_t)
+    """(K, N) dispatch-cost and raw-energy tables for ONE slot; a
+    (..., K, N, N) ``r`` with leading run dimensions gives (..., K, N)."""
+    e_cost = torch.einsum("...kij,j->...ki", r, wpue_t)
+    e_raw = torch.einsum("...kij,j->...ki", r, pue_t)
     return e_cost * p_it[:, None], e_raw * p_it[:, None]
 
 
@@ -112,7 +113,8 @@ def slot_step(
 
     Returns ``(q_next, (cost, energy, backlog_total, backlog_avg, f))``,
     the per-slot columns behind :class:`SimOutputs`. Leading run dimensions
-    on q, f, arrivals and mu carry through; e_cost/e_raw are (K, N).
+    on q, f, arrivals and mu carry through; e_cost/e_raw are (K, N), or
+    carry the run dimensions too (the placement controller's per-run rows).
     """
     fa = f * arrivals.unsqueeze(-2)
     dims = (-2, -1)
@@ -152,10 +154,11 @@ def _scalar_for(scalar: float | Tensor, batch: tuple[int, ...], dev) -> Tensor:
     return scalar
 
 
-def _stacked_ring(batch: tuple[int, ...], dev) -> EventRing:
-    """``ring_init(1)`` with the batch's leading dims, as a vmap stacks it."""
+def _stacked_ring(batch: tuple[int, ...], dev, capacity: int = 1) -> EventRing:
+    """``ring_init(capacity)`` with the batch's leading dims, as a vmap
+    stacks it."""
     return EventRing(*(x.expand(batch + tuple(x.shape)).clone()
-                       for x in ring_init(1, device=dev)))
+                       for x in ring_init(capacity, device=dev)))
 
 
 def simulate(

@@ -20,6 +20,10 @@ policy that consumes the generator has no such sharing here and raises.
 
 Axes: outputs are :class:`SimOutputs` whose tensors carry a leading
 ``(len(scalars),)`` axis, then the inputs' runs axis.
+
+:func:`sweep_placed_budgets` does the same for the placement controller's
+move budget: the budgets lead, ``(B, R)``, and each lane is the
+per-budget ``simulate_placed_many`` call with the same seed.
 """
 
 from __future__ import annotations
@@ -88,3 +92,57 @@ def sweep_grid(
     """
     inputs = build_runs(build_inputs, generator, n_runs, device)
     return simulate_sweep(inputs, policy, generator, scalars)
+
+
+def sweep_placed_budgets(
+    build_inputs: Callable[[torch.Generator, int], SimInputs],
+    up: Tensor,
+    down: Tensor,
+    policy: PolicyFn,
+    rule,
+    generator: torch.Generator,
+    n_runs: int,
+    cfg,
+    budgets,
+    scalar: float | Tensor = 0.0,
+    ingest: Tensor | None = None,
+    sizes_gb: Tensor | None = None,
+    alive: Tensor | None = None,
+    device=None,
+):
+    """One-loop move-budget sweep of the two-timescale controller.
+
+    The epoch structure (``cfg.epoch_slots``) is fixed; the per-epoch
+    correction step alpha becomes a ``(B, 1)`` column against the (B, R)
+    batch (the controller's ``move_budget`` override), so a whole
+    ``placement_bench --sweep`` column runs as one controller loop — one
+    kernel launch per slot for every (budget, run) lane. The traces are
+    drawn once and expanded over the budgets (paired lanes, as in
+    :func:`sweep_grid`). A policy that consumes the generator would draw one
+    stream for all lanes where per-budget calls draw one each, so it
+    raises. Outputs: ``PlacedOutputs`` with leading ``(len(budgets),
+    n_runs)``.
+    """
+    from repro_torch.placement.controller import simulate_placed
+
+    if getattr(policy, "consumes_key", True):
+        raise ValueError(
+            "sweep_placed_budgets runs every budget lane in one loop; a "
+            "policy that consumes the generator would draw one stream for "
+            "all lanes where per-budget simulate_placed_many calls draw one "
+            "each. Run it per budget instead."
+        )
+    inputs = build_runs(build_inputs, generator, n_runs, device)
+    dev = inputs.arrivals.device
+    budgets = torch.as_tensor(budgets, dtype=torch.float32, device=dev)
+    if budgets.ndim != 1:
+        raise ValueError(f"budgets must be 1-D, got shape {tuple(budgets.shape)}")
+    n_b = budgets.shape[0]
+    lanes = lambda x: x.expand((n_b,) + tuple(x.shape))
+    batch = tuple(inputs.arrivals.shape[:-2])
+    grid = inputs._replace(arrivals=lanes(inputs.arrivals), mu=lanes(inputs.mu))
+    return simulate_placed(
+        grid, up, down, policy, rule, None, cfg, scalar=scalar, ingest=ingest,
+        sizes_gb=sizes_gb, alive=alive,
+        move_budget=budgets.reshape((n_b,) + (1,) * len(batch)),
+    )

@@ -7,17 +7,23 @@
 //   score[b, k, i]  = a[b, k] * (q[b, k, i] - mu[b, k, i] + vp[b, k] * cost[k, i])
 //   best[b, k]      = argmin_i score[b, k, i]     (lowest index on ties)
 //
+// r is shared by every run or, for the placement controller whose runs
+// each carry their own layout, one (K, N, N) tensor per run: then cost is
+// (R, K, N) and run b's scores read cost[b].
+//
 // What bounds it on this card: bytes. At the fleet shape (R = 100 runs,
 // K = 8, N = 256) one call must move about 4.6 MB (r once, q and mu once,
 // scores out) for about 1.9 MFLOP, ~0.4 FLOP/B: far below the fp32 ridge
 // point, so tensor cores are no help. At (R = 1, K = 128, N = 1024) the
-// 537 MB of r is the whole cost.
+// 537 MB of r is the whole cost, as is the 209.7 MB of a per-run r at
+// (R = 100, K = 8, N = 256).
 //
 // Design: two card-wide phases behind one C entry point (the TPU grid's
 // sequential i-loop with a running (min, argmin) in VMEM has no use here).
-//   1. gmsa_cost_kernel: cost = r·wpue as one (K·N, N) matvec over every
-//      SM, so each byte of r is read once per call (not once per chunk of
-//      runs). One warp per row, kRows rows in flight per warp, 16-byte
+//   1. gmsa_cost_kernel: cost = r·wpue as one (R_r·K·N, N) matvec over
+//      every SM (R_r = 1 for a shared r, R for a per-run r), so each byte
+//      of r is read once per call (not once per chunk of runs). One warp
+//      per row, kRows rows in flight per warp, 16-byte
 //      __ldg loads of r when its rows are 16-byte aligned (N % 4 == 0),
 //      else a scalar path; wpue staged once per block in shared memory; a
 //      grid-stride loop over rows with kCostBlocksPerSM blocks per SM.
@@ -55,8 +61,8 @@
 //   started, so its waiting blocks never hold back a cost block. Stream
 //   capture keeps the programmatic edge (chip_smoke.py prints the edges).
 //
-// r (K, N, N) and wpue (N,) must be contiguous; cost (K, N), scores
-// (R, K, N) and best (R, K) are written contiguous.
+// r (R_r, K, N, N) and wpue (N,) must be contiguous; cost (R_r, K, N),
+// scores (R, K, N) and best (R, K) are written contiguous.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -184,7 +190,7 @@ gmsa_pick_kernel(const float* __restrict__ q, const float* __restrict__ mu,
                  const float* __restrict__ a, const float* __restrict__ vp,
                  const float* cost,           // written by the cost kernel: no .nc loads
                  float* __restrict__ scores, int32_t* __restrict__ best,
-                 int K, int N,
+                 int K, int N, int64_t scost_b,
                  int64_t sq_b, int64_t sq_k, int64_t sq_n,
                  int64_t smu_b, int64_t smu_k, int64_t smu_n,
                  int64_t sa_b, int64_t sa_k, int64_t svp_b, int64_t svp_k) {
@@ -197,6 +203,7 @@ gmsa_pick_kernel(const float* __restrict__ q, const float* __restrict__ mu,
   const int kn = min(kTile, K - k0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
+  cost += b * scost_b;                        // run b's workspace (0: shared r)
   // Everything that does not depend on cost, before the wait.
   if (tid < kn) {
     ab_s[tid] = a[b * sa_b + (int64_t)(k0 + tid) * sa_k];
@@ -259,7 +266,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 template <int kL>
 cudaError_t launch_pick(const float* q, const float* mu, const float* a, const float* vp,
                         const float* cost, float* scores, int32_t* best, int R, int K, int N,
-                        int64_t sq_b, int64_t sq_k, int64_t sq_n,
+                        int64_t scost_b, int64_t sq_b, int64_t sq_k, int64_t sq_n,
                         int64_t smu_b, int64_t smu_k, int64_t smu_n,
                         int64_t sa_b, int64_t sa_k, int64_t svp_b, int64_t svp_k,
                         cudaStream_t stream) {
@@ -274,25 +281,28 @@ cudaError_t launch_pick(const float* q, const float* mu, const float* a, const f
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, gmsa_pick_kernel<kL>, q, mu, a, vp, cost, scores, best,
-                            K, N, sq_b, sq_k, sq_n, smu_b, smu_k, smu_n,
+                            K, N, scost_b, sq_b, sq_k, sq_n, smu_b, smu_k, smu_n,
                             sa_b, sa_k, svp_b, svp_k);
 }
 
 }  // namespace
 
-// One call = the cost kernel, then the pick kernel, on `stream`. `cost` is
-// a (K, N) fp32 workspace the caller allocates; `sms` is the card's SM
-// count (sizes the cost kernel's grid). Returns a cudaError_t as int.
+// One call = the cost kernel, then the pick kernel, on `stream`. `r_runs`
+// is 1 for a shared r or R for one r per run; `cost` is an (r_runs, K, N)
+// fp32 workspace the caller allocates; `sms` is the card's SM count (sizes
+// the cost kernel's grid). Returns a cudaError_t as int.
 extern "C" int gmsa_score_launch(
     const float* q, const float* mu, const float* a, const float* vp,
     const float* r, const float* wpue, float* cost, float* scores, int32_t* best,
-    int R, int K, int N, int sms,
+    int R, int r_runs, int K, int N, int sms,
     int64_t sq_b, int64_t sq_k, int64_t sq_n,
     int64_t smu_b, int64_t smu_k, int64_t smu_n,
     int64_t sa_b, int64_t sa_k, int64_t svp_b, int64_t svp_k,
     void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const int64_t rows = (int64_t)K * N;
+  if (r_runs != 1 && r_runs != R) return (int)cudaErrorInvalidValue;
+  const int64_t rows = (int64_t)r_runs * K * N;
+  const int64_t scost_b = r_runs == 1 ? 0 : (int64_t)K * N;
   const size_t smem = (size_t)N * sizeof(double);
   const int64_t per_block = (int64_t)kWarps * kRows;
   const int blocks = (int)std::min<int64_t>((rows + per_block - 1) / per_block,
@@ -309,13 +319,13 @@ extern "C" int gmsa_score_launch(
   if (err != cudaSuccess) return (int)err;
 
   if (sq_k == 1 && smu_k == 1)
-    err = launch_pick<kKContig>(q, mu, a, vp, cost, scores, best, R, K, N, sq_b, sq_k, sq_n,
+    err = launch_pick<kKContig>(q, mu, a, vp, cost, scores, best, R, K, N, scost_b, sq_b, sq_k, sq_n,
                                 smu_b, smu_k, smu_n, sa_b, sa_k, svp_b, svp_k, s);
   else if (sq_n == 1 && smu_n == 1)
-    err = launch_pick<kNContig>(q, mu, a, vp, cost, scores, best, R, K, N, sq_b, sq_k, sq_n,
+    err = launch_pick<kNContig>(q, mu, a, vp, cost, scores, best, R, K, N, scost_b, sq_b, sq_k, sq_n,
                                 smu_b, smu_k, smu_n, sa_b, sa_k, svp_b, svp_k, s);
   else
-    err = launch_pick<kStrided>(q, mu, a, vp, cost, scores, best, R, K, N, sq_b, sq_k, sq_n,
+    err = launch_pick<kStrided>(q, mu, a, vp, cost, scores, best, R, K, N, scost_b, sq_b, sq_k, sq_n,
                                 smu_b, smu_k, smu_n, sa_b, sa_k, svp_b, svp_k, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

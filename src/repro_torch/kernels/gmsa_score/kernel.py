@@ -5,9 +5,10 @@ One call of ``gmsa_score_launch`` launches two kernels on PyTorch's current
 stream — the card-wide cost matvec, then the per-run score and argmin as a
 programmatic dependent launch — and that call is what
 ``gmsa_score_cuda.launches`` counts as one launch. The wrapper allocates the
-(K, N) cost workspace; it is freed after the call. q, mu, a and vp are
-passed with their element strides, so the simulator's (R, N, K) backlogs
-are read in place through a transposed view — no per-slot transpose copy.
+cost workspace, (K, N) for a shared r and (runs, K, N) for a per-run r; it
+is freed after the call. q, mu, a and vp are passed with their element
+strides, so the simulator's (R, N, K) backlogs are read in place through a
+transposed view — no per-slot transpose copy.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ _MAX_RUNS, _MAX_K = 2**31 - 1, 8 * 65535
 def _launcher():
     fn = _build.load("gmsa_score").gmsa_score_launch
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = [ptr] * 9 + [i32] * 4 + [i64] * 10 + [ptr]
+    fn.argtypes = [ptr] * 9 + [i32] * 5 + [i64] * 10 + [ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -56,7 +57,8 @@ def _gmsa_score_cuda_phases(
 ) -> tuple[Tensor, Tensor, Tensor]:
     """:func:`gmsa_score_cuda` returning the cost workspace too, in the
     layout of :func:`~repro_torch.kernels.gmsa_score.ref.gmsa_score_phases_ref`:
-    (cost (K, N) fp32, scores (*B, K, N) fp32, best (*B, K) int32). The main
+    (cost (K, N) or, for a per-run r, (runs, K, N) fp32, scores (*B, K, N)
+    fp32, best (*B, K) int32). The main
     path calls it only through :func:`gmsa_score_cuda`; called directly, it
     checks the two phases apart on the card. Counts one launch."""
     tensors = (q, mu, a, vp, r, wpue)
@@ -66,8 +68,9 @@ def _gmsa_score_cuda_phases(
         raise ValueError("gmsa_score_cuda operands must share one device")
     batch = q.shape[:-2]
     k, n = q.shape[-2:]
-    if (tuple(mu.shape) != tuple(q.shape) or tuple(r.shape) != (k, n, n)
-            or tuple(wpue.shape) != (n,)):
+    per_run = r.ndim > 3
+    if (tuple(mu.shape) != tuple(q.shape) or tuple(wpue.shape) != (n,)
+            or tuple(r.shape) not in ((k, n, n), tuple(batch) + (k, n, n))):
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, mu {tuple(mu.shape)}, "
             f"r {tuple(r.shape)}, wpue {tuple(wpue.shape)}"
@@ -83,10 +86,13 @@ def _gmsa_score_cuda_phases(
     mu3 = _fold_runs(mu, runs, k, n, k_contig)
     a2 = a.broadcast_to(batch + (k,)).reshape(runs, k)
     vp2 = vp.broadcast_to(batch + (k,)).reshape(runs, k)
+    # A per-run r folds into (runs, K, N, N): a view when contiguous, else
+    # one copy. Its cost workspace has a run stride of K·N, a shared r's 0.
     r = r.contiguous()
+    r_runs = runs if per_run else 1
     wpue = wpue.contiguous()
     dev = q.device
-    cost = torch.empty((k, n), device=dev, dtype=torch.float32)
+    cost = torch.empty(((runs,) if per_run else ()) + (k, n), device=dev, dtype=torch.float32)
     scores = torch.empty((runs, k, n), device=dev, dtype=torch.float32)
     best = torch.empty((runs, k), device=dev, dtype=torch.int32)
     if runs and k and n:
@@ -96,7 +102,7 @@ def _gmsa_score_cuda_phases(
             rc = _launcher()(
                 q3.data_ptr(), mu3.data_ptr(), a2.data_ptr(), vp2.data_ptr(),
                 r.data_ptr(), wpue.data_ptr(), cost.data_ptr(), scores.data_ptr(),
-                best.data_ptr(), runs, k, n, _sm_count(index),
+                best.data_ptr(), runs, r_runs, k, n, _sm_count(index),
                 *q3.stride(), *mu3.stride(), *a2.stride(), *vp2.stride(),
                 stream,
             )
@@ -112,8 +118,9 @@ def gmsa_score_cuda(
     """Launch the kernels on fp32 CUDA tensors.
 
     Shapes: q, mu (*B, K, N); a and vp (K,), (*B, K) or any shape that
-    broadcasts to (*B, K), such as a sweep's (V, 1, K) vp; r (K, N, N);
-    wpue (N,). Returns (scores (*B, K, N) fp32, best (*B, K) int32). The
+    broadcasts to (*B, K), such as a sweep's (V, 1, K) vp; r (K, N, N),
+    shared by every run, or (*B, K, N, N), one per run; wpue (N,). Returns
+    (scores (*B, K, N) fp32, best (*B, K) int32). The
     batch dims fold into the kernels' runs axis; an operand whose batch dims
     do not fold into one stride (a (V, R) mu expanded over V with stride 0)
     is copied first, into q's layout.

@@ -2,7 +2,8 @@
 
 Same signature and (K, N) orientation as the JAX package's
 ``repro.kernels.gmsa_score.ops.gmsa_score``, plus optional leading run
-dimensions on q, mu, a (and vp) that share r and wpue. Inputs are cast to
+dimensions on q, mu, a (and vp) that share wpue and either share r or carry
+one r per run. Inputs are cast to
 fp32 as the JAX wrapper does. CUDA tensors go to the hand-written kernel —
 which launches or raises; there is no fallback — and CPU tensors to the
 plain PyTorch version.
@@ -22,7 +23,7 @@ def gmsa_score(
     mu: Tensor,      # (*B, K, N) service rates
     a: Tensor,       # (*B, K)   arrivals
     vp: Tensor,      # (K,) or (*B, K)   V * P^k
-    r: Tensor,       # (K, N, N) task-allocation ratios
+    r: Tensor,       # (K, N, N) or (*B, K, N, N) task-allocation ratios
     wpue: Tensor,    # (N,)      omega ⊙ PUE
 ) -> tuple[Tensor, Tensor]:
     """Fused dispatch scores + argmin. Returns (scores (*B, K, N) fp32,

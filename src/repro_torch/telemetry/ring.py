@@ -104,24 +104,29 @@ def ring_push(
     When ``do`` is low every buffer row keeps its old value and the count
     does not advance, so the no-event path leaves the ring bitwise as it
     was. ``fields`` is up to ``N_FIELDS`` scalars (zero-padded).
+
+    A ring stacked over leading run dimensions (``count`` of shape (*B,))
+    records one event per run: ``do``, ``t`` and each field are scalars
+    or (*B,) tensors.
     """
-    cap = ring.t.shape[0]
+    cap = ring.t.shape[-1]
     if len(fields) > N_FIELDS:
         raise ValueError(f"at most {N_FIELDS} payload fields, got {len(fields)}")
     dev = ring.t.device
-    row = torch.zeros((N_FIELDS,), dtype=torch.float32, device=dev)
-    if fields:
-        row = torch.cat([
-            torch.stack([torch.as_tensor(f, dtype=torch.float32, device=dev) for f in fields]),
-            row[len(fields):],
-        ])
-    do = torch.as_tensor(do, dtype=torch.bool, device=dev)
-    hit = do & (torch.arange(cap, device=dev) == torch.remainder(ring.count, cap))   # (C,)
+    batch = tuple(ring.count.shape)
+    zero = torch.zeros(batch, dtype=torch.float32, device=dev)
+    row = torch.stack(
+        [torch.as_tensor(f, dtype=torch.float32, device=dev).broadcast_to(batch) for f in fields]
+        + [zero] * (N_FIELDS - len(fields)), dim=-1)                                  # (*B, F)
+    do = torch.as_tensor(do, dtype=torch.bool, device=dev).broadcast_to(batch)
+    slot = torch.remainder(ring.count, cap).unsqueeze(-1)
+    hit = do.unsqueeze(-1) & (torch.arange(cap, device=dev) == slot)                  # (*B, C)
+    t = torch.as_tensor(t, dtype=torch.int32, device=dev)
     return EventRing(
         count=ring.count + do.to(torch.int32),
-        t=torch.where(hit, torch.as_tensor(t, dtype=torch.int32, device=dev), ring.t),
+        t=torch.where(hit, t.unsqueeze(-1) if t.ndim else t, ring.t),
         code=torch.where(hit, torch.tensor(code, dtype=torch.int32, device=dev), ring.code),
-        val=torch.where(hit[:, None], row, ring.val),
+        val=torch.where(hit.unsqueeze(-1), row.unsqueeze(-2), ring.val),
     )
 
 

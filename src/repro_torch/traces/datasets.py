@@ -85,14 +85,15 @@ def io_slowdown_from_bandwidth(
     locality estimate ((N,) result). A (K, N, N) per-reader replica
     selection ``reads`` resolves the pull per (site, type) instead: reader
     j's type-k jobs transfer nothing when its chosen replica is itself and
-    the full intermediate volume otherwise ((N, K) result).
+    the full intermediate volume otherwise ((N, K) result). Leading run
+    dimensions on ``data_dist`` / ``reads`` carry through.
     """
     if reads is not None:
-        local = torch.diagonal(reads, dim1=1, dim2=2)                     # (K, N)
+        local = torch.diagonal(reads, dim1=-2, dim2=-1)                   # (..., K, N)
         remote_gb = job_gb * (1.0 - local)
         transfer_s = remote_gb * 8.0 / torch.clamp_min(down[None, :], 1e-6)
-        return (compute_seconds / (compute_seconds + transfer_s)).T       # (N, K)
-    locality = data_dist.mean(dim=0)                                      # (N,)
+        return (compute_seconds / (compute_seconds + transfer_s)).mT      # (..., N, K)
+    locality = data_dist.mean(dim=-2)                                     # (..., N)
     remote_gb = job_gb * (1.0 - locality)
     transfer_s = remote_gb * 8.0 / torch.clamp_min(down, 1e-6)
     return compute_seconds / (compute_seconds + transfer_s)

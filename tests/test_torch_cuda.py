@@ -32,7 +32,16 @@ from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_phases_ref, ssd_scan
 from repro_torch.kernels.ssd_scan.kernel import _ssd_scan_cuda_phases, ssd_scan_cuda
 from repro_torch.models import lm
 from repro_torch.serve.step import make_local_exec
-from repro_torch.placement import wan_topology
+from repro_torch.placement import (
+    PlacedOutputs,
+    PlacementConfig,
+    make_adaptive_rule,
+    simulate_placed_many,
+    wan_topology,
+)
+from repro_torch.core.sweep import sweep_placed_budgets
+from repro_torch.traces.drift import ingest_drift_trace
+from repro_torch.traces.faults import scheduled_failure_trace
 from repro_torch.telemetry import (
     SUMMARY,
     TRACE,
@@ -250,6 +259,134 @@ def test_gmsa_score_chain_ties_zero_arrivals_and_nan(cuda, layout):
     assert torch.equal(b, want)
     assert torch.equal(s[..., lo], s[..., hi])
     assert torch.equal(b, torch.argmin(s, dim=-1).to(torch.int32))
+
+
+def _per_run_ops(seed, runs, k, n, layout, dev):
+    """``_score_ops`` with one (K, N, N) ratio tensor per run: contiguous
+    (``r_layout="contig"``), a non-contiguous view the wrapper copies
+    (``"strided"``), or contiguous 4 bytes off 16-byte alignment (the cost
+    kernel's scalar path, ``"unaligned"``)."""
+    q, mu, a, vp, _, wpue = _score_ops(seed, runs, k, n, "k_contig", dev)
+    rng = np.random.default_rng(seed + 1)
+    r = rng.random((runs, k, n, n), dtype=np.float32)
+    r = torch.from_numpy(r / r.sum(-1, keepdims=True)).to(dev)
+    if layout == "strided":
+        wide = torch.zeros((runs, k, n, n + 3), device=dev)
+        wide[..., :n] = r
+        r = wide[..., :n]
+        assert not r.is_contiguous()
+    elif layout == "unaligned":
+        flat = torch.empty(r.numel() + 1, device=dev)
+        flat[1:] = r.flatten()
+        r = flat[1:].view(runs, k, n, n)
+        assert r.is_contiguous() and r.data_ptr() % 16
+    return q, mu, a, vp, r, wpue
+
+
+@pytest.mark.parametrize("layout", ["contig", "strided", "unaligned"])
+@pytest.mark.parametrize("runs,k,n", [(3, 8, 256), (2, 9, 129), (4, 1, 4), (5, 3, 130)])
+def test_gmsa_score_per_run_r_matches_both_plain_versions(cuda, runs, k, n, layout):
+    """One ratio tensor per run: the (runs, K, N) cost workspace against
+    gmsa_score_phases_ref (1e-6 relative), scores and argmin against both
+    plain versions, each run against a shared-r call with that run's r
+    (bitwise: the same arithmetic); one counted launch per call."""
+    ops = _per_run_ops(runs * k + n, runs, k, n, layout, cuda)
+    before = gmsa_score_cuda.launches
+    cost, s, b = _gmsa_score_cuda_phases(*ops)
+    s2, b2 = gmsa_score(*ops)
+    assert gmsa_score_cuda.launches == before + 2
+    torch.cuda.synchronize()
+    assert cost.shape == (runs, k, n)
+    assert torch.equal(s, s2) and torch.equal(b, b2)
+    cost0, s0p, _ = gmsa_score_phases_ref(*ops)
+    assert cost0.shape == (runs, k, n)
+    assert _rel(cost, cost0) <= 1e-6
+    _check_scores(s, b, s0p)
+    _check_scores(s, b, gmsa_score_ref(*ops)[0])
+    q, mu, a, vp, r, wpue = ops
+    for i in range(runs):
+        c1, s1, b1 = _gmsa_score_cuda_phases(q[i:i + 1], mu[i:i + 1], a[i:i + 1], vp,
+                                             r[i].contiguous(), wpue)
+        assert torch.equal(c1, cost[i]) and torch.equal(s1[0], s[i]) and torch.equal(b1[0], b[i])
+
+
+def test_gmsa_score_per_run_r_ties_and_shape_errors(cuda):
+    """Ties to the lowest index per run with per-run r; an r whose batch dims
+    are not q's is refused."""
+    q, mu, a, vp, r, wpue = (x.clone() for x in _per_run_ops(5, 4, 8, 256, "contig", cuda))
+    lo, hi = 11, 240
+    q[..., lo] = -1e4
+    q[..., hi], mu[..., hi], r[:, :, hi, :] = q[..., lo], mu[..., lo], r[:, :, lo, :]
+    _, b = gmsa_score(q, mu, a, vp, r, wpue)
+    assert bool((b == lo).all())
+    with pytest.raises(ValueError, match="shape mismatch"):
+        gmsa_score_cuda(q, mu, a, vp, r[:2], wpue)
+
+
+def _small_placed(cuda):
+    """fleet widths cut to N = 32, K = 3, T = 96, W = 24, with a drifting
+    ingest toward the priciest sites and the fleet's backbone."""
+    cfg = dataclasses.replace(FleetConfig(), n_sites=32, k_types=3, t_slots=96)
+    _, build = make_fleet_builder(cfg, device=cuda)
+    omega, pue, _, up, down, _, _ = make_serve_grid(cfg, cfg.k_types, cfg.t_slots, device=cuda)
+    day = (omega * pue).mean(0)
+    ingest = ingest_drift_trace(torch.Generator(device=cuda).manual_seed(7), 4, cfg.k_types,
+                                cfg.n_sites, bias=day / day.sum(), bias_strength=0.5, device=cuda)
+    pcfg = PlacementConfig(epoch_slots=24, growth=0.25, manager_share=cfg.manager_share,
+                           map_share=cfg.map_share)
+    alive = scheduled_failure_trace(cfg.t_slots, cfg.n_sites, [(int(day.argmax()), 50, None)],
+                                    device=cuda)
+    return cfg, build, up, down, pcfg, ingest, alive
+
+
+@pytest.mark.parametrize("faulty", [False, True])
+def test_placed_kernel_policy_one_launch_per_slot_and_matches_plain(cuda, faulty):
+    """The carried-r kernel policy in the placement controller: exactly T
+    launches per call (per-run r after the first boundary), finite bills,
+    decisions equal the plain policy's off near-ties (0.999, as
+    test_torch_simulator.py), an all-ones mask bitwise equal to none."""
+    cfg, build, up, down, pcfg, ingest, alive = _small_placed(cuda)
+    rule = make_adaptive_rule(up)
+    run = lambda pol, al: simulate_placed_many(
+        build, up, down, pol, rule, torch.Generator(device=cuda).manual_seed(3), 5, pcfg,
+        scalar=cfg.v, ingest=ingest, alive=al)
+    before = gmsa_score_cuda.launches
+    k = run(make_kernel_policy(None), alive if faulty else None)
+    torch.cuda.synchronize()
+    assert gmsa_score_cuda.launches == before + cfg.t_slots
+    for name, x in k._asdict().items():
+        assert bool(torch.isfinite(x).all()), name
+    p = run(make_kernel_policy(None, impl="ref"), alive if faulty else None)
+    assert float((k.f_trace == p.f_trace).all(-2).float().mean()) >= 0.999
+    if not faulty:
+        ones = run(make_kernel_policy(None), torch.ones_like(alive))
+        for a, b in zip(k, ones):
+            assert torch.equal(a, b)
+
+
+def test_placed_budget_sweep_lanes_bitwise_on_the_card(cuda):
+    """sweep_placed_budgets: T launches per call; each lane's decisions,
+    queues and layouts equal the per-budget call bit for bit, sums within
+    1e-6 relative."""
+    cfg, build, up, down, pcfg, ingest, _ = _small_placed(cuda)
+    rule = make_adaptive_rule(up)
+    pol = make_kernel_policy(None)
+    gen = lambda: torch.Generator(device=cuda).manual_seed(4)
+    before = gmsa_score_cuda.launches
+    grid = sweep_placed_budgets(build, up, down, pol, rule, gen(), 4, pcfg, (0.25, 1.0),
+                                scalar=cfg.v, ingest=ingest)
+    torch.cuda.synchronize()
+    assert gmsa_score_cuda.launches == before + cfg.t_slots
+    for i, mb in enumerate((0.25, 1.0)):
+        per = simulate_placed_many(build, up, down, pol, rule, gen(), 4,
+                                   dataclasses.replace(pcfg, move_budget=mb), scalar=cfg.v,
+                                   ingest=ingest)
+        lane = PlacedOutputs(*(x[i] for x in grid))
+        for name in ("f_trace", "q_final", "placements", "r_trace"):
+            assert torch.equal(getattr(lane, name), getattr(per, name)), name
+        for name in ("cost", "energy", "wan_cost", "sync_cost"):
+            torch.testing.assert_close(getattr(lane, name), getattr(per, name), rtol=1e-6,
+                                       atol=0.0, msg=name)
 
 
 def test_smoke_model_on_the_card_matches_the_cpu(cuda):

@@ -41,7 +41,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "assert not bad, bad\n"
         "for need in ('repro_torch.core.simulator', 'repro_torch.models.lm',\n"
         "             'repro_torch.serve.step', 'repro_torch.kernels.ssd_scan.ops',\n"
-        "             'repro_torch.jobs.engine', 'repro_torch.placement.wan'):\n"
+        "             'repro_torch.jobs.engine', 'repro_torch.placement.wan',\n"
+        "             'repro_torch.placement.replica', 'repro_torch.placement.controller',\n"
+        "             'repro_torch.traces.drift', 'repro_torch.traces.faults',\n"
+        "             'repro_torch.checkpoint.fault',\n"
+        "             'repro_torch.benchmarks.placement_bench'):\n"
         "    assert need in sys.modules, need\n"
         "print('ok', len(sys.modules))\n"
     )
