@@ -9,7 +9,8 @@ Phases, each printing one line or more; any failure exits non-zero:
 2. build   — compile every kernel from ``src/repro_torch/kernels/*/csrc``
              with nvcc (all sources at once) into ``build/torch_kernels/``.
 3. kernels — each kernel against its plain PyTorch version on the card,
-             at the test shapes and each main path's (fleet, fleet V-sweep):
+             at the test shapes and each main path's (fleet, fleet V-sweep,
+             the serving engine's one-run (K, N) = (8, 256)):
              accuracy, argmin agreement up to near-ties, exact ties to the
              lowest index, bitwise-repeatable launches; ``gmsa_score``'s
              cost workspace against the plain two-phase version at every
@@ -36,7 +37,8 @@ Phases, each printing one line or more; any failure exits non-zero:
              (and the plain chunked form where the loop is too slow): the
              test shapes in fp32 and bf16 on unit-normal inputs, then with
              the model's own input ranges a ragged S, chunk 24, the serving
-             shape and a prefill_32k sequence; bitwise-repeatable launches;
+             shape, a prefill_32k sequence and the serving engine's 32-token
+             prefills (timed at B = 4); bitwise-repeatable launches;
              at the serving shape every workspace of the chain (cum, CBᵀ,
              entering states) against the plain phase-by-phase version;
              device time beside the plain versions and the bound, and each
@@ -105,7 +107,28 @@ Phases, each printing one line or more; any failure exits non-zero:
              budgets (T launches per call, each lane's decisions, queues and
              layouts bitwise the per-budget call's, sums within 1e-6); (d)
              one fleet run's TRACE flight record through ``report --check``.
-14. results — one JSON line of per-kernel numbers, then the device line.
+14. serve  — the serving control plane (``repro_torch.serve.FleetEngine``):
+             (a) the fleet serving grid (``make_serve_grid``: N = 256 pods,
+             K = 8 mamba2-2.7b classes priced on the full model, 40
+             requests per class per slot capped at 64, T = 288) with
+             ``dispatch="kernel"``, dispatch only: exactly T ``gmsa_score``
+             launches per run, the replay pin against ``simulate_staged``
+             (dispatch and WAN bill bitwise), 0 off-tie mismatches in
+             lockstep against the plain version, request conservation, a pod
+             death at slot 144 (the recovery event in the history and the
+             stream in slot order, drained > 0, the dead pod's queues 0
+             after it), an all-ones alive mask bitwise equal to none, the
+             sojourn histogram holding the completed mass with outputs
+             bitwise the OFF run's, a flight record through ``report
+             --check``; wall per run, device busy share, the host's time per
+             slot, peak memory; (b) full-width mamba2-2.7b (random fp32
+             weights) executing the drained jobs of a 4-pod, 6-slot run:
+             exact ``exec_jobs``, 64 ``ssd_scan`` launches per executed
+             prefill batch, finite logits, tokens in vocabulary; seconds per
+             job and per slot, ``ssd_scan``'s share of an executed batch's
+             device time; (c) ``python -m repro_torch.launch.serve --slots
+             24 --pods 8 --dispatch kernel`` as a subprocess, exit 0.
+15. results — one JSON line of per-kernel numbers, then the device line.
 
 Numbers are measured on whatever card runs this; the bound uses the H100
 SXM's published peaks (3.35 TB/s, 67 TFLOP/s fp32) at its 700 W limit.
@@ -138,6 +161,8 @@ SCORE_SHAPES = [
     (700, 8, 256, False), (100, 8, 256, True),
 ]
 MAIN_SHAPE = (100, 8, 256, False)
+#: The serving engine's kernel dispatch: one run, no runs axis (phase 14).
+SCORE_SERVE_SHAPE = (None, 8, 256, False)
 SWEEP_SHAPE = (700, 8, 256, False)
 #: (R, K, N) with one (K, N, N) ratio tensor per run: the placement
 #: controller's fleet shape after its first epoch boundary.
@@ -169,14 +194,20 @@ SSD_TEST_SHAPES = [
 ]
 SSD_TEST_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
 #: With the model's input ranges (dt in [1e-3, 0.1], A in [-16, -1], silu'd
-#: x, B, C): a ragged S, chunk 24, the serving shape of phase 8, and one
+#: x, B, C): a ragged S, chunk 24, the serving shape of phase 8, one
 #: prefill_32k sequence (checked against the plain chunked form only: the
-#: 32768-step loop is too slow). fp32, summation orders differ: 1e-4.
+#: 32768-step loop is too slow), and the serving engine's 32-token prompts
+#: (phase 14) at B = 1 and 4 with the chunk the model uses, min(256, S) =
+#: 32, and B = 4 padded to chunk 256. fp32, summation orders differ: 1e-4.
 SSD_MODEL_SHAPES = [
     (1, 2000, 80, 64, 128, 256), (2, 200, 80, 64, 128, 24),
     (4, 2048, 80, 64, 128, 256), (1, 32768, 80, 64, 128, 256),
+    (1, 32, 80, 64, 128, 32), (4, 32, 80, 64, 128, 32), (4, 32, 80, 64, 128, 256),
 ]
 SSD_SERVE_SHAPE = (4, 2048, 80, 64, 128, 256)
+#: The serving engine's executed prefill batch (phase 14): 4 x 32 tokens,
+#: chunk min(256, 32).
+SSD_ENGINE_SHAPE = (4, 32, 80, 64, 128, 32)
 SSD_MODEL_TOL = 1e-4
 #: The chain's kernels, in launch order (``ssd_scan_<phase>_kernel``).
 SSD_PHASES = ("cumsum", "chunk_cb", "chunk_state", "state_pass", "chunk_scan")
@@ -233,6 +264,14 @@ PLACED_LAYOUT_FIELDS = ("placements", "r_trace", "wan_cost", "wan_energy", "wan_
 #: Controller sums against simulate (W = T) and budget lanes against their
 #: per-budget calls: the same fp32 values reduced over another shape.
 PLACED_SUM_RTOL = 1e-6
+#: The fleet serving grid (phase 14): fleet_256's K = 8 classes of
+#: mamba2-2.7b (smoke executes, full prices) at 40 requests per slot each,
+#: admission capped at 64, a day of slots; a pod dies at slot 144. The
+#: full-width execution run: one class, N = 4 pods, 6 slots.
+SERVE_ARRIVAL = 40.0
+SERVE_ADMIT_MAX = 64.0
+SERVE_FAULT_SLOT = 144
+SERVE_EXEC = {"pods": 4, "slots": 6, "seed": 3, "arrival": 4.0, "admit_max": 5.0}
 
 
 def log(msg: str) -> None:
@@ -504,6 +543,7 @@ def phase_kernels(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     worst_rel, worst_cost, main, sweep, bench, per_run = 0.0, 0.0, None, None, None, None
+    serve = None
     for runs, k, n, per_run_r in SCORE_SHAPES:
         key = (runs, k, n, per_run_r)
         r_runs = runs if per_run_r else 1
@@ -586,6 +626,9 @@ def phase_kernels(dev):
         if key == BENCH_SHAPE:
             bench = {"ms_bench": t_k, "plain_ms_bench": t_p, "bound_ms_bench": bound,
                      "phase_ms_bench": phase}
+        if key == SCORE_SERVE_SHAPE:
+            serve = {"ms_serve": t_k, "plain_ms_serve": t_p, "bound_ms_serve": bound,
+                     "phase_ms_serve": phase, "host_ms_serve": c_k}
         if key == PER_RUN_SHAPE:
             r_mat = ops[4].view(runs * k * n, n)
             t_lib = device_time_ms(lambda: torch.matmul(r_mat, ops[5]))
@@ -635,6 +678,7 @@ def phase_kernels(dev):
     main.update(sweep)
     main.update(bench)
     main.update(per_run)
+    main.update(serve)
     return main
 
 
@@ -880,7 +924,7 @@ def phase_ssd_kernel(dev):
     cases = [(shape, dname, False, SSD_TEST_TOL[dname])
              for shape in SSD_TEST_SHAPES for dname in ("float32", "bfloat16")]
     cases += [(shape, "float32", True, SSD_MODEL_TOL) for shape in SSD_MODEL_SHAPES]
-    worst, main, long_run = {"float32": 0.0, "bfloat16": 0.0}, None, None
+    worst, main, long_run, engine = {"float32": 0.0, "bfloat16": 0.0}, None, None, None
     for (b, s, h, p, n, q), dname, model_like, tol in cases:
         dtype = getattr(torch, dname)
         ops = ssd_inputs(gen, b, s, h, p, n, dtype, dev, model_like)
@@ -911,6 +955,16 @@ def phase_ssd_kernel(dev):
         if (b, s, h, p, n, q) == SSD_SERVE_SHAPE:
             ws_errs = check_ssd_workspaces(ops, q, shape)
             torch.cuda.empty_cache()
+        if model_like and (b, s, h, p, n, q) == SSD_ENGINE_SHAPE:
+            t_k = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=20, iters=10)
+            _, events = device_profile(lambda: ssd_scan_ref(*ops))
+            t_p = sum(us for _, us, _ in events) / 1e3
+            bound, bound_by = ssd_bound_ms(b, s, h, p, n, q, dtype.itemsize)
+            log(f"[ssd] {shape}: device: kernel chain {t_k * 1e3:.2f} us, plain sequential "
+                f"{t_p * 1e3:.1f} us (profiler device sum), bound {bound * 1e3:.3f} us "
+                f"({bound_by}; chain at {100 * bound / t_k:.1f}% of it)")
+            engine = {"ms_serve": t_k, "plain_ms_serve": t_p, "bound_ms_serve": bound,
+                      "bound_by_serve": bound_by}
         if model_like and ((b, s, h, p, n, q) == SSD_SERVE_SHAPE or long_seq):
             t_k = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=5, iters=4)
             t_c = device_time_ms(lambda: ssd_chunked(*ops, q), reps=1, iters=3)
@@ -946,6 +1000,7 @@ def phase_ssd_kernel(dev):
     main["max_rel_err_fp32"], main["max_rel_err_bf16"] = worst["float32"], worst["bfloat16"]
     main["workspace_rel_err"] = ws_errs
     main.update(long_run)
+    main.update(engine)
     return main
 
 
@@ -1841,6 +1896,281 @@ def phase_placement(dev, smi, cfg=None, paper_runs=None, sweep_runs=None) -> dic
     return {"launches_placed": launches["drifting"], "launches_placed_sweep": sweep_launches}
 
 
+def with_static_r(policy, r):
+    """A carried-r base policy bound to a static (K, N, N) ``r``: the
+    serving engine hands base policies ``(data_dist, wpue)``, and the
+    lockstep policy reads ``r_t`` third."""
+    def bound(generator, q, arrivals, mu, e, aux, scalar):
+        return policy(generator, q, arrivals, mu, e, (aux[0], aux[1], r), scalar)
+
+    bound.consumes_key = False
+    bound.wants_wpue = True
+    return bound
+
+
+def phase_serve(dev, smi, cfg=None, exec_variant: str = "full") -> dict:
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.benchmarks import serve_bench
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.fleet_256 import FleetConfig, make_serve_grid
+    from repro_torch.jobs import stage_oblivious
+    from repro_torch.launch.serve import serve_traces
+    from repro_torch.serve import FleetConfig as ServeFleetConfig
+    from repro_torch.serve import FleetEngine, RequestClass
+    from repro_torch.telemetry import (
+        SUMMARY,
+        HistogramSpec,
+        TelemetryConfig,
+        cross_check,
+        fleet_records,
+        read_jsonl,
+        write_jsonl,
+    )
+
+    def checked(what, fn, *args):
+        try:
+            return fn(*args)
+        except AssertionError as exc:
+            fail(f"serve: {what}: {exc}")
+
+    # (a) the fleet serving grid, dispatch only, through gmsa_score.
+    cfg = cfg or FleetConfig()
+    t_slots, n, k = cfg.t_slots, cfg.n_sites, cfg.k_types
+    omega, pue, r, up, down, layout, shares = make_serve_grid(cfg, k, t_slots, device=dev)
+    smoke, full = get_arch(MAMBA_ARCH, "smoke"), get_arch(MAMBA_ARCH, "full")
+    rcs = [RequestClass(name=f"{MAMBA_ARCH}/{i}", cfg=smoke, energy_cfg=full,
+                        arrival_rate=SERVE_ARRIVAL) for i in range(k)]
+    fc = ServeFleetConfig(n_pods=n, horizon_slots=t_slots, v=cfg.v, seed=1,
+                          capacity_shares=shares, dispatch="kernel", admit_max=SERVE_ADMIT_MAX)
+    grid = dict(up=up, down=down, layout=layout, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    eng = FleetEngine(fc, rcs, omega, pue, r, **grid)
+    scn = eng.scenario
+    again = lambda **kw: FleetEngine(fc, rcs, omega, pue, r, scenario=scn, **grid, **kw)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = eng.run(execute_real=False)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"[serve] fleet grid N={n} K={k} T={t_slots} (mamba2-2.7b classes, smoke executes, "
+        f"full prices; {SERVE_ARRIVAL:g} requests per class per slot, cap "
+        f"{SERVE_ADMIT_MAX:g}), dispatch='kernel': launches {counts}; first run "
+        f"{wall1 * 1e3:.1f} ms")
+    if counts["gmsa_score"] != t_slots or counts["ssd_scan"]:
+        fail(f"serve: launch counts {counts}, expected {t_slots} gmsa_score and no ssd_scan")
+    for name in ("cost", "backlog", "wan_cost", "dispatch", "q_final"):
+        if not np.isfinite(out[name]).all():
+            fail(f"serve: non-finite {name}")
+    replay = checked("replay pin against simulate_staged", serve_bench.check_replay, eng, out)
+    conserve = checked("conservation", serve_bench.check_conservation, out)
+    log(f"[serve] replay pin against simulate_staged: dispatch and WAN bill bitwise; cost "
+        f"max_rel {replay['cost_rel']:.3e} (tol {serve_bench.COST_RTOL:g}), total "
+        f"{replay['total_rel']:.3e} (tol {serve_bench.TOTAL_RTOL:g}), backlog max_rel "
+        f"{replay['backlog_rel']:.3e} (tol {serve_bench.BACKLOG_RTOL:g} + "
+        f"{serve_bench.BACKLOG_ATOL:g}); conservation "
+        f"max_rel {conserve:.3e} (tol {serve_bench.CONSERVE_RTOL:g}); admitted "
+        f"{out['admitted'].sum():.0f}, rejected {out['rejected'].sum():.0f}, completed "
+        f"{out['completed'].sum():.1f}, final backlog {out['final_backlog']:.1f}, mean cost "
+        f"{out['mean_cost']:.4e} $/slot, KV WAN {out['wan_cost'].sum():.4e} $ "
+        f"({out['wan_gb'].sum():.1f} GB)")
+
+    walls, timings = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        o = eng.run(execute_real=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        timings.append(o["timing"])
+        if not np.array_equal(o["dispatch"], out["dispatch"]):
+            fail("serve: a second run dispatched differently")
+    per_slot = {part: statistics.median(tm[part] for tm in timings) / t_slots * 1e3
+                for part in ("enqueue", "readback", "record")}
+    log(f"[serve] {smi} | wall per dispatch-only run (calls 2-4): "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms; median "
+        f"{statistics.median(walls) * 1e3:.1f} ms ({statistics.median(walls) / t_slots * 1e3:.3f} "
+        f"ms per slot); host per slot (median of the three): enqueueing the slot's device work "
+        f"{per_slot['enqueue']:.3f} ms, the one readback (device wait included) "
+        f"{per_slot['readback']:.3f} ms, bookkeeping and history {per_slot['record']:.3f} ms; "
+        f"post-run bill {statistics.median(tm['bill'] for tm in timings) * 1e3:.1f} ms")
+    log(f"[serve] {smi} | {device_busy_share(lambda: eng.run(execute_real=False))}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve] {smi} | peak device memory of the phase so far {peak / 2**30:.2f} GiB "
+        f"({(peak - mem0) / 2**30:.2f} GiB above the {mem0 / 2**30:.2f} GiB held before it)")
+
+    tally = {"mism": torch.zeros((), dtype=torch.int64, device=dev),
+             "flips": torch.zeros((), dtype=torch.int64, device=dev)}
+    lock = again()
+    lock.policy = stage_oblivious(with_static_r(lockstep_policy(scn.inputs.p_it, tally),
+                                                scn.inputs.r), pin_map=True)
+    lock.run(execute_real=False)
+    mism = int(tally["mism"])
+    log(f"[serve] lockstep: {t_slots * k} decisions, kernel and plain on the same aggregate "
+        f"state every slot: off-tie mismatches {mism}, near-tie flips {int(tally['flips'])}")
+    if mism:
+        fail(f"serve: {mism} off-tie decision mismatches in lockstep")
+
+    # A pod death: the pod holding the most backlog just before the slot.
+    dead = int(np.argmax(out["history"][SERVE_FAULT_SLOT - 1]["q_pod"]))
+    alive = np.ones((t_slots, n), np.float32)
+    alive[SERVE_FAULT_SLOT:, dead] = 0.0
+    stream = []
+    reset_counts()
+    fout = again(alive=alive).run(execute_real=False, stream=stream.append)
+    torch.cuda.synchronize()
+    f_counts = read_counts()
+    ev = fout["events"]
+    kinds = [(rec["type"], rec["t"]) for rec in stream]
+    edge = ("event", SERVE_FAULT_SLOT)
+    in_order = ([t for kind, t in kinds if kind == "metric"] == list(range(t_slots))
+                and edge in kinds
+                and kinds.index(edge) == kinds.index(("metric", SERVE_FAULT_SLOT)) + 1)
+    dead_q = max(h["q_pod"][dead] for h in fout["history"][SERVE_FAULT_SLOT:])
+    f_conserve = checked("conservation under the pod death", serve_bench.check_conservation,
+                         fout)
+    log(f"[serve] pod {dead} (most backlog at slot {SERVE_FAULT_SLOT - 1}: "
+        f"{out['history'][SERVE_FAULT_SLOT - 1]['q_pod'][dead]:.1f}) dies at slot "
+        f"{SERVE_FAULT_SLOT}: events {ev}; history[{SERVE_FAULT_SLOT}] recovery "
+        f"{'recovery' in fout['history'][SERVE_FAULT_SLOT]}; stream records {len(stream)} in "
+        f"slot order {in_order}; the dead pod's largest queue after it {dead_q}; dispatch mass "
+        f"on it {float(fout['dispatch'][SERVE_FAULT_SLOT:, dead].sum())}; conservation "
+        f"max_rel {f_conserve:.3e}; launches {f_counts}")
+    if not (len(ev) == 1 and ev[0]["t"] == SERVE_FAULT_SLOT and ev[0]["pod"] == dead
+            and ev[0]["drained"] > 0.0 and "recovery" in fout["history"][SERVE_FAULT_SLOT]
+            and in_order and dead_q == 0.0 and float(fout["q_final"][dead].sum()) == 0.0
+            and f_counts["gmsa_score"] == t_slots):
+        fail("serve: pod-death recovery gates")
+
+    ones = again(alive=np.ones((t_slots, n), np.float32)).run(execute_real=False)
+    same = all(np.array_equal(out[name], ones[name])
+               for name in ("dispatch", "cost", "wan_cost", "backlog", "q_final"))
+    if not (same and ones["history"] == out["history"] and ones["events"] == []):
+        fail("serve: an all-ones alive mask differs from none")
+    tel = again(telemetry=TelemetryConfig(level=SUMMARY, hist=HistogramSpec()))
+    hout = tel.run(execute_real=False)
+    checked("conservation with the sojourn histogram", serve_bench.check_conservation, hout)
+    same = all(np.array_equal(out[name], hout[name])
+               for name in ("dispatch", "cost", "wan_cost", "backlog", "q_final"))
+    mass = float(hout["sojourn_hist"].sum())
+    log(f"[serve] all-ones alive bitwise equal to none; sojourn histogram mass {mass:.1f} "
+        f"against completed {hout['completed'].sum():.1f}, p99 per class "
+        f"{[round(p['p99'], 2) for p in hout['sojourn_percentiles']]}; outputs bitwise the "
+        f"OFF run's {same and hout['history'] == out['history']}")
+    if not (same and hout["history"] == out["history"]):
+        fail("serve: the histogram layer changed the run's outputs")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "serve_flight_record.jsonl"
+        records = fleet_records(hout, meta={"slo_backlog": fc.slo_backlog})
+        write_jsonl(records, path)
+        check = cross_check(read_jsonl(path))
+        rep = subprocess.run([sys.executable, "-m", "repro_torch.telemetry.report", str(path),
+                              "--check", "--percentiles"], capture_output=True, text=True,
+                             timeout=300, cwd=ROOT,
+                             env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    tail = [line for line in rep.stdout.splitlines() if "cross-check" in line]
+    log(f"[serve] flight record: {len(records)} records; report --check exit "
+        f"{rep.returncode}: " + " | ".join(x.strip() for x in tail))
+    if rep.returncode != 0 or not check["ok"]:
+        fail(f"serve: flight record cross-check failed: {rep.stdout[-2000:]} "
+             f"{rep.stderr[-2000:]}")
+    del eng, lock, tel, out, fout, ones, hout, scn
+    torch.cuda.empty_cache()
+
+    # (b) real execution at full width: the drained jobs run prefill +
+    # decode on mamba2-2.7b, every prefill layer's scan through ssd_scan.
+    xcfg = get_arch(MAMBA_ARCH, exec_variant)
+    x = SERVE_EXEC
+    x_omega, x_pue, x_r, x_up, x_down, x_layout = serve_traces(1, x["pods"], x["slots"], x["seed"],
+                                                               dev)
+    xfc = ServeFleetConfig(n_pods=x["pods"], horizon_slots=x["slots"], v=1.0, seed=x["seed"],
+                           admit_max=x["admit_max"], dispatch="kernel")
+    rc = RequestClass(MAMBA_ARCH, cfg=xcfg, energy_cfg=xcfg, arrival_rate=x["arrival"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    xeng = FleetEngine(xfc, [rc], x_omega, x_pue, x_r, up=x_up, down=x_down, layout=x_layout,
+                       device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    vocab = xcfg.vocab_size
+    ok = {"finite": torch.ones((), dtype=torch.bool, device=dev),
+          "vocab": torch.ones((), dtype=torch.bool, device=dev), "batches": []}
+    prefill_fn, decode_fn = xeng._prefill[MAMBA_ARCH], xeng._decode[MAMBA_ARCH]
+
+    def prefill(params, tokens):
+        ok["batches"].append(tokens.shape[0])
+        logits, cache = prefill_fn(params, tokens)
+        ok["finite"] &= torch.isfinite(logits).all()
+        return logits, cache
+
+    def decode(params, cache, tok):
+        ok["vocab"] &= ((tok >= 0) & (tok < vocab)).all()
+        logits, cache = decode_fn(params, cache, tok)
+        ok["finite"] &= torch.isfinite(logits).all()
+        return logits, cache
+
+    xeng._prefill[MAMBA_ARCH], xeng._decode[MAMBA_ARCH] = prefill, decode
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    xout = xeng.run(execute_real=True)
+    torch.cuda.synchronize()
+    x_wall = time.perf_counter() - t0
+    x_counts = read_counts()
+    want = [min(int(round(c)), xfc.exec_cap) for c in xout["completed"][:, 0]]
+    b = xfc.batch_per_exec
+    n_batches = sum(-(-j // b) for j in want)
+    width = "full-width" if exec_variant == "full" else exec_variant
+    log(f"[serve] {smi} | {width} {MAMBA_ARCH} ({xcfg.num_layers} layers, random fp32 "
+        f"weights, built in {t_init:.2f} s) executing the drained jobs of N={x['pods']}, "
+        f"T={x['slots']} (dispatch='kernel'): jobs per slot {want}, exec_jobs "
+        f"{xout['exec_jobs']}, prefill batches {ok['batches']}; launches {x_counts}; logits "
+        f"finite {bool(ok['finite'])}, tokens in vocabulary {bool(ok['vocab'])}; run wall "
+        f"{x_wall:.2f} s, {x_wall / x['slots']:.3f} s per slot, execution "
+        f"{xout['exec_seconds']:.2f} s = {xout['exec_seconds'] / max(xout['exec_jobs'], 1):.3f} "
+        f"s per job")
+    if not (xout["exec_jobs"] == sum(want) > 0 and ok["batches"] == [
+            min(b, j - i) for j in want for i in range(0, j, b)]
+            and x_counts["ssd_scan"] == xcfg.num_layers * n_batches
+            and x_counts["gmsa_score"] == x["slots"] and xout["exec_seconds"] > 0.0
+            and bool(ok["finite"]) and bool(ok["vocab"])):
+        fail(f"serve: real execution gates: exec_jobs {xout['exec_jobs']} (want {sum(want)}), "
+             f"launches {x_counts} (want {xcfg.num_layers * n_batches} ssd_scan)")
+    wall, events = device_profile(lambda: xeng._execute_jobs(rc, b))
+    dev_us = sum(us for _, us, _ in events)
+    k_us = sum(us for name, us, _ in events if is_ssd_kernel(name))
+    share = f"{100 * k_us / dev_us:.2f}%" if dev_us > 0 else "not measured"
+    top = ", ".join(f"{name[:40]} {us / 1e3:.2f} ms x{c}" for name, us, c in events[:4])
+    log(f"[serve] {smi} | one executed batch ({b} x {rc.prompt_len}-token prompts + "
+        f"{rc.gen_len} tokens) under torch.profiler: {wall * 1e3:.1f} ms wall, device busy "
+        f"{dev_us / 1e3:.2f} ms, ssd_scan chain {k_us / 1e3:.3f} ms = {share} of device time; "
+        f"top: {top}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del xeng, prefill_fn, decode_fn
+    torch.cuda.empty_cache()
+
+    # (c) the launcher, as a user runs it.
+    t0 = time.perf_counter()
+    launch = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--slots", "24",
+                             "--pods", "8", "--dispatch", "kernel"], capture_output=True,
+                            text=True, timeout=600, cwd=ROOT,
+                            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    lines = launch.stdout.strip().splitlines()
+    log(f"[serve] python -m repro_torch.launch.serve --slots 24 --pods 8 --dispatch kernel: "
+        f"exit {launch.returncode} in {time.perf_counter() - t0:.1f} s: "
+        + " | ".join(line.strip() for line in lines[:1] + lines[-3:]))
+    if launch.returncode != 0:
+        fail(f"serve: the launcher failed: {launch.stdout[-2000:]} {launch.stderr[-2000:]}")
+    return {"gmsa_score": counts["gmsa_score"], "ssd_scan": x_counts["ssd_scan"]}
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -1864,6 +2194,7 @@ def main() -> int:
     tel_launches = phase_telemetry(dev, smi)
     staged_launches = phase_staged(dev, smi)
     placed = phase_placement(dev, smi)
+    serve = phase_serve(dev, smi)
 
     entry = {
         "name": "gmsa_score",
@@ -1876,6 +2207,7 @@ def main() -> int:
         "launches_staged": staged_launches,
         "launches_placed": placed["launches_placed"],
         "launches_placed_sweep": placed["launches_placed_sweep"],
+        "launches_serve": serve["gmsa_score"],
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -1901,6 +2233,11 @@ def main() -> int:
         "library_ms_per_run_r": main_shape["library_ms_per_run_r"],
         "phase_ms_per_run_r": main_shape["phase_ms_per_run_r"],
         "max_abs_err_per_run_r": main_shape["max_abs_err_per_run_r"],
+        "ms_serve": main_shape["ms_serve"],
+        "plain_ms_serve": main_shape["plain_ms_serve"],
+        "bound_ms_serve": main_shape["bound_ms_serve"],
+        "phase_ms_serve": main_shape["phase_ms_serve"],
+        "host_ms_serve": main_shape["host_ms_serve"],
     }
     ssd_entry = {
         "name": "ssd_scan",
@@ -1908,6 +2245,7 @@ def main() -> int:
         "source": str(SOURCES["ssd_scan"].relative_to(ROOT)),
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:29",
         "launches": ssd_launches,
+        "launches_serve": serve["ssd_scan"],
         "max_abs_err": ssd["max_abs_err"],
         "ms": ssd["ms"],
         "plain_ms": ssd["plain_ms"],
@@ -1923,6 +2261,10 @@ def main() -> int:
         "plain_chunked_ms_32k": ssd["plain_chunked_ms_32k"],
         "bound_ms_32k": ssd["bound_ms_32k"],
         "phase_ms_32k": ssd["phase_ms_32k"],
+        "ms_serve": ssd["ms_serve"],
+        "plain_ms_serve": ssd["plain_ms_serve"],
+        "bound_ms_serve": ssd["bound_ms_serve"],
+        "bound_by_serve": ssd["bound_by_serve"],
     }
     log(f"[device] {smi}")
     print(json.dumps({"kernels": [entry, ssd_entry]}))

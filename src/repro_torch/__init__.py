@@ -17,12 +17,16 @@ package's layout module for module (``repro.core.gmsa`` ->
     repro_torch.configs    — the paper's 4-DC scenario, the N = 256 fleet and
                              the Mamba-2 2.7B model config
     repro_torch.models     — the Mamba-2 language model (prefill, decode)
-    repro_torch.serve      — the serving engine's local executor
+    repro_torch.serve      — the serving control plane (``FleetEngine``) and
+                             its local prefill/decode executor
+    repro_torch.launch     — ``python -m repro_torch.launch.serve``
     repro_torch.telemetry  — the flight recorder's device side: levels, the
                              event ring, histograms, SLOs
-    repro_torch.benchmarks — the paper's Figs. 5 and 6, the simulator bench
-                             and ``python -m repro_torch.benchmarks.paper_repro``
-    repro_torch.bridge     — numpy trace bundles and parameter trees -> the port
+    repro_torch.benchmarks — the paper's Figs. 5 and 6, the simulator, jobs,
+                             placement and serving benches and
+                             ``python -m repro_torch.benchmarks.paper_repro``
+    repro_torch.bridge     — numpy trace bundles, serving scenarios and
+                             parameter trees -> the port
 
 Device rule: every entry point that makes tensors takes ``device=None``,
 which means ``"cuda"``, and raises when no CUDA device is present; the CPU

@@ -8,6 +8,10 @@
 * A stage chain (``repro.jobs.dag.StageDag``) and a WAN model
   (``repro.placement.wan.WanModel``), fields as numpy arrays, become the
   port's :class:`~repro_torch.jobs.dag.StageDag` / :class:`WanModel`.
+* A serving scenario (``repro.serve.engine.ServeScenario``: the trace
+  bundle, the prefill → decode chain, the WAN model and the admission and
+  routing arrays, each as numpy) becomes the port's
+  :class:`~repro_torch.serve.engine.ServeScenario`.
 * A model's parameter pytree (``repro.models.lm.init_params``, leaves
   through ``np.asarray``) and its decode cache become the port's dicts of
   tensors, checked leaf for leaf against the port's specs.
@@ -30,6 +34,7 @@ from repro_torch.device import resolve_device
 from repro_torch.jobs.dag import StageDag
 from repro_torch.models.lm import _ssm_dims, layer_param_specs, top_param_specs
 from repro_torch.placement.wan import WanModel
+from repro_torch.serve.engine import ServeScenario
 
 #: Fields that carry the Monte-Carlo randomness; the rest are shared by runs.
 STOCHASTIC_FIELDS = ("arrivals", "mu")
@@ -52,23 +57,23 @@ def sim_inputs_from_numpy(fields, device=None) -> SimInputs:
     return SimInputs(**out)
 
 
-def _fields_f32(cls, fields, shapes: dict, dev: torch.device):
-    """numpy fields of the NamedTuple ``cls`` -> fp32 tensors on ``dev``,
-    each checked against its expected shape (``None`` skips the check)."""
+def _fields_f32(what: str, names, fields, shapes: dict, dev: torch.device):
+    """numpy fields ``names`` of ``what`` -> fp32 tensors on ``dev``, each
+    checked against its expected shape (``None`` skips the check)."""
     out = {}
-    for name in cls._fields:
+    for name in names:
         x = fields[name] if isinstance(fields, Mapping) else getattr(fields, name)
         if not isinstance(x, np.ndarray):
             raise TypeError(
-                f"{cls.__name__} field {name!r} is {type(x).__name__}, not a numpy "
+                f"{what} field {name!r} is {type(x).__name__}, not a numpy "
                 "array; convert with np.asarray first"
             )
         if not np.issubdtype(x.dtype, np.floating):
-            raise TypeError(f"{cls.__name__} field {name!r} has dtype {x.dtype}, not a float")
+            raise TypeError(f"{what} field {name!r} has dtype {x.dtype}, not a float")
         want = shapes[name]
         if want is not None and tuple(x.shape) != want:
             raise ValueError(
-                f"{cls.__name__} field {name!r} has shape {tuple(x.shape)}, expected {want}"
+                f"{what} field {name!r} has shape {tuple(x.shape)}, expected {want}"
             )
         out[name] = torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
     return out
@@ -83,7 +88,8 @@ def dag_from_numpy(fields, device=None) -> StageDag:
     ks = tuple(np.shape(compute))
     if len(ks) != 2:
         raise ValueError(f"StageDag field 'compute' has shape {ks}, expected (K, S)")
-    return StageDag(**_fields_f32(StageDag, fields, dict.fromkeys(StageDag._fields, ks), dev))
+    return StageDag(**_fields_f32("StageDag", StageDag._fields, fields,
+                                  dict.fromkeys(StageDag._fields, ks), dev))
 
 
 def wan_from_numpy(fields, device=None) -> WanModel:
@@ -96,7 +102,27 @@ def wan_from_numpy(fields, device=None) -> WanModel:
     if len(n) != 1:
         raise ValueError(f"WanModel field 'up' has shape {n}, expected (N,)")
     shapes = {"up": n, "down": n, "link_bw": n + n, "energy_per_gb": ()}
-    return WanModel(**_fields_f32(WanModel, fields, shapes, dev))
+    return WanModel(**_fields_f32("WanModel", WanModel._fields, fields, shapes, dev))
+
+
+def serve_scenario_from_numpy(fields, device=None) -> ServeScenario:
+    """A numpy ``ServeScenario`` -> the port's on ``device`` (``None``:
+    CUDA), every array fp32.
+
+    ``fields`` maps (or carries as attributes) ``inputs`` (``SimInputs``
+    fields), ``dag`` (``StageDag`` fields), ``wan`` (``WanModel`` fields)
+    and the arrays ``raw_arrivals``/``rejected`` (T, K), ``layout`` (K, N)
+    and ``reads`` (K, N, N); each shape is checked against the inputs'.
+    """
+    dev = resolve_device(device)
+    get = lambda name: fields[name] if isinstance(fields, Mapping) else getattr(fields, name)
+    inputs = sim_inputs_from_numpy(get("inputs"), dev)
+    t_slots, n, k = inputs.mu.shape
+    shapes = {"raw_arrivals": (t_slots, k), "rejected": (t_slots, k), "layout": (k, n),
+              "reads": (k, n, n)}
+    arrays = _fields_f32("ServeScenario", shapes, fields, shapes, dev)
+    return ServeScenario(inputs=inputs, dag=dag_from_numpy(get("dag"), dev),
+                         wan=wan_from_numpy(get("wan"), dev), **arrays)
 
 
 def stack_runs(runs: Sequence[SimInputs]) -> SimInputs:

@@ -83,6 +83,12 @@ class ModelConfig:
 
         return count_params(self)
 
+    def active_param_count(self) -> int:
+        """Activated parameters per token (MoE: top_k + shared experts only)."""
+        from repro_torch.models.lm import count_params
+
+        return count_params(self, active_only=True)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

@@ -177,6 +177,40 @@ def staged_shuffle_mixes(
     return src_all, dst_all, vol_all
 
 
+def staged_wan_bill(
+    src_all: Tensor,
+    dst_all: Tensor,
+    vol_all: Tensor,
+    wan: WanModel,
+    omega: Tensor,
+    pue: Tensor,
+    link_health: Tensor | None = None,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """The WAN bill of every (slot, stage) shuffle in one fused
+    :func:`plan_cost` call, the stages folded into the type axis.
+
+    With a (T, N, N) ``link_health`` the degraded-link premium is added on
+    top of the untouched fused bill (exact zero on an all-nominal trace);
+    it materializes (..., T, S·K, N, N) plans.
+
+    Args:
+        src_all, dst_all: (..., T, S, K, N); vol_all: (..., T, S, K), as
+            :func:`staged_shuffle_mixes` returns them.
+
+    Returns:
+        (cost, energy, gb), (..., T) each.
+    """
+    n = src_all.shape[-1]
+    fold = tuple(src_all.shape[:-3]) + (src_all.shape[-3] * src_all.shape[-2],)
+    src, dst, vol = src_all.reshape(fold + (n,)), dst_all.reshape(fold + (n,)), vol_all.reshape(fold)
+    wan_c, wan_e, wan_gb = plan_cost(src, dst, vol, wan, omega, pue)
+    if link_health is not None:
+        sur_c, sur_e = degraded_surcharge(src, dst, vol, wan, omega, pue, link_health)
+        wan_c = wan_c + sur_c
+        wan_e = wan_e + sur_e
+    return wan_c, wan_e, wan_gb
+
+
 def _hedge_bill(
     dag: StageDag,
     wan: WanModel,
@@ -410,21 +444,10 @@ def simulate_staged(
     )                                                              # (T, K, N)
     src_all, dst_all, vol_all = staged_shuffle_mixes(f_trace, in_all, done_all, dd_all, dag)
     del done_all
-    fold = batch + (t_slots, s_max * k_types)
-    wan_c, wan_e, wan_gb = plan_cost(
-        src_all.reshape(fold + (n,)), dst_all.reshape(fold + (n,)), vol_all.reshape(fold),
-        wan, inputs.omega, inputs.pue,
-    )                                                              # (..., T) each
-    if link_health is not None:
-        # Degraded-link premium on the shuffle traffic, additive to the
-        # untouched fused bill (exact zero on an all-nominal trace).
-        lh = torch.as_tensor(link_health, dtype=torch.float32, device=dev)
-        sur_c, sur_e = degraded_surcharge(
-            src_all.reshape(fold + (n,)), dst_all.reshape(fold + (n,)), vol_all.reshape(fold),
-            wan, inputs.omega, inputs.pue, lh,
-        )
-        wan_c = wan_c + sur_c
-        wan_e = wan_e + sur_e
+    lh = None if link_health is None else torch.as_tensor(link_health, dtype=torch.float32,
+                                                          device=dev)
+    wan_c, wan_e, wan_gb = staged_wan_bill(src_all, dst_all, vol_all, wan, inputs.omega,
+                                           inputs.pue, lh)        # (..., T) each
     if returns_hedge:
         hedge_cost, hedge_gb, hedged_jobs = _hedge_bill(
             dag, wan, g_all, acc_all, mu_stage_all, mu_eff_all, ec_stage_all, src_all, wpue_all,

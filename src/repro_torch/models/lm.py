@@ -143,11 +143,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float3
     return params
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Exact parameter count implied by the specs (== leaves of init_params)."""
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count implied by the specs (== leaves of init_params).
+
+    ``active_only`` counts the parameters one token activates: routed
+    expert leaves (``we_*``) scale by ``top_k / num_experts``.
+    """
     total = sum(math.prod(s) for s, _, _ in top_param_specs(cfg).values())
-    for shape, _, _ in layer_param_specs(cfg).values():
-        total += math.prod(shape) * cfg.num_layers
+    for name, (shape, _, _) in layer_param_specs(cfg).items():
+        n = math.prod(shape)
+        if active_only and name.startswith("we_"):
+            n = n * cfg.top_k // cfg.num_experts
+        total += n * cfg.num_layers
     return total
 
 

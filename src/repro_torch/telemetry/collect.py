@@ -299,8 +299,9 @@ def collect_records(
 
 def fleet_records(out: dict, *, meta: dict | None = None,
                   slo=None) -> list[dict]:
-    """Record stream for one serving-engine run (the JAX package's
-    ``FleetEngine.run`` dict; the port's serving control plane comes later).
+    """Record stream for one serving-engine run (the dict
+    :meth:`repro_torch.serve.engine.FleetEngine.run` returns, or the JAX
+    package's ``FleetEngine.run`` dict).
 
     The serving engine returns a plain dict (its history carries host-side
     per-slot records already), so this is a thin re-shaping into the same

@@ -46,6 +46,49 @@ def poisson_arrivals(
     return draws
 
 
+def admission_split(arrivals: Tensor, admit_max: float | Tensor | None) -> tuple[Tensor, Tensor]:
+    """Per-class per-slot admission control: (admitted, rejected).
+
+    The serving front end caps each class's per-slot intake at
+    ``admit_max`` (a number broadcasts over classes, a (K,) tensor gives
+    per-class caps, ``None`` admits everything). Rejected mass is shed at
+    the door: it never enters a queue and is never billed. The split is
+    exact, ``arrivals == admitted + rejected`` elementwise (a difference of
+    two fp32 counts below 2**24).
+    """
+    arrivals = torch.as_tensor(arrivals, dtype=torch.float32)
+    if admit_max is None:
+        return arrivals, torch.zeros_like(arrivals)
+    cap = torch.as_tensor(admit_max, dtype=torch.float32, device=arrivals.device)
+    admitted = torch.minimum(arrivals, cap.broadcast_to(arrivals.shape[-1:]))
+    return admitted, arrivals - admitted
+
+
+def serve_rate_tables(rates, shares, mu_headroom: float = 1.0) -> tuple[np.ndarray, np.ndarray]:
+    """Inverse-CDF tables for a serving front end's (arrivals, capacity).
+
+    Args:
+        rates: (K,) per-class Poisson request rates (jobs/slot).
+        shares: (N,) per-pod capacity shares; pod i's per-class service rate
+            is ``shares[i] * sum(rates) / K * mu_headroom``, so the whole
+            horizon is one batched ``searchsorted``
+            (:func:`poisson_pair_from_tables`).
+        mu_headroom: fleet capacity over offered load.
+
+    Returns:
+        (arr_cdf (K, M+1), mu_cdf (N, K, M+1)) float32 numpy CDF tables
+        sharing one truncation width M (Poisson tails beyond mean +
+        8·sqrt(mean) are below ~1e-9, the finite A_max of Lemma 1).
+    """
+    rates = np.asarray(rates, np.float64)
+    shares = np.asarray(shares, np.float64)
+    k = rates.shape[0]
+    mu_mean = shares[:, None] * rates.sum() / k * mu_headroom * np.ones((1, k))
+    top = max(float(rates.max()), float(mu_mean.max()), 1.0)
+    m = int(np.ceil(top + 8.0 * np.sqrt(top) + 8.0))
+    return poisson_table(rates, m), poisson_table(mu_mean, m)
+
+
 def poisson_table(lam, max_value: int) -> np.ndarray:
     """(..., max_value+1) float32 CDF table(s) for static rate(s) ``lam``,
     computed in float64 numpy and renormalized over the truncation."""

@@ -32,6 +32,9 @@ from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_phases_ref, ssd_scan
 from repro_torch.kernels.ssd_scan.kernel import _ssd_scan_cuda_phases, ssd_scan_cuda
 from repro_torch.models import lm
 from repro_torch.serve.step import make_local_exec
+from repro_torch.benchmarks import serve_bench
+from repro_torch.serve.engine import FleetConfig as ServeFleetConfig
+from repro_torch.serve.engine import FleetEngine, RequestClass
 from repro_torch.placement import (
     PlacedOutputs,
     PlacementConfig,
@@ -520,3 +523,52 @@ def test_collect_records_accepts_cuda_outputs(cuda):
     records = collect_records(one, one_frame, cfg=tel, summary=summarize_staged(one))
     assert records[0]["kind"] == "staged" and records[0]["t_slots"] == cfg.t_slots
     assert cross_check(records)["ok"]
+
+
+def _serve_grid_engine(dev, n_pods=16, slots=24, **kw):
+    """The fleet serving grid cut to ``n_pods`` pods: two mamba2-2.7b-smoke
+    classes priced on the full model, kernel dispatch."""
+    cfg = FleetConfig(n_sites=n_pods, k_types=2, t_slots=slots)
+    omega, pue, r, up, down, layout, shares = make_serve_grid(cfg, 2, slots, device=dev)
+    rcs = [RequestClass(name=f"mamba2-2.7b/{i}", cfg=get_arch("mamba2-2.7b", "smoke"),
+                        energy_cfg=get_arch("mamba2-2.7b", "full"), arrival_rate=6.0)
+           for i in range(2)]
+    fc = ServeFleetConfig(n_pods=n_pods, horizon_slots=slots, v=cfg.v, seed=1,
+                          capacity_shares=shares, dispatch="kernel", admit_max=8.0, **kw)
+    return FleetEngine(fc, rcs, omega, pue, r, up=up, down=down, layout=layout, device=dev)
+
+
+def test_serve_kernel_dispatch_launches_once_per_slot_and_replays_simulate_staged(cuda):
+    """FleetEngine with ``dispatch="kernel"`` on the card: exactly T
+    ``gmsa_score`` launches per dispatch-only run, the replay pin against
+    the port's ``simulate_staged`` (``serve_bench.check_replay``: dispatch
+    and WAN bill bitwise), conservation, and an all-ones alive mask
+    bitwise equal to none."""
+    eng = _serve_grid_engine(cuda)
+    before = gmsa_score_cuda.launches
+    out = eng.run(execute_real=False)
+    assert gmsa_score_cuda.launches == before + eng.fcfg.horizon_slots
+    assert eng.scenario.inputs.r.device.type == cuda.type
+    assert out["dispatch"].shape == (24, 16, 2, 2)
+    serve_bench.check_replay(eng, out)
+    serve_bench.check_conservation(out)
+    ones = FleetEngine(eng.fcfg, eng.classes, eng.omega, eng.pue, eng.r,
+                       alive=np.ones((24, 16), np.float32), scenario=eng.scenario, device=cuda)
+    out1 = ones.run(execute_real=False)
+    for name in ("dispatch", "cost", "wan_cost", "backlog"):
+        np.testing.assert_array_equal(out[name], out1[name], err_msg=name)
+
+
+def test_serve_execute_jobs_launch_ssd_scan_per_layer_per_batch(cuda):
+    """``_execute_jobs`` on the card with the smoke model: exactly n_jobs
+    run, a remainder batch included, and one ``ssd_scan`` launch per layer
+    per prefill batch (64 per batch at full depth, 2 for the smoke one)."""
+    eng = _serve_grid_engine(cuda, n_pods=4, slots=4)
+    rc = eng.classes[0]
+    b = eng.fcfg.batch_per_exec
+    for n_jobs in (1, b, b + 1, 2 * b + 3):
+        before = ssd_scan_cuda.launches
+        done, secs = eng._execute_jobs(rc, n_jobs)
+        assert done == n_jobs and secs > 0.0
+        assert ssd_scan_cuda.launches - before == rc.cfg.num_layers * -(-n_jobs // b)
+    assert eng._execute_jobs(rc, 0) == (0, 0.0)

@@ -45,7 +45,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "             'repro_torch.placement.replica', 'repro_torch.placement.controller',\n"
         "             'repro_torch.traces.drift', 'repro_torch.traces.faults',\n"
         "             'repro_torch.checkpoint.fault',\n"
-        "             'repro_torch.benchmarks.placement_bench'):\n"
+        "             'repro_torch.benchmarks.placement_bench',\n"
+        "             'repro_torch.serve.engine', 'repro_torch.launch.serve',\n"
+        "             'repro_torch.benchmarks.serve_bench'):\n"
         "    assert need in sys.modules, need\n"
         "print('ok', len(sys.modules))\n"
     )
