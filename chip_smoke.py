@@ -126,9 +126,31 @@ Phases, each printing one line or more; any failure exits non-zero:
              exact ``exec_jobs``, 64 ``ssd_scan`` launches per executed
              prefill batch, finite logits, tokens in vocabulary; seconds per
              job and per slot, ``ssd_scan``'s share of an executed batch's
-             device time; (c) ``python -m repro_torch.launch.serve --slots
-             24 --pods 8 --dispatch kernel`` as a subprocess, exit 0.
-15. results — one JSON line of per-kernel numbers, then the device line.
+             device time; (c) ``python -m repro_torch.launch.serve --classes
+             mamba2-2.7b --slots 24 --pods 8 --dispatch kernel`` as a
+             subprocess, exit 0.
+15. dense — the dense attention family (``repro_torch.models.attention``,
+             plain PyTorch as in the JAX package; no kernel of its own):
+             (a) ``attend_blockwise`` against ``attend_naive`` on the card at
+             granite-3-2b's prefill shape (4 x 2048, 32 heads on 8 KV heads,
+             d 64, causal) and at a ragged padded one (S 1000, bidirectional,
+             window 256), within ATTN_TOL; each one's time beside
+             ``F.scaled_dot_product_attention``'s at the same shape
+             (measured, not used by the port); (b) full-width, full-depth
+             qwen2-0.5b and granite-3-2b (random fp32 weights), one after the
+             other, served through ``make_local_exec``: exact parameter
+             counts, 4 x 2048-token prompts + 16 greedy tokens and 1 x 1000
+             + 8, no NaN logit, prefill + decode against a one-token-longer
+             prefill within DECODE_REL_TOL; prefill wall per batch, decode
+             wall per token, device busy share, the top kernels and
+             attention's share of prefill device time, peak memory; (c)
+             ``FleetEngine`` with the launcher's default classes at full
+             width, ``dispatch="kernel"``, executing the drained jobs of a
+             4-pod, 6-slot run: one ``gmsa_score`` launch per slot, no
+             ``ssd_scan``, exact ``exec_jobs``, conservation; seconds per job
+             and per slot; (d) ``python -m repro_torch.launch.serve`` with
+             its default classes as a subprocess, exit 0.
+16. results — one JSON line of per-kernel numbers, then the device line.
 
 Numbers are measured on whatever card runs this; the bound uses the H100
 SXM's published peaks (3.35 TB/s, 67 TFLOP/s fp32) at its 700 W limit.
@@ -272,6 +294,20 @@ SERVE_ARRIVAL = 40.0
 SERVE_ADMIT_MAX = 64.0
 SERVE_FAULT_SLOT = 144
 SERVE_EXEC = {"pods": 4, "slots": 6, "seed": 3, "arrival": 4.0, "admit_max": 5.0}
+#: Phase 15, the dense attention family: the serving launcher's default
+#: classes at their published widths, with their exact parameter counts.
+DENSE_ARCHS = {"qwen2-0.5b": 494_032_768, "granite-3-2b": 2_533_787_648}
+#: (B, S, H, Hkv, d, causal, window): granite-3-2b's prefill shape, then a
+#: ragged one (S = 1000: 24 padded keys in the last chunk), bidirectional
+#: and windowed.
+DENSE_ATTN_SHAPES = [(4, 2048, 32, 8, 64, True, 0), (4, 1000, 32, 8, 64, False, 256)]
+#: Blockwise against naive attention on the card, both fp32 with TF32 off:
+#: outputs are convex mixes of unit-normal values, only the reduction order
+#: differs (online rescaling over 1024-key chunks against one softmax over
+#: every key); bf16 would miss this by two orders of magnitude.
+ATTN_TOL = 5e-5
+#: (requests, prompt tokens, generated tokens) per served batch, as phase 8.
+DENSE_BATCHES = [(4, 2048, 16), (1, 1000, 8)]
 
 
 def log(msg: str) -> None:
@@ -1908,6 +1944,34 @@ def with_static_r(policy, r):
     return bound
 
 
+def watch_execution(eng, dev) -> dict:
+    """Wrap every class's prefill and decode of ``eng``: the returned dict
+    collects each class's prefill batch sizes (``batches``), whether every
+    logit was finite and every fed token inside the class's vocabulary."""
+    import torch
+
+    ok = {"finite": torch.ones((), dtype=torch.bool, device=dev),
+          "vocab": torch.ones((), dtype=torch.bool, device=dev),
+          "batches": {rc.name: [] for rc in eng.classes}}
+    for rc in eng.classes:
+        prefill_fn, decode_fn = eng._prefill[rc.name], eng._decode[rc.name]
+
+        def prefill(params, tokens, name=rc.name, prefill_fn=prefill_fn):
+            ok["batches"][name].append(tokens.shape[0])
+            logits, cache = prefill_fn(params, tokens)
+            ok["finite"] &= torch.isfinite(logits).all()
+            return logits, cache
+
+        def decode(params, cache, tok, vocab=rc.cfg.vocab_size, decode_fn=decode_fn):
+            ok["vocab"] &= ((tok >= 0) & (tok < vocab)).all()
+            logits, cache = decode_fn(params, cache, tok)
+            ok["finite"] &= torch.isfinite(logits).all()
+            return logits, cache
+
+        eng._prefill[rc.name], eng._decode[rc.name] = prefill, decode
+    return ok
+
+
 def phase_serve(dev, smi, cfg=None, exec_variant: str = "full") -> dict:
     import tempfile
 
@@ -2100,24 +2164,7 @@ def phase_serve(dev, smi, cfg=None, exec_variant: str = "full") -> dict:
                        device=dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    vocab = xcfg.vocab_size
-    ok = {"finite": torch.ones((), dtype=torch.bool, device=dev),
-          "vocab": torch.ones((), dtype=torch.bool, device=dev), "batches": []}
-    prefill_fn, decode_fn = xeng._prefill[MAMBA_ARCH], xeng._decode[MAMBA_ARCH]
-
-    def prefill(params, tokens):
-        ok["batches"].append(tokens.shape[0])
-        logits, cache = prefill_fn(params, tokens)
-        ok["finite"] &= torch.isfinite(logits).all()
-        return logits, cache
-
-    def decode(params, cache, tok):
-        ok["vocab"] &= ((tok >= 0) & (tok < vocab)).all()
-        logits, cache = decode_fn(params, cache, tok)
-        ok["finite"] &= torch.isfinite(logits).all()
-        return logits, cache
-
-    xeng._prefill[MAMBA_ARCH], xeng._decode[MAMBA_ARCH] = prefill, decode
+    ok = watch_execution(xeng, dev)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -2132,12 +2179,12 @@ def phase_serve(dev, smi, cfg=None, exec_variant: str = "full") -> dict:
     log(f"[serve] {smi} | {width} {MAMBA_ARCH} ({xcfg.num_layers} layers, random fp32 "
         f"weights, built in {t_init:.2f} s) executing the drained jobs of N={x['pods']}, "
         f"T={x['slots']} (dispatch='kernel'): jobs per slot {want}, exec_jobs "
-        f"{xout['exec_jobs']}, prefill batches {ok['batches']}; launches {x_counts}; logits "
+        f"{xout['exec_jobs']}, prefill batches {ok['batches'][MAMBA_ARCH]}; launches {x_counts}; logits "
         f"finite {bool(ok['finite'])}, tokens in vocabulary {bool(ok['vocab'])}; run wall "
         f"{x_wall:.2f} s, {x_wall / x['slots']:.3f} s per slot, execution "
         f"{xout['exec_seconds']:.2f} s = {xout['exec_seconds'] / max(xout['exec_jobs'], 1):.3f} "
         f"s per job")
-    if not (xout["exec_jobs"] == sum(want) > 0 and ok["batches"] == [
+    if not (xout["exec_jobs"] == sum(want) > 0 and ok["batches"][MAMBA_ARCH] == [
             min(b, j - i) for j in want for i in range(0, j, b)]
             and x_counts["ssd_scan"] == xcfg.num_layers * n_batches
             and x_counts["gmsa_score"] == x["slots"] and xout["exec_seconds"] > 0.0
@@ -2153,22 +2200,245 @@ def phase_serve(dev, smi, cfg=None, exec_variant: str = "full") -> dict:
         f"{rc.gen_len} tokens) under torch.profiler: {wall * 1e3:.1f} ms wall, device busy "
         f"{dev_us / 1e3:.2f} ms, ssd_scan chain {k_us / 1e3:.3f} ms = {share} of device time; "
         f"top: {top}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del xeng, prefill_fn, decode_fn
+    del xeng
     torch.cuda.empty_cache()
 
     # (c) the launcher, as a user runs it.
     t0 = time.perf_counter()
-    launch = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--slots", "24",
-                             "--pods", "8", "--dispatch", "kernel"], capture_output=True,
-                            text=True, timeout=600, cwd=ROOT,
+    launch = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--classes",
+                             MAMBA_ARCH, "--slots", "24", "--pods", "8", "--dispatch", "kernel"],
+                            capture_output=True, text=True, timeout=600, cwd=ROOT,
                             env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     lines = launch.stdout.strip().splitlines()
-    log(f"[serve] python -m repro_torch.launch.serve --slots 24 --pods 8 --dispatch kernel: "
+    log(f"[serve] python -m repro_torch.launch.serve --classes {MAMBA_ARCH} --slots 24 --pods 8 "
+        f"--dispatch kernel: "
         f"exit {launch.returncode} in {time.perf_counter() - t0:.1f} s: "
         + " | ".join(line.strip() for line in lines[:1] + lines[-3:]))
     if launch.returncode != 0:
         fail(f"serve: the launcher failed: {launch.stdout[-2000:]} {launch.stderr[-2000:]}")
     return {"gmsa_score": counts["gmsa_score"], "ssd_scan": x_counts["ssd_scan"]}
+
+
+def attention_inputs(gen, b, s, h, hkv, d, dev):
+    """Unit-normal q (B,S,H,d), k and v (B,S,Hkv,d), positions 0..S-1."""
+    import torch
+
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    return rand(b, s, h, d), rand(b, s, hkv, d), rand(b, s, hkv, d), torch.arange(s, device=dev)
+
+
+def phase_dense(dev, smi, variant: str = "full", attn_shapes=DENSE_ATTN_SHAPES,
+                batches=DENSE_BATCHES) -> int:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.benchmarks import serve_bench
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_traces
+    from repro_torch.models.attention import _mask_bias, attend_blockwise, attend_naive
+    from repro_torch.models.lm import count_params, init_params
+    from repro_torch.serve import FleetConfig as ServeFleetConfig
+    from repro_torch.serve import FleetEngine, RequestClass
+    from repro_torch.serve.step import make_local_exec
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (a) blockwise against naive attention on the card, and the library's
+    # fused attention beside them (timed, not used).
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for b, s, h, hkv, d, causal, window in attn_shapes:
+        q, k, v, pos = attention_inputs(gen, b, s, h, hkv, d, dev)
+        kw = dict(causal=causal, window=window)
+        with torch.inference_mode():
+            blk = attend_blockwise(q, k, v, pos, pos, **kw)
+            ref = attend_naive(q, k, v, pos, pos, **kw)
+            err = rel_err(blk, ref)
+            t_blk = call_time_ms(lambda: attend_blockwise(q, k, v, pos, pos, **kw), iters=5)
+            t_naive = call_time_ms(lambda: attend_naive(q, k, v, pos, pos, **kw), iters=5)
+            qt = q.transpose(1, 2)
+            kt, vt = (x.repeat_interleave(h // hkv, dim=2).transpose(1, 2) for x in (k, v))
+            mask = None if causal and not window else _mask_bias(pos, pos, causal, window) == 0
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                         is_causal=mask is None)
+            err_sdpa = rel_err(sdpa().transpose(1, 2), ref)
+            t_sdpa = call_time_ms(sdpa, iters=5)
+        log(f"[dense] {smi} | attention ({b}, {s}, {h} heads on {hkv}, d {d}, "
+            f"{'causal' if causal else 'bidirectional'}, window {window}): blockwise vs naive "
+            f"max_rel_err {err:.3e} (tol {ATTN_TOL:g}); blockwise {t_blk:.3f} ms, naive "
+            f"{t_naive:.3f} ms, F.scaled_dot_product_attention {t_sdpa:.3f} ms (fp32, KV "
+            f"repeated; not used by the port; max_rel_err {err_sdpa:.3e})")
+        if not err <= ATTN_TOL:
+            fail(f"dense: blockwise attention off naive at {(b, s, h, hkv, d)}: {err:.3e}")
+        del q, k, v, blk, ref, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+
+    # (b) each model at its published widths and depth, served as the
+    # reference's FleetEngine._execute_jobs runs a batch.
+    for arch, n_params in DENSE_ARCHS.items():
+        cfg = get_arch(arch, variant)
+        if variant == "full" and count_params(cfg) != n_params:
+            fail(f"{arch}: {count_params(cfg)} parameters, expected {n_params}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.float32,
+                             device=dev)
+        torch.cuda.synchronize()
+        log(f"[dense] {arch} ({variant}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.num_heads} heads on {cfg.num_kv_heads} x {cfg.resolved_head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}): {count_params(cfg)} random fp32 params "
+            f"initialised on the card in {time.perf_counter() - t0:.2f} s")
+        vocab = cfg.vocab_size
+        tgen = torch.Generator(device=dev).manual_seed(11)
+        tokens = [torch.randint(0, vocab, (b, s + 1), generator=tgen, device=dev)
+                  for b, s, _ in batches]
+        execs = [make_local_exec(cfg, g, device=dev) for _, _, g in batches]
+
+        def serve(i):
+            (b, s, gen_len), (prefill_fn, decode_fn) = batches[i], execs[i]
+            t0 = time.perf_counter()
+            logits, cache = prefill_fn(params, tokens[i][:, :s])
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            nan = torch.isnan(logits).any()
+            tok = torch.argmax(logits[:, -1:, :vocab], dim=-1)
+            t0 = time.perf_counter()
+            for _ in range(gen_len):
+                logits, cache = decode_fn(params, cache, tok)
+                nan = nan | torch.isnan(logits).any()
+                tok = torch.argmax(logits[:, :, :vocab], dim=-1)
+            torch.cuda.synchronize()
+            return not bool(nan), t_pre, (time.perf_counter() - t0) / gen_len
+
+        torch.cuda.synchronize()
+        reset_counts()
+        runs = [serve(i) for i in range(len(batches))]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for (b, s, g), (clean, t_pre, t_dec) in zip(batches, runs):
+            log(f"[dense] {arch} served {b} x {s}-token prompts + {g} greedy tokens: no NaN "
+                f"logit {clean}; prefill {t_pre * 1e3:.1f} ms, decode {t_dec * 1e3:.2f} "
+                f"ms/token (first call)")
+            if not clean:
+                fail(f"dense: {arch}: a NaN logit serving {b} x {s}")
+        log(f"[dense] {arch} main path launches {counts} (attention is plain PyTorch)")
+        if any(counts.values()):
+            fail(f"dense: {arch}: launch counts {counts}, expected none")
+
+        for i, (b, s, _) in enumerate(batches):
+            prefill_fn, decode_fn = execs[i]
+            _, cache = prefill_fn(params, tokens[i][:, :s])
+            out = {}
+            wall, events = device_profile(
+                lambda: out.update(dec=decode_fn(params, cache, tokens[i][:, s:s + 1])[0]))
+            if i == 0:
+                dev_us = sum(us for _, us, _ in events)
+                log(f"[dense] {smi} | {arch} one decode step (batch {b}, cache "
+                    f"{s + batches[i][2] + 1} slots) under torch.profiler: {wall * 1e3:.1f} ms "
+                    f"wall, device busy {dev_us / 1e3:.2f} ms ({100 * dev_us / 1e6 / wall:.1f}%), "
+                    f"{sum(c for _, _, c in events)} device kernels")
+            full, _ = prefill_fn(params, tokens[i])
+            dec, full = out["dec"][:, -1, :vocab], full[:, -1, :vocab]
+            scale = float(full.abs().max())
+            rel = float((dec - full).abs().max()) / scale
+            pick = torch.argmax(dec, dim=-1)
+            gap = full.max(dim=-1).values - torch.gather(full, -1, pick[:, None])[:, 0]
+            off_tie = int(((pick != torch.argmax(full, dim=-1))
+                           & (gap > DECODE_REL_TOL * scale)).sum())
+            log(f"[dense] {arch} decode consistency {b} x {s}: prefill+decode vs prefill of "
+                f"S+1, max |diff| / max |logit| = {rel:.3e} (tol {DECODE_REL_TOL:g}), greedy "
+                f"tokens differing off near-ties {off_tie}")
+            if not rel <= DECODE_REL_TOL or off_tie:
+                fail(f"dense: {arch} decode consistency {b} x {s}: rel {rel:.3e}, "
+                     f"off-tie {off_tie}")
+            del cache, full, dec
+
+        walls = [serve(0) for _ in range(2)]
+        b, s, g = batches[0]
+        log(f"[dense] {smi} | {arch} prefill wall per batch ({b} x {s}, calls 2-3): "
+            f"{', '.join(f'{w[1] * 1e3:.1f}' for w in walls)} ms; decode wall per token "
+            f"(batch {b}, {g} tokens each): {', '.join(f'{w[2] * 1e3:.2f}' for w in walls)} ms")
+        prefill_fn = execs[0][0]
+        wall, events = device_profile(lambda: prefill_fn(params, tokens[0][:, :s]))
+        dev_us = sum(us for _, us, _ in events)
+        q, k, v, pos = attention_inputs(gen, b, s, cfg.num_heads, cfg.num_kv_heads,
+                                        cfg.resolved_head_dim, dev)
+        with torch.inference_mode():
+            t_attn = call_time_ms(lambda: attend_blockwise(
+                q, k, v, pos, pos, causal=cfg.causal, window=cfg.sliding_window), iters=5)
+        del q, k, v
+        top = ", ".join(f"{name[:48]} {us / 1e3:.2f} ms x{c}" for name, us, c in events[:6])
+        share = (f"{100 * cfg.num_layers * t_attn * 1e3 / dev_us:.1f}%" if dev_us > 0
+                 else "not measured")
+        log(f"[dense] {smi} | {arch} one prefill ({b} x {s}) under torch.profiler: "
+            f"{wall * 1e3:.1f} ms wall, device busy {dev_us / 1e3:.1f} ms "
+            f"({100 * dev_us / 1e6 / wall:.1f}%); attention (blockwise, {t_attn:.2f} ms per "
+            f"layer timed alone, x{cfg.num_layers}) = {share} of device time; top: {top}")
+        log(f"[dense] {smi} | {arch} peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del params, execs, tokens
+        torch.cuda.empty_cache()
+
+    # (c) the launcher's default classes at full width, executing the
+    # drained jobs of a short run; dispatch through gmsa_score every slot.
+    x = SERVE_EXEC
+    archs = list(DENSE_ARCHS)
+    x_omega, x_pue, x_r, x_up, x_down, x_layout = serve_traces(len(archs), x["pods"],
+                                                               x["slots"], x["seed"], dev)
+    xfc = ServeFleetConfig(n_pods=x["pods"], horizon_slots=x["slots"], v=1.0, seed=x["seed"],
+                           admit_max=x["admit_max"], dispatch="kernel")
+    rcs = [RequestClass(a, cfg=get_arch(a, variant), energy_cfg=get_arch(a, variant),
+                        arrival_rate=x["arrival"]) for a in archs]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    xeng = FleetEngine(xfc, rcs, x_omega, x_pue, x_r, up=x_up, down=x_down, layout=x_layout,
+                       device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    ok = watch_execution(xeng, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    xout = xeng.run(execute_real=True)
+    torch.cuda.synchronize()
+    x_wall = time.perf_counter() - t0
+    x_counts = read_counts()
+    want = {a: [min(int(round(c)), xfc.exec_cap) for c in xout["completed"][:, i]]
+            for i, a in enumerate(archs)}
+    b = xfc.batch_per_exec
+    conserve = serve_bench.check_conservation(xout)
+    n_jobs = sum(sum(w) for w in want.values())
+    log(f"[dense] {smi} | FleetEngine with the launcher's default classes {archs} "
+        f"({variant} width, random fp32 weights, built in {t_init:.2f} s), N={x['pods']}, "
+        f"T={x['slots']}, dispatch='kernel': jobs per slot {want}, exec_jobs "
+        f"{xout['exec_jobs']}, prefill batches {ok['batches']}; launches {x_counts}; logits "
+        f"finite {bool(ok['finite'])}, tokens in vocabulary {bool(ok['vocab'])}; conservation "
+        f"max_rel {conserve:.3e}; run wall {x_wall:.2f} s, {x_wall / x['slots']:.3f} s per "
+        f"slot, execution {xout['exec_seconds']:.2f} s = "
+        f"{xout['exec_seconds'] / max(xout['exec_jobs'], 1):.3f} s per job; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (xout["exec_jobs"] == n_jobs > 0
+            and all(ok['batches'][a] == [min(b, j - i) for j in want[a] for i in range(0, j, b)]
+                    for a in archs)
+            and x_counts["gmsa_score"] == x["slots"] and x_counts["ssd_scan"] == 0
+            and xout["exec_seconds"] > 0.0 and bool(ok["finite"]) and bool(ok["vocab"])):
+        fail(f"dense: serving execution gates: exec_jobs {xout['exec_jobs']} (want {n_jobs}), "
+             f"launches {x_counts} (want {x['slots']} gmsa_score, no ssd_scan)")
+    del xeng
+    torch.cuda.empty_cache()
+
+    # (d) the launcher with its default classes, as a user runs it.
+    t0 = time.perf_counter()
+    launch = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                            capture_output=True, text=True, timeout=600, cwd=ROOT,
+                            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    lines = launch.stdout.strip().splitlines()
+    log(f"[dense] python -m repro_torch.launch.serve (default classes): exit "
+        f"{launch.returncode} in {time.perf_counter() - t0:.1f} s: "
+        + " | ".join(line.strip() for line in lines[:1] + lines[-3:]))
+    if launch.returncode != 0:
+        fail(f"dense: the launcher failed: {launch.stdout[-2000:]} {launch.stderr[-2000:]}")
+    return x_counts["gmsa_score"]
 
 
 def main() -> int:
@@ -2195,6 +2465,7 @@ def main() -> int:
     staged_launches = phase_staged(dev, smi)
     placed = phase_placement(dev, smi)
     serve = phase_serve(dev, smi)
+    dense_launches = phase_dense(dev, smi)
 
     entry = {
         "name": "gmsa_score",
@@ -2208,6 +2479,7 @@ def main() -> int:
         "launches_placed": placed["launches_placed"],
         "launches_placed_sweep": placed["launches_placed_sweep"],
         "launches_serve": serve["gmsa_score"],
+        "launches_serve_dense": dense_launches,
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],

@@ -24,9 +24,9 @@ real-execution row runs prefill + decode for drained jobs (smoke model).
         [--chaos] [--device cuda] [--flight PATH] [--trace PATH] [--record PATH]
 
 ``--record PATH`` appends the CSV records under the ``torch_serve_bench``
-label. The port registers one architecture (``mamba2-2.7b``) until the
-attention family lands, so the reference's ``qwen2-0.5b`` classes are
-``mamba2-2.7b`` ones here and the chaos pair runs one class.
+label. The classes are the JAX bench's: ``qwen2-0.5b`` for the staged and
+execution rows, the ``qwen2-0.5b`` + ``mamba2-2.7b`` pair for the fleet grid
+and the chaos pair (each executes its smoke variant, priced on the full).
 """
 
 from __future__ import annotations
@@ -55,7 +55,9 @@ from repro_torch.telemetry import (
     write_jsonl,
 )
 
-ARCH = "mamba2-2.7b"
+ARCH = "qwen2-0.5b"
+#: The two-class mix of the fleet grid and the chaos pair.
+PAIR = ("qwen2-0.5b", "mamba2-2.7b")
 #: The replay pin, port against port (the same slot body and post-run
 #: expressions on the same device): dispatch and WAN bill bitwise; the cost
 #: series within COST_RTOL and the total bill within TOTAL_RTOL (the same
@@ -143,10 +145,11 @@ def _chaos_arm(dev) -> list[dict]:
     link_health = np.ones((slots, n_pods, n_pods), np.float32)
     link_health[8:16, 0, 1] = link_health[8:16, 1, 0] = 0.5
 
-    base = build_engine([ARCH], health=health, link_health=link_health, **common)
+    base = build_engine(list(PAIR), health=health, link_health=link_health, **common)
     bout, bus = _timed_run(base, execute_real=False)
     check_conservation(bout)
-    hedged = build_engine([ARCH], health=health, link_health=link_health, hedge=hedge, **common)
+    hedged = build_engine(list(PAIR), health=health, link_health=link_health, hedge=hedge,
+                          **common)
     hout, hus = _timed_run(hedged, execute_real=False)
     check_conservation(hout)
 
@@ -215,8 +218,8 @@ def main(argv=None):
     grid_slots = 4 if args.quick else 8
     gc = GridConfig()
     omega, pue, r, up, down, layout, shares = make_serve_grid(gc, 2, grid_slots, device=dev)
-    rcs = [RequestClass(name=f"{ARCH}/{i}", cfg=get_arch(ARCH, "smoke"),
-                        energy_cfg=get_arch(ARCH, "full"), arrival_rate=40.0) for i in range(2)]
+    rcs = [RequestClass(name=a, cfg=get_arch(a, "smoke"), energy_cfg=get_arch(a, "full"),
+                        arrival_rate=40.0) for a in PAIR]
     fc = FleetConfig(n_pods=gc.n_sites, horizon_slots=grid_slots, v=gc.v, seed=1,
                      capacity_shares=shares, dispatch="kernel", admit_max=64.0)
     keng = FleetEngine(fc, rcs, omega, pue, r, up=up, down=down, layout=layout, device=dev)

@@ -13,8 +13,9 @@
   routing arrays, each as numpy) becomes the port's
   :class:`~repro_torch.serve.engine.ServeScenario`.
 * A model's parameter pytree (``repro.models.lm.init_params``, leaves
-  through ``np.asarray``) and its decode cache become the port's dicts of
-  tensors, checked leaf for leaf against the port's specs.
+  through ``np.asarray``) and its decode cache (a KV ring, an SSM state, or
+  both) become the port's dicts of tensors, checked leaf for leaf against
+  the port's specs.
 
 Random streams do not carry across (counter-based threefry on one side,
 torch generators on the other), so end-to-end parity runs both engines on
@@ -146,14 +147,18 @@ def stack_runs(runs: Sequence[SimInputs]) -> SimInputs:
     })
 
 
+_ML_DTYPES = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn,
+              "float8_e5m2": torch.float8_e5m2}
+
+
 def _leaf(name: str, x, shape: tuple, dev: torch.device) -> torch.Tensor:
     if not isinstance(x, np.ndarray):
         raise TypeError(f"leaf {name!r} is {type(x).__name__}, not a numpy array; "
                         "convert with np.asarray first")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"leaf {name!r} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if x.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: no torch.from_numpy
-        return torch.from_numpy(x.astype(np.float32)).to(dev, torch.bfloat16)
+    if x.dtype.name in _ML_DTYPES:     # ml_dtypes' types: no torch.from_numpy (exact via fp32)
+        return torch.from_numpy(x.astype(np.float32)).to(dev, _ML_DTYPES[x.dtype.name])
     return torch.from_numpy(np.array(x)).to(dev)
 
 
@@ -183,16 +188,23 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> dict:
 def cache_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> dict:
     """A JAX decode cache (``prefill_step`` / ``init_cache``, numpy leaves)
     -> the port's cache dict on ``device`` (``None``: CUDA), names and
-    shapes checked; ``pos`` becomes int32."""
+    shapes checked by family: ``k``/``v`` (L, B, sc, Hkv, hd) for attention
+    (any ring size ``sc``), ``ssm_state``/``conv_state`` for SSM layers;
+    ``pos`` becomes int32. Leaf dtypes are kept (bf16 and float8 too)."""
     dev = resolve_device(device)
-    _check_names("cache", tree, ["pos", "ssm_state", "conv_state"])
-    dims = _ssm_dims(cfg)
+    want = ["pos"] + (["k", "v"] if cfg.has_attention else []) + (
+        ["ssm_state", "conv_state"] if cfg.has_ssm else [])
+    _check_names("cache", tree, want)
     b = np.shape(tree["pos"])[0] if np.ndim(tree["pos"]) == 1 else -1
-    shapes = {
-        "pos": (b,),
-        "ssm_state": (cfg.num_layers, b, dims["heads"], cfg.ssm_head_dim, dims["n"]),
-        "conv_state": (cfg.num_layers, b, cfg.ssm_conv_width - 1, dims["conv_dim"]),
-    }
+    shapes = {"pos": (b,)}
+    if cfg.has_attention:
+        sc = np.shape(tree["k"])[2] if np.ndim(tree["k"]) == 5 else -1
+        shapes["k"] = shapes["v"] = (cfg.num_layers, b, sc, cfg.num_kv_heads,
+                                     cfg.resolved_head_dim)
+    if cfg.has_ssm:
+        dims = _ssm_dims(cfg)
+        shapes["ssm_state"] = (cfg.num_layers, b, dims["heads"], cfg.ssm_head_dim, dims["n"])
+        shapes["conv_state"] = (cfg.num_layers, b, cfg.ssm_conv_width - 1, dims["conv_dim"])
     out = {name: _leaf(name, tree[name], shape, dev) for name, shape in shapes.items()}
     out["pos"] = out["pos"].to(torch.int32)
     return out

@@ -1,7 +1,7 @@
 """Serving launcher: the simulation-dispatched fleet engine on real models.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --slots 24 --v 1.0 \\
-      [--classes mamba2-2.7b] [--no-exec] [--pods 8] [--admit-max 6] \\
+      [--classes qwen2-0.5b,granite-3-2b] [--no-exec] [--pods 8] [--admit-max 6] \\
       [--kill "2:12"] [--straggle "1:4:0.2"] [--hedge 0.35] \\
       [--dispatch kernel] [--device cpu]
 
@@ -84,9 +84,7 @@ def build_engine(classes: list[str], slots: int, v: float, seed: int = 0,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    # The reference's default is qwen2-0.5b,granite-3-2b; the port registers
-    # only mamba2-2.7b until the attention family lands.
-    ap.add_argument("--classes", default="mamba2-2.7b")
+    ap.add_argument("--classes", default="qwen2-0.5b,granite-3-2b")
     ap.add_argument("--slots", type=int, default=24)
     ap.add_argument("--v", type=float, default=1.0)
     ap.add_argument("--arrival", type=float, default=6.0)

@@ -1,5 +1,6 @@
-"""Token batches per (architecture × shape) cell — the token-only part of
-``repro.models.inputs`` (frontend stubs come with the frontend slice)."""
+"""Token batches and cache specs per (architecture × shape) cell — the
+token-only part of ``repro.models.inputs`` (frontend stubs come with the
+frontend slice)."""
 
 from __future__ import annotations
 
@@ -31,3 +32,13 @@ def make_decode_tokens(cfg: ModelConfig, shape: ShapeConfig, generator: torch.Ge
     dev = resolve_device(device)
     return torch.randint(0, cfg.vocab_size, (shape.global_batch, 1), generator=generator,
                          device=dev)
+
+
+def cache_spec(cfg: ModelConfig, shape: ShapeConfig, dtype=torch.bfloat16) -> dict:
+    """``init_cache``'s tree for the cell, on the ``meta`` device: shapes and
+    dtypes, no storage. ``dtype`` may be ``torch.float8_e4m3fn`` for the
+    quantized-KV variant (``attend_decode`` upcasts it)."""
+    from repro_torch.models.lm import init_cache
+
+    return init_cache(cfg, shape.global_batch, shape.seq_len, dtype,
+                      prefilled=shape.seq_len, device="meta")

@@ -1,19 +1,27 @@
 """Model assembly for the port: init / forward / prefill / decode / param
-counting — the SSM (Mamba-2) family of ``repro.models.lm``.
+counting — the dense attention and SSM (Mamba-2) families of
+``repro.models.lm``.
 
 The params are a dict of tensors under the JAX package's names and layouts:
 ``(in, out)`` weights, each block's leaves stacked on a leading L axis, the
 layers looped over in Python. So :mod:`repro_torch.bridge` carries a JAX
 pytree over leaf for leaf, and the tests compare like with like.
 
-Each prefill layer's SSD scan goes through the hand-written CUDA kernel
-(:func:`repro_torch.kernels.ssd_scan.ssd_scan`) on a CUDA device, and
-through its plain sequential version on the CPU. Decode is plain PyTorch
-around :func:`repro_torch.models.ssm.ssd_step`. The dense projections and
-the tied LM head are plain large matmuls (``torch.matmul``).
+A layer is attention (GQA with RoPE, :mod:`repro_torch.models.attention`)
+or a Mamba-2 SSD mixer, followed by a dense FFN (SwiGLU with RMSNorm, or
+GELU with LayerNorm) when ``d_ff > 0``. Each prefill layer's SSD scan goes
+through the hand-written CUDA kernel (:func:`repro_torch.kernels.ssd_scan.ssd_scan`)
+on a CUDA device, and through its plain sequential version on the CPU.
+Attention is plain PyTorch, as the JAX package's is plain ``jnp``. The
+projections, the FFN and the LM head are plain matmuls (``torch.matmul``).
 
-Attention, MoE, hybrid and frontend configs raise ``NotImplementedError``:
-those families come with later slices of the port.
+The decode cache holds, per attention layer, a KV ring of ``sc`` slots
+(slot ``j`` holds the position ``p`` with ``p % sc == j``), and per SSM
+layer the recurrent state and the conv tail; ``pos`` (int32) counts the
+positions done.
+
+MoE, hybrid and frontend configs raise ``NotImplementedError``: those
+families come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -28,7 +36,16 @@ from torch import Tensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.models.layers import rms_norm, trunc_normal
+from repro_torch.models.attention import attend_blockwise, attend_decode, attend_naive
+from repro_torch.models.layers import (
+    apply_rope,
+    gelu_mlp,
+    layer_norm,
+    rms_norm,
+    rope_table,
+    swiglu,
+    trunc_normal,
+)
 from repro_torch.models.ssm import causal_conv, causal_conv_update, ssd_step
 
 VOCAB_PAD_MULTIPLE = 128
@@ -41,19 +58,20 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a pure-SSM model,
-    the only family the port runs so far."""
+    """Raise ``NotImplementedError`` for the families the port does not run
+    yet: MoE, hybrid attention+SSM and modality frontends. Dense attention
+    (SwiGLU or GELU, causal or not, QKV bias, sliding window, tied or
+    untied head) and Mamba-2 SSM models pass."""
     missing = [what for what, on in (
-        ("attention", cfg.has_attention), ("MoE", cfg.is_moe),
-        ("hybrid attention+SSM", cfg.hybrid), ("dense FFN", cfg.d_ff > 0),
-        (f"{cfg.frontend} frontend", bool(cfg.frontend)),
-        ("layer norm (act='gelu')", cfg.act == "gelu"),
+        ("MoE (next: moe.py with the MoE configs)", cfg.is_moe),
+        ("hybrid attention+SSM (after the frontends)", cfg.hybrid),
+        (f"the {cfg.frontend} frontend (after MoE)", bool(cfg.frontend)),
     ) if on]
-    if missing or not cfg.has_ssm:
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs attention-free SSM (Mamba-2) models only; "
-            f"{', '.join(missing) or 'a model without SSM layers'} comes with a later "
-            "slice of the port (ROADMAP.md §1, slice 7)"
+            f"{cfg.name}: the port runs the dense attention and SSM (Mamba-2) families; "
+            f"{', '.join(missing)} comes with a later slice of the port "
+            "(ROADMAP.md §1, slice 7)"
         )
 
 
@@ -73,36 +91,67 @@ def layer_param_specs(cfg: ModelConfig) -> dict[str, tuple[tuple, int, str]]:
     """name -> (shape, fan_in, kind) for one layer. kind: normal|zeros|ones|a_log|dt_bias."""
     check_family(cfg)
     d = cfg.d_model
-    s = _ssm_dims(cfg)
-    di, n, heads = s["d_inner"], s["n"], s["heads"]
-    w = cfg.ssm_conv_width
-    # The Mamba-2 in_proj/conv are split per component (z, x, B, C, dt), as in
-    # the JAX package; mathematically identical to the fused checkpoint layout.
-    return {
-        "ln_ssm": ((d,), 0, "ones"),
-        "w_z": ((d, di), d, "normal"),
-        "w_x": ((d, di), d, "normal"),
-        "w_b": ((d, n), d, "normal"),
-        "w_c": ((d, n), d, "normal"),
-        "w_dt": ((d, heads), d, "normal"),
-        "conv_x_w": ((w, di), w, "normal"),
-        "conv_x_b": ((di,), 0, "zeros"),
-        "conv_b_w": ((w, n), w, "normal"),
-        "conv_b_b": ((n,), 0, "zeros"),
-        "conv_c_w": ((w, n), w, "normal"),
-        "conv_c_b": ((n,), 0, "zeros"),
-        "a_log": ((heads,), 0, "a_log"),
-        "d_skip": ((heads,), 0, "ones"),
-        "dt_bias": ((heads,), 0, "dt_bias"),
-        "ssm_norm": ((di,), 0, "ones"),
-        "ssm_out": ((di, d), di, "normal"),
-    }
+    specs: dict[str, tuple[tuple, int, str]] = {}
+    if cfg.has_attention:
+        hd = cfg.resolved_head_dim
+        specs["ln1"] = ((d,), 0, "ones")
+        if cfg.act == "gelu":
+            specs["ln1_bias"] = ((d,), 0, "zeros")
+        specs["wq"] = ((d, cfg.num_heads * hd), d, "normal")
+        specs["wk"] = ((d, cfg.num_kv_heads * hd), d, "normal")
+        specs["wv"] = ((d, cfg.num_kv_heads * hd), d, "normal")
+        specs["wo"] = ((cfg.num_heads * hd, d), cfg.num_heads * hd, "normal")
+        if cfg.qkv_bias:
+            specs["bq"] = ((cfg.num_heads * hd,), 0, "zeros")
+            specs["bk"] = ((cfg.num_kv_heads * hd,), 0, "zeros")
+            specs["bv"] = ((cfg.num_kv_heads * hd,), 0, "zeros")
+    if cfg.has_ssm:
+        s = _ssm_dims(cfg)
+        di, n, heads = s["d_inner"], s["n"], s["heads"]
+        w = cfg.ssm_conv_width
+        # The Mamba-2 in_proj/conv are split per component (z, x, B, C, dt), as
+        # in the JAX package; mathematically identical to the fused layout.
+        specs.update({
+            "ln_ssm": ((d,), 0, "ones"),
+            "w_z": ((d, di), d, "normal"),
+            "w_x": ((d, di), d, "normal"),
+            "w_b": ((d, n), d, "normal"),
+            "w_c": ((d, n), d, "normal"),
+            "w_dt": ((d, heads), d, "normal"),
+            "conv_x_w": ((w, di), w, "normal"),
+            "conv_x_b": ((di,), 0, "zeros"),
+            "conv_b_w": ((w, n), w, "normal"),
+            "conv_b_b": ((n,), 0, "zeros"),
+            "conv_c_w": ((w, n), w, "normal"),
+            "conv_c_b": ((n,), 0, "zeros"),
+            "a_log": ((heads,), 0, "a_log"),
+            "d_skip": ((heads,), 0, "ones"),
+            "dt_bias": ((heads,), 0, "dt_bias"),
+            "ssm_norm": ((di,), 0, "ones"),
+            "ssm_out": ((di, d), di, "normal"),
+        })
+    if cfg.d_ff > 0:
+        f = cfg.d_ff
+        specs["ln2"] = ((d,), 0, "ones")
+        if cfg.act == "gelu":
+            specs["ln2_bias"] = ((d,), 0, "zeros")
+            specs["w_up"] = ((d, f), d, "normal")
+            specs["b_up"] = ((f,), 0, "zeros")
+            specs["w_down"] = ((f, d), f, "normal")
+            specs["b_down"] = ((d,), 0, "zeros")
+        else:
+            specs["w_gate"] = ((d, f), d, "normal")
+            specs["w_up"] = ((d, f), d, "normal")
+            specs["w_down"] = ((f, d), f, "normal")
+    return specs
 
 
 def top_param_specs(cfg: ModelConfig) -> dict[str, tuple[tuple, int, str]]:
     check_family(cfg)
     d, vp = cfg.d_model, padded_vocab(cfg)
     specs = {"embed": ((vp, d), d, "normal"), "final_norm": ((d,), 0, "ones")}
+    if cfg.act == "gelu":
+        specs["final_norm_bias"] = ((d,), 0, "zeros")
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((d, vp), d, "normal")
     return specs
@@ -162,6 +211,41 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 # Blocks
 # ---------------------------------------------------------------------------
 
+def _norm(h: Tensor, scale: Tensor, bias: Tensor | None, cfg: ModelConfig) -> Tensor:
+    """LayerNorm for the GELU family, RMSNorm otherwise."""
+    if cfg.act == "gelu":
+        return layer_norm(h, scale, bias, cfg.norm_eps)
+    return rms_norm(h, scale, cfg.norm_eps)
+
+
+def _qkv(lp: Params, h: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor, rope: bool):
+    """Norm, the Q/K/V projections (with biases), heads split, RoPE when
+    ``rope``. Returns q (B,S,H,hd), k and v (B,S,Hkv,hd)."""
+    b, s, _ = h.shape
+    hd = cfg.resolved_head_dim
+    norm = _norm(h, lp["ln1"], lp.get("ln1_bias"), cfg)
+    q, k, v = norm @ lp["wq"], norm @ lp["wk"], norm @ lp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = q.reshape(b, s, cfg.num_heads, hd)
+    k = k.reshape(b, s, cfg.num_kv_heads, hd)
+    v = v.reshape(b, s, cfg.num_kv_heads, hd)
+    if rope:
+        q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+    return q, k, v
+
+
+def _attn_block(lp: Params, h: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor,
+                attn_impl: str, positions: Tensor):
+    """Attention half-block (prefill form). Returns (out, (k, v))."""
+    b, s, _ = h.shape
+    # RoPE for decoder LMs; the encoder backbone uses none.
+    q, k, v = _qkv(lp, h, cfg, sin, cos, rope=cfg.causal)
+    attend = attend_blockwise if attn_impl == "blockwise" else attend_naive
+    out = attend(q, k, v, positions, positions, causal=cfg.causal, window=cfg.sliding_window)
+    return out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim) @ lp["wo"], (k, v)
+
+
 def ssd_layer_inputs(lp: Params, h: Tensor, cfg: ModelConfig):
     """One Mamba-2 layer up to its SSD scan: norm, projections, causal convs.
 
@@ -201,12 +285,34 @@ def _ssm_block(lp: Params, h: Tensor, cfg: ModelConfig):
     return y @ lp["ssm_out"], state, conv_tail
 
 
+def _mlp_block(lp: Params, h: Tensor, cfg: ModelConfig) -> Tensor:
+    """Dense FFN half-block: GELU with LayerNorm, or SwiGLU with RMSNorm."""
+    if cfg.act == "gelu":
+        norm = layer_norm(h, lp["ln2"], lp["ln2_bias"], cfg.norm_eps)
+        return gelu_mlp(norm, lp["w_up"], lp["b_up"], lp["w_down"], lp["b_down"])
+    norm = rms_norm(h, lp["ln2"], cfg.norm_eps)
+    return swiglu(norm, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def _ring_gather(kv: Tensor, sc: int) -> Tensor:
+    """(B, S, ...) -> (B, sc, ...) arranged so slot j holds the position p
+    with p % sc == j (the ring layout decode_step expects).
+
+    Slots with no matching position (sc > S: headroom for generation) hold
+    clamped garbage — decode_step masks them out via ``_ring_positions``.
+    """
+    s = kv.shape[1]
+    j = torch.arange(sc, device=kv.device)
+    p = (s - 1) - torch.remainder((s - 1) - j, sc)
+    return kv.index_select(1, p.clamp(0, s - 1))
+
+
 def _layer(params: Params, i: int) -> Params:
     return {name: leaf[i] for name, leaf in params["blocks"].items()}
 
 
 def _logits(params: Params, cfg: ModelConfig, h: Tensor) -> Tensor:
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = _norm(h, params["final_norm"], params.get("final_norm_bias"), cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (h @ head.to(h.dtype)).float()
 
@@ -215,34 +321,63 @@ def _logits(params: Params, cfg: ModelConfig, h: Tensor) -> Tensor:
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _trunk(params: Params, cfg: ModelConfig, tokens: Tensor, attn_impl: str,
+           collect_cache: bool, cache_dtype, cache_len: int | None):
+    """Embed and every layer: (final hidden state (B,S,D), cache or None)."""
+    check_family(cfg)
+    h = params["embed"][tokens]
+    s = h.shape[1]
+    positions = torch.arange(s, device=h.device)
+    sin = cos = None
+    if cfg.has_attention:
+        sin, cos = rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        sc = cache_len_for(cfg, cache_len or s)
+    caches: dict[str, list[Tensor]] = {}
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        # Without hybrid, attention is the mixer where a config has both (the
+        # JAX model's choice); the SSM layer still runs, for its cache leaves.
+        if cfg.has_attention:
+            mixed, (k, v) = _attn_block(lp, h, cfg, sin, cos, attn_impl, positions)
+        if cfg.has_ssm:
+            ssm_out, state, conv_tail = _ssm_block(lp, h, cfg)
+            if not cfg.has_attention:
+                mixed = ssm_out
+        if cfg.has_attention or cfg.has_ssm:
+            h = h + mixed
+        if collect_cache:
+            if cfg.has_attention:
+                caches.setdefault("k", []).append(_ring_gather(k, sc).to(cache_dtype))
+                caches.setdefault("v", []).append(_ring_gather(v, sc).to(cache_dtype))
+            if cfg.has_ssm:
+                caches.setdefault("ssm_state", []).append(state)
+                caches.setdefault("conv_state", []).append(conv_tail.to(cache_dtype))
+        if cfg.d_ff > 0:
+            h = h + _mlp_block(lp, h, cfg)
+    if not collect_cache:
+        return h, None
+    cache = {name: torch.stack(leaves) for name, leaves in caches.items()}
+    cache["pos"] = torch.full((h.shape[0],), s, dtype=torch.int32, device=h.device)
+    return h, cache
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
     tokens: Tensor,
+    attn_impl: str = "blockwise",
     collect_cache: bool = False,
     cache_dtype=torch.bfloat16,
+    cache_len: int | None = None,
 ) -> tuple[Tensor, Tensor] | tuple[Tensor, Tensor, Params]:
     """Full-sequence forward. Returns (logits fp32 (B,S,Vp), aux_loss) — plus
-    the assembled decode cache when ``collect_cache`` (prefill). The SSM
-    family has no router, so aux_loss is 0."""
-    check_family(cfg)
-    h = params["embed"][tokens]
-    states, tails = [], []
-    for i in range(cfg.num_layers):
-        out, state, conv_tail = _ssm_block(_layer(params, i), h, cfg)
-        h = h + out
-        if collect_cache:
-            states.append(state)
-            tails.append(conv_tail.to(cache_dtype))
+    the assembled decode cache when ``collect_cache`` (prefill). Dense and
+    SSM models have no router, so aux_loss is 0. ``attn_impl``:
+    ``"blockwise"`` or ``"naive"``."""
+    h, cache = _trunk(params, cfg, tokens, attn_impl, collect_cache, cache_dtype, cache_len)
     logits = _logits(params, cfg, h)
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     if collect_cache:
-        cache = {
-            "ssm_state": torch.stack(states),
-            "conv_state": torch.stack(tails),
-            "pos": torch.full((logits.shape[0],), h.shape[1], dtype=torch.int32,
-                              device=logits.device),
-        }
         return logits, aux, cache
     return logits, aux
 
@@ -251,83 +386,157 @@ def prefill_step(
     params: Params,
     cfg: ModelConfig,
     tokens: Tensor,
+    attn_impl: str = "blockwise",
     cache_dtype=torch.bfloat16,
     cache_len: int | None = None,
 ) -> tuple[Tensor, Params]:
-    """Serving prefill: run the prompt, return (last-token logits, cache).
+    """Serving prefill: run the prompt, return (last-token logits (B,1,Vp),
+    cache). Only the last position goes through the LM head.
 
-    ``cache_len`` (prompt + generation headroom) sizes an attention KV ring
-    in the JAX package; an SSM cache is O(1) in length and ignores it.
+    ``cache_len``: total KV capacity (prompt + generation headroom);
+    defaults to the prompt length (ring eviction starts immediately). An
+    SSM cache is O(1) in length and ignores it.
     """
-    logits, _, cache = forward(params, cfg, tokens, collect_cache=True,
-                               cache_dtype=cache_dtype)
-    return logits[:, -1:, :], cache
+    h, cache = _trunk(params, cfg, tokens, attn_impl, True, cache_dtype, cache_len)
+    return _logits(params, cfg, h[:, -1:]), cache
 
 
 # ---------------------------------------------------------------------------
 # Decode (serving)
 # ---------------------------------------------------------------------------
 
+def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
+    if cfg.sliding_window > 0 and cfg.has_attention:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
 def init_cache(
     cfg: ModelConfig, batch: int, seq_len: int, dtype=torch.bfloat16,
     prefilled: int = 0, device=None,
 ) -> Params:
-    """Decode-state dict. ``prefilled`` marks how many positions are done;
-    ``seq_len`` sizes an attention KV ring, which the SSM family has not."""
+    """Decode-state dict on ``device`` (``None``: CUDA). ``prefilled``
+    marks how many positions are done; ``seq_len`` sizes the KV ring."""
     check_family(cfg)
     dev = resolve_device(device)
-    dims = _ssm_dims(cfg)
-    return {
-        "pos": torch.full((batch,), prefilled, dtype=torch.int32, device=dev),
-        "ssm_state": torch.zeros(
+    cache: Params = {"pos": torch.full((batch,), prefilled, dtype=torch.int32, device=dev)}
+    if cfg.has_attention:
+        kv_shape = (cfg.num_layers, batch, cache_len_for(cfg, seq_len), cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(kv_shape, dtype=dtype, device=dev)
+        cache["v"] = torch.zeros(kv_shape, dtype=dtype, device=dev)
+    if cfg.has_ssm:
+        dims = _ssm_dims(cfg)
+        cache["ssm_state"] = torch.zeros(
             (cfg.num_layers, batch, dims["heads"], cfg.ssm_head_dim, dims["n"]),
             dtype=torch.float32, device=dev,
-        ),
-        "conv_state": torch.zeros(
+        )
+        cache["conv_state"] = torch.zeros(
             (cfg.num_layers, batch, cfg.ssm_conv_width - 1, dims["conv_dim"]),
             dtype=dtype, device=dev,
-        ),
-    }
+        )
+    return cache
 
 
-def decode_step(params: Params, cfg: ModelConfig, cache: Params,
-                tokens: Tensor) -> tuple[Tensor, Params]:
-    """One serving step: (B, 1) new tokens -> (B, 1, Vp) fp32 logits + a new
-    cache (the old one is not modified)."""
-    check_family(cfg)
-    b = tokens.shape[0]
+def _ring_positions(pos: Tensor, sc: int) -> Tensor:
+    """(B, sc) absolute position held by each ring slot, −1 if unwritten."""
+    j = torch.arange(sc, device=pos.device)
+    last = pos[:, None].long() - 1
+    p = last - torch.remainder(last - j[None, :], sc)
+    return torch.where(p >= 0, p, torch.full_like(p, -1))
+
+
+def _bits(x: Tensor) -> Tensor:
+    """``x`` itself, or a uint8 view of a float8 tensor."""
+    return x.view(torch.uint8) if x.element_size() == 1 and x.is_floating_point() else x
+
+
+def _attn_decode(lp: Params, h: Tensor, cfg: ModelConfig, k_cache: Tensor, v_cache: Tensor,
+                 pos: Tensor, sin: Tensor, cos: Tensor, uniform_pos: bool) -> Tensor:
+    """One attention layer's decode step. Writes the new token's K/V into
+    its ring slot of ``k_cache``/``v_cache`` (this layer's (B, sc, Hkv, hd)
+    views, updated in place) and returns the layer's output (B, 1, D)."""
+    b = h.shape[0]
+    sc = k_cache.shape[1]
+    # Decode rotates q and k whatever ``causal`` says, as the JAX model does.
+    q, k, v = _qkv(lp, h, cfg, sin, cos, rope=True)
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        # Written through a same-width integer view: torch has no index
+        # copies for float8; the bits are the cast's either way.
+        dst, src = _bits(cache), _bits(new.to(cache.dtype))
+        if uniform_pos:
+            # Every row is at one position: one slot for the whole batch.
+            dst.index_copy_(1, torch.remainder(pos[:1].long(), sc), src)
+        else:
+            dst[torch.arange(b, device=pos.device), torch.remainder(pos.long(), sc)] = src[:, 0]
+    out = attend_decode(q, k_cache, v_cache, pos, _ring_positions(pos + 1, sc),
+                        window=cfg.sliding_window)
+    return out.reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim) @ lp["wo"]
+
+
+def _ssm_decode(lp: Params, h: Tensor, cfg: ModelConfig, conv_state: Tensor,
+                ssm_state: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """One Mamba-2 layer's decode step: (out (B,1,D), new state, new conv tail)."""
+    b = h.shape[0]
     dims = _ssm_dims(cfg)
     di, n, heads = dims["d_inner"], dims["n"], dims["heads"]
+    ns = rms_norm(h, lp["ln_ssm"], cfg.norm_eps)[:, 0]  # (B, D)
+    z = ns @ lp["w_z"]
+    x_raw = ns @ lp["w_x"]
+    b_raw = ns @ lp["w_b"]
+    c_raw = ns @ lp["w_c"]
+    dt_raw = ns @ lp["w_dt"]
+    xbc = torch.cat([x_raw, b_raw, c_raw], dim=-1)
+    conv_w = torch.cat([lp["conv_x_w"], lp["conv_b_w"], lp["conv_c_w"]], dim=-1)
+    conv_b = torch.cat([lp["conv_x_b"], lp["conv_b_b"], lp["conv_c_b"]], dim=-1)
+    conv_out, conv_state = causal_conv_update(conv_state, xbc, conv_w, conv_b)
+    xbc = F.silu(conv_out)
+    x_in = xbc[:, :di].reshape(b, heads, cfg.ssm_head_dim)
+    b_vec = xbc[:, di:di + n]
+    c_vec = xbc[:, di + n:]
+    dt = F.softplus(dt_raw.float() + lp["dt_bias"])
+    a = -torch.exp(lp["a_log"])
+    y, state = ssd_step(x_in, dt, a, b_vec, c_vec, ssm_state)
+    y = y + lp["d_skip"][None, :, None].to(y.dtype) * x_in
+    y = y.reshape(b, 1, di)
+    y = rms_norm(y * F.silu(z[:, None, :]), lp["ssm_norm"], cfg.norm_eps)
+    return y @ lp["ssm_out"], state, conv_state
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: Tensor,
+                uniform_pos: bool = True) -> tuple[Tensor, Params]:
+    """One serving step: (B, 1) new tokens -> (B, 1, Vp) fp32 logits + a new
+    cache (the old one is not modified).
+
+    ``uniform_pos``: every row is at the same position (``pos[0]``), so the
+    new K/V go to one ring slot for the whole batch; ``False`` writes one
+    slot per row (ragged batches).
+    """
+    check_family(cfg)
+    pos = cache["pos"]                                     # (B,)
     h = params["embed"][tokens]                            # (B,1,D)
+    new: Params = {}
+    if cfg.has_attention:
+        sin, cos = rope_table(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)  # (B,1,half)
+        new["k"], new["v"] = cache["k"].clone(), cache["v"].clone()
     states, convs = [], []
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
-        ns = rms_norm(h, lp["ln_ssm"], cfg.norm_eps)[:, 0]  # (B, D)
-        z = ns @ lp["w_z"]
-        x_raw = ns @ lp["w_x"]
-        b_raw = ns @ lp["w_b"]
-        c_raw = ns @ lp["w_c"]
-        dt_raw = ns @ lp["w_dt"]
-        xbc = torch.cat([x_raw, b_raw, c_raw], dim=-1)
-        conv_w = torch.cat([lp["conv_x_w"], lp["conv_b_w"], lp["conv_c_w"]], dim=-1)
-        conv_b = torch.cat([lp["conv_x_b"], lp["conv_b_b"], lp["conv_c_b"]], dim=-1)
-        conv_out, conv_state = causal_conv_update(cache["conv_state"][i], xbc, conv_w, conv_b)
-        xbc = F.silu(conv_out)
-        x_in = xbc[:, :di].reshape(b, heads, cfg.ssm_head_dim)
-        b_vec = xbc[:, di:di + n]
-        c_vec = xbc[:, di + n:]
-        dt = F.softplus(dt_raw.float() + lp["dt_bias"])
-        a = -torch.exp(lp["a_log"])
-        y, state = ssd_step(x_in, dt, a, b_vec, c_vec, cache["ssm_state"][i])
-        y = y + lp["d_skip"][None, :, None].to(y.dtype) * x_in
-        y = y.reshape(b, 1, di)
-        y = rms_norm(y * F.silu(z[:, None, :]), lp["ssm_norm"], cfg.norm_eps)
-        h = h + y @ lp["ssm_out"]
-        states.append(state)
-        convs.append(conv_state)
-    logits = _logits(params, cfg, h)
-    return logits, {
-        "ssm_state": torch.stack(states),
-        "conv_state": torch.stack(convs),
-        "pos": cache["pos"] + 1,
-    }
+        if cfg.has_attention:
+            mixed = _attn_decode(lp, h, cfg, new["k"][i], new["v"][i], pos, sin, cos,
+                                 uniform_pos)
+        if cfg.has_ssm:
+            ssm_out, state, conv_state = _ssm_decode(lp, h, cfg, cache["conv_state"][i],
+                                                     cache["ssm_state"][i])
+            states.append(state)
+            convs.append(conv_state)
+            if not cfg.has_attention:
+                mixed = ssm_out
+        if cfg.has_attention or cfg.has_ssm:
+            h = h + mixed
+        if cfg.d_ff > 0:
+            h = h + _mlp_block(lp, h, cfg)
+    if cfg.has_ssm:
+        new["ssm_state"], new["conv_state"] = torch.stack(states), torch.stack(convs)
+    new["pos"] = pos + 1
+    return _logits(params, cfg, h), new

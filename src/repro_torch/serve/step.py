@@ -21,19 +21,22 @@ def make_local_exec(cfg: ModelConfig, gen_len: int, device=None):
     """(prefill_fn, decode_fn) on ``device`` (``None``: CUDA).
 
     ``prefill_fn(params, tokens)`` returns ``(logits (B,1,Vp), cache)`` with
-    an fp32 cache sized for ``gen_len`` extra tokens;
-    ``decode_fn(params, cache, tok)`` advances one token.
+    an fp32 cache sized for ``gen_len`` extra tokens (the KV ring holds
+    ``S + gen_len`` slots), attention blockwise;
+    ``decode_fn(params, cache, tok)`` advances one token, every row at one
+    position (``uniform_pos``).
     """
     check_family(cfg)
     dev = resolve_device(device)
 
     def prefill_fn(params, tokens):
         with torch.inference_mode():
-            return prefill_step(params, cfg, tokens.to(dev), cache_dtype=torch.float32,
+            return prefill_step(params, cfg, tokens.to(dev), attn_impl="blockwise",
+                                cache_dtype=torch.float32,
                                 cache_len=tokens.shape[1] + gen_len)
 
     def decode_fn(params, cache, tok):
         with torch.inference_mode():
-            return decode_step(params, cfg, cache, tok.to(dev))
+            return decode_step(params, cfg, cache, tok.to(dev), uniform_pos=True)
 
     return prefill_fn, decode_fn

@@ -572,3 +572,65 @@ def test_serve_execute_jobs_launch_ssd_scan_per_layer_per_batch(cuda):
         assert done == n_jobs and secs > 0.0
         assert ssd_scan_cuda.launches - before == rc.cfg.num_layers * -(-n_jobs // b)
     assert eng._execute_jobs(rc, 0) == (0, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# The dense attention family on the card (plain PyTorch: no kernel of its own)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "granite-3-2b"])
+def test_dense_smoke_model_on_the_card_matches_the_cpu(cuda, arch):
+    """Blockwise prefill into an fp32 KV ring and decode on both
+    ``uniform_pos`` paths agree with the CPU run of the same weights
+    (tests/test_models.py's 2e-4)."""
+    cfg = get_arch(arch, "smoke")
+    p = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = {k: v.to(cuda) for k, v in p.items() if k != "blocks"}
+    p_gpu["blocks"] = {k: v.to(cuda) for k, v in p["blocks"].items()}
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 41)))
+    pre, _ = make_local_exec(cfg, 2)
+    logits, cache = pre(p_gpu, tokens[:, :40])
+    logits_c, cache_c = lm.prefill_step(p, cfg, tokens[:, :40], cache_dtype=torch.float32,
+                                        cache_len=42)
+    torch.testing.assert_close(logits.cpu(), logits_c, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(cache["k"].cpu(), cache_c["k"], rtol=2e-4, atol=2e-4)
+    for uniform_pos in (True, False):
+        step, new = lm.decode_step(p_gpu, cfg, cache, tokens[:, 40:41].to(cuda),
+                                   uniform_pos=uniform_pos)
+        step_c, new_c = lm.decode_step(p, cfg, cache_c, tokens[:, 40:41],
+                                       uniform_pos=uniform_pos)
+        torch.testing.assert_close(step.cpu(), step_c, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(new["v"].cpu(), new_c["v"], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("s,causal,window", [(2048, True, 0), (1000, False, 256)])
+def test_blockwise_attention_matches_naive_at_a_real_shape(cuda, s, causal, window):
+    """granite-3-2b's prefill shape (4 x 2048, 32 heads on 8, d 64), and a
+    ragged one whose last KV chunk is padded: chip_smoke.py's ATTN_TOL
+    (fp32, another reduction order)."""
+    from repro_torch.models.attention import attend_blockwise, attend_naive
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((4, s, 32, 64), generator=gen, device=cuda)
+    k = torch.randn((4, s, 8, 64), generator=gen, device=cuda)
+    v = torch.randn((4, s, 8, 64), generator=gen, device=cuda)
+    pos = torch.arange(s, device=cuda)
+    blk = attend_blockwise(q, k, v, pos, pos, causal=causal, window=window)
+    ref = attend_naive(q, k, v, pos, pos, causal=causal, window=window)
+    torch.testing.assert_close(blk, ref, rtol=5e-5, atol=5e-5)
+
+
+def test_dense_engine_launches_gmsa_score_once_per_slot(cuda):
+    """A qwen2-0.5b class (smoke executes) with ``dispatch="kernel"``: one
+    ``gmsa_score`` launch per slot, no ``ssd_scan``, every drained job run."""
+    from repro_torch.launch.serve import build_engine
+
+    eng = build_engine(["qwen2-0.5b"], slots=6, v=1.0, seed=3, arrival=4.0,
+                       dispatch="kernel", device=cuda)
+    score0, ssd0 = gmsa_score_cuda.launches, ssd_scan_cuda.launches
+    out = eng.run(execute_real=True)
+    assert gmsa_score_cuda.launches == score0 + 6
+    assert ssd_scan_cuda.launches == ssd0
+    want = sum(min(int(round(c)), eng.fcfg.exec_cap) for c in out["completed"][:, 0])
+    assert out["exec_jobs"] == want > 0
+    serve_bench.check_conservation(out)

@@ -273,20 +273,28 @@ def test_request_class_methods_match_reference(variant, prompt_len, gen_len):
 
 def test_kv_gb_attention_branch_and_engine_refuses_attention():
     """A port ModelConfig with the reference's qwen2-0.5b fields prices its
-    KV cache as the reference does; the engine refuses to run it."""
+    KV cache as the reference does. The engine builds a qwen2-0.5b class
+    (smoke executes, full prices) and a mamba class priced on qwen; it still
+    refuses a MoE class."""
     cfg_j = jget("qwen2-0.5b", "full")
     cfg_t = ModelConfig(**dataclasses.asdict(cfg_j))
-    assert cfg_t.has_attention
+    assert cfg_t.has_attention and cfg_t == get_arch("qwen2-0.5b", "full")
     rc_t = te.RequestClass("qwen", cfg=cfg_t, prompt_len=48)
     rc_j = je.RequestClass("qwen", cfg=cfg_j, prompt_len=48)
     assert rc_t.kv_gb() == rc_j.kv_gb() > 0.0
     assert rc_t.stage_compute() == rc_j.stage_compute()
     omega, pue, r, *_ = _traces(4)
+    fc = te.FleetConfig(n_pods=4, horizon_slots=T)
     smoke = get_arch(ARCH, "smoke")
-    for rc in (rc_t, te.RequestClass("mixed", cfg=smoke, energy_cfg=cfg_t)):
+    for rc, leaf in ((te.RequestClass("qwen", cfg=get_arch("qwen2-0.5b", "smoke"),
+                                      energy_cfg=cfg_t), "wq"),
+                     (te.RequestClass("mixed", cfg=smoke, energy_cfg=cfg_t), "w_x")):
+        eng = te.FleetEngine(fc, [rc], omega, pue, r[:1], device=CPU)
+        assert leaf in eng.params[rc.name]["blocks"]
+    moe = dataclasses.replace(get_arch("qwen2-0.5b", "smoke"), num_experts=4, top_k=2)
+    for rc in (te.RequestClass("moe", cfg=moe), te.RequestClass("moe", cfg=smoke, energy_cfg=moe)):
         with pytest.raises(NotImplementedError, match="slice 7"):
-            te.FleetEngine(te.FleetConfig(n_pods=4, horizon_slots=T), [rc], omega, pue, r[:1],
-                           device=CPU)
+            te.FleetEngine(fc, [rc], omega, pue, r[:1], device=CPU)
 
 
 def test_fleet_config_cycling_and_errors():
