@@ -150,7 +150,33 @@ Phases, each printing one line or more; any failure exits non-zero:
              ``ssd_scan``, exact ``exec_jobs``, conservation; seconds per job
              and per slot; (d) ``python -m repro_torch.launch.serve`` with
              its default classes as a subprocess, exit 0.
-16. results — one JSON line of per-kernel numbers, then the device line.
+16. moe_hybrid — the MoE and hybrid families (``repro_torch.models.moe``,
+             plain PyTorch as in the JAX package; the hybrid's SSM through
+             ``ssd_scan`` at 50 heads x 64, state 16): (a) full-width,
+             full-depth deepseek-moe-16b (random fp32 weights, 62.9 GiB)
+             served through ``make_local_exec``: 4 x 2048-token prompts + 16
+             greedy tokens, finite logits, pos 2064, no kernel launched, the
+             summed router aux of a forward finite and > 0; prefill wall,
+             decode wall per token and launches per token, the GEMM kernels'
+             share of prefill device time, one MoE layer's expert GEMMs and
+             routing/dispatch by kernel name, peak memory; then layer 0's
+             ``moe_ffn`` on 1 x 256 tokens on the card and on the CPU with
+             the same weights (expert indices equal off near-ties, the same
+             dropped pairs, output within MODEL_TOL, aux within AUX_RTOL,
+             bitwise-repeatable on the card); (b) phi3.5-moe at its
+             published widths, 8 of its 32 layers, 4 x 2048 + 8, the same
+             records and (a)'s first gates; (c) full-width, full-depth
+             hymba-1.5b, 4 x 2048 + 16 (its 1024-slot ring wraps): 32
+             ``ssd_scan`` launches per prefill, decode consistent with a
+             one-token-longer prefill within DECODE_REL_TOL, ``ssd_scan``'s
+             share of prefill device time; (d) ``FleetEngine`` on phase 14's
+             N = 4, T = 6 execution run, ``dispatch="kernel"``, once with
+             deepseek-moe-16b alone and once with hymba-1.5b and qwen2-0.5b,
+             the card freed between: one ``gmsa_score`` launch per slot,
+             ``ssd_scan`` 32 per hymba batch, exact ``exec_jobs``,
+             conservation; seconds per job. Phase 7 holds ``ssd_scan`` at
+             hymba's three shapes and times its 4 x 2048 prefill.
+17. results — one JSON line of per-kernel numbers, then the device line.
 
 Numbers are measured on whatever card runs this; the bound uses the H100
 SXM's published peaks (3.35 TB/s, 67 TFLOP/s fp32) at its 700 W limit.
@@ -220,16 +246,24 @@ SSD_TEST_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
 #: prefill_32k sequence (checked against the plain chunked form only: the
 #: 32768-step loop is too slow), and the serving engine's 32-token prompts
 #: (phase 14) at B = 1 and 4 with the chunk the model uses, min(256, S) =
-#: 32, and B = 4 padded to chunk 256. fp32, summation orders differ: 1e-4.
+#: 32, and B = 4 padded to chunk 256; then hymba-1.5b's SSM branch (50 heads
+#: x 64, state 16: phase 16): its 4 x 2048 prefill, a ragged S and the
+#: serving engine's 32-token prompts. fp32, summation orders differ: 1e-4.
 SSD_MODEL_SHAPES = [
     (1, 2000, 80, 64, 128, 256), (2, 200, 80, 64, 128, 24),
     (4, 2048, 80, 64, 128, 256), (1, 32768, 80, 64, 128, 256),
     (1, 32, 80, 64, 128, 32), (4, 32, 80, 64, 128, 32), (4, 32, 80, 64, 128, 256),
+    (4, 2048, 50, 64, 16, 256), (1, 2000, 50, 64, 16, 256), (4, 32, 50, 64, 16, 32),
 ]
 SSD_SERVE_SHAPE = (4, 2048, 80, 64, 128, 256)
 #: The serving engine's executed prefill batch (phase 14): 4 x 32 tokens,
 #: chunk min(256, 32).
 SSD_ENGINE_SHAPE = (4, 32, 80, 64, 128, 32)
+#: Shapes timed beside the plain sequential version and the bound, each
+#: with its tag in the kernels line and CUDA-graph (reps, replays): the
+#: serving engine's prefill batch, and hymba-1.5b's 4 x 2048 prefill
+#: (phase 16).
+SSD_TIMED = {SSD_ENGINE_SHAPE: ("serve", 20, 10), (4, 2048, 50, 64, 16, 256): ("hybrid", 5, 4)}
 SSD_MODEL_TOL = 1e-4
 #: The chain's kernels, in launch order (``ssd_scan_<phase>_kernel``).
 SSD_PHASES = ("cumsum", "chunk_cb", "chunk_state", "state_pass", "chunk_scan")
@@ -308,6 +342,30 @@ DENSE_ATTN_SHAPES = [(4, 2048, 32, 8, 64, True, 0), (4, 1000, 32, 8, 64, False, 
 ATTN_TOL = 5e-5
 #: (requests, prompt tokens, generated tokens) per served batch, as phase 8.
 DENSE_BATCHES = [(4, 2048, 16), (1, 1000, 8)]
+#: Phase 16, the MoE and hybrid families at their published widths: arch ->
+#: (exact parameter count at full depth, layers run, (requests, prompt
+#: tokens, generated tokens)). phi3.5-moe is 156 GiB in fp32 at its 32
+#: layers: it runs 8 (4.84 GiB a layer); the others run at full depth.
+MOE_HYBRID_ARCHS = {
+    "deepseek-moe-16b": (16_879_568_896, 28, (4, 2048, 16)),
+    "phi3.5-moe-42b-a6.6b": (41_873_051_648, 8, (4, 2048, 8)),
+    "hymba-1.5b": (1_641_432_320, 32, (4, 2048, 16)),
+}
+#: The one-layer card-against-CPU MoE gate: deepseek-moe-16b's layer 0
+#: (2.06 GiB of experts, copied to the CPU) on 1 x 256 tokens (C = 32: pairs
+#: drop). Expert indices equal off near-ties (two router probabilities among
+#: a token's top k + 1 within TOPK_TIE: fp32 softmax of logits summed in
+#: another order differs by ulps of 1); dropped pairs equal; output within
+#: MODEL_TOL (relative to max(|y|, 1): tests/test_models.py's model
+#: tolerance); aux within AUX_RTOL relative (the same fp32 sums).
+MOE_GATE_TOKENS = 256
+TOPK_TIE = 1e-6
+MODEL_TOL = 2e-4
+AUX_RTOL = 1e-6
+#: Phase 16 (d): the serving execution run of phase 14 with these classes,
+#: one run each, the card freed between them (deepseek's 62.9 GiB of
+#: weights fill it).
+MOE_HYBRID_SERVE = (("deepseek-moe-16b",), ("hymba-1.5b", "qwen2-0.5b"))
 
 
 def log(msg: str) -> None:
@@ -960,7 +1018,7 @@ def phase_ssd_kernel(dev):
     cases = [(shape, dname, False, SSD_TEST_TOL[dname])
              for shape in SSD_TEST_SHAPES for dname in ("float32", "bfloat16")]
     cases += [(shape, "float32", True, SSD_MODEL_TOL) for shape in SSD_MODEL_SHAPES]
-    worst, main, long_run, engine = {"float32": 0.0, "bfloat16": 0.0}, None, None, None
+    worst, main, long_run, timed = {"float32": 0.0, "bfloat16": 0.0}, None, None, {}
     for (b, s, h, p, n, q), dname, model_like, tol in cases:
         dtype = getattr(torch, dname)
         ops = ssd_inputs(gen, b, s, h, p, n, dtype, dev, model_like)
@@ -991,16 +1049,17 @@ def phase_ssd_kernel(dev):
         if (b, s, h, p, n, q) == SSD_SERVE_SHAPE:
             ws_errs = check_ssd_workspaces(ops, q, shape)
             torch.cuda.empty_cache()
-        if model_like and (b, s, h, p, n, q) == SSD_ENGINE_SHAPE:
-            t_k = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=20, iters=10)
+        if model_like and (b, s, h, p, n, q) in SSD_TIMED:
+            tag, reps, iters = SSD_TIMED[(b, s, h, p, n, q)]
+            t_k = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=reps, iters=iters)
             _, events = device_profile(lambda: ssd_scan_ref(*ops))
             t_p = sum(us for _, us, _ in events) / 1e3
             bound, bound_by = ssd_bound_ms(b, s, h, p, n, q, dtype.itemsize)
             log(f"[ssd] {shape}: device: kernel chain {t_k * 1e3:.2f} us, plain sequential "
                 f"{t_p * 1e3:.1f} us (profiler device sum), bound {bound * 1e3:.3f} us "
                 f"({bound_by}; chain at {100 * bound / t_k:.1f}% of it)")
-            engine = {"ms_serve": t_k, "plain_ms_serve": t_p, "bound_ms_serve": bound,
-                      "bound_by_serve": bound_by}
+            timed.update({f"ms_{tag}": t_k, f"plain_ms_{tag}": t_p, f"bound_ms_{tag}": bound,
+                          f"bound_by_{tag}": bound_by, f"max_abs_err_{tag}": abs_y})
         if model_like and ((b, s, h, p, n, q) == SSD_SERVE_SHAPE or long_seq):
             t_k = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=5, iters=4)
             t_c = device_time_ms(lambda: ssd_chunked(*ops, q), reps=1, iters=3)
@@ -1036,7 +1095,7 @@ def phase_ssd_kernel(dev):
     main["max_rel_err_fp32"], main["max_rel_err_bf16"] = worst["float32"], worst["bfloat16"]
     main["workspace_rel_err"] = ws_errs
     main.update(long_run)
-    main.update(engine)
+    main.update(timed)
     return main
 
 
@@ -2441,6 +2500,333 @@ def phase_dense(dev, smi, variant: str = "full", attn_shapes=DENSE_ATTN_SHAPES,
     return x_counts["gmsa_score"]
 
 
+def is_gemm_kernel(name: str) -> bool:
+    """Whether a profiler kernel name is a cuBLAS / CUTLASS GEMM's."""
+    low = name.lower()
+    return any(tag in low for tag in ("gemm", "xmma", "cutlass", "kernel2"))
+
+
+def topk_off_tie_mismatches(idx, idx_ref, probs_ref, k: int) -> tuple[int, int]:
+    """(tokens whose expert indices differ with no near-tie, tokens that
+    differ at a near-tie): a near-tie is two of the reference's router
+    probabilities among the token's top k + 1 within TOPK_TIE."""
+    import torch
+
+    top = torch.sort(probs_ref.reshape(-1, probs_ref.shape[-1]), dim=-1,
+                     descending=True).values[:, :k + 1]
+    near = (top[:, :-1] - top[:, 1:]).abs().le(TOPK_TIE).any(dim=-1)
+    differ = (idx.reshape(-1, k) != idx_ref.reshape(-1, k)).any(dim=-1)
+    return int((differ & ~near).sum()), int((differ & near).sum())
+
+
+def moe_layer_gate(params, cfg, tokens) -> dict:
+    """Layer 0's ``moe_ffn`` on 1 x MOE_GATE_TOKENS real tokens (embedded,
+    RMS-normed) on the card and on the CPU with the same weights: routing,
+    drops, output and aux held against each other; the card's call
+    bitwise-repeatable (no atomics in the combine)."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rms_norm
+
+    names = ("router", "we_gate", "we_up", "we_down")
+    with torch.inference_mode():
+        w_dev = [params["blocks"][name][0] for name in names]
+        x_dev = rms_norm(params["embed"][tokens[:1, :MOE_GATE_TOKENS]],
+                         params["blocks"]["ln2"][0], cfg.norm_eps)
+        w_cpu, x_cpu = [w.cpu() for w in w_dev], x_dev.cpu()
+        cap = moe.expert_capacity(MOE_GATE_TOKENS, cfg, 1.25)
+        out = {}
+        for where, x, w in (("card", x_dev, w_dev), ("cpu", x_cpu, w_cpu)):
+            t0 = time.perf_counter()
+            y, aux = moe.moe_ffn(x, *w, cfg)
+            _, idx, _ = moe.route_topk(x, w[0], cfg.top_k)
+            probs = torch.softmax(x.float() @ w[0].float(), dim=-1)
+            plan = moe.dispatch_plan(idx, cfg.num_experts, cap)
+            if where == "card":
+                torch.cuda.synchronize()
+                y2, aux2 = moe.moe_ffn(x, *w, cfg)
+                if not (torch.equal(y, y2) and torch.equal(aux, aux2)):
+                    fail("moe_hybrid: moe_ffn on the card is not bitwise repeatable")
+            out[where] = {"y": y.cpu(), "aux": float(aux), "idx": idx.cpu(), "probs": probs.cpu(),
+                          "dropped": (plan["pos"] >= cap).cpu(),
+                          "secs": time.perf_counter() - t0}
+    card, cpu = out["card"], out["cpu"]
+    off_tie, near_tie = topk_off_tie_mismatches(card["idx"], cpu["idx"], cpu["probs"], cfg.top_k)
+    n_dropped = int(cpu["dropped"].sum())
+    same_drops = bool(torch.equal(card["dropped"], cpu["dropped"]))
+    err = rel_err(card["y"], cpu["y"])
+    aux_rel = abs(card["aux"] - cpu["aux"]) / abs(cpu["aux"])
+    log(f"[moe] {cfg.name} layer 0 moe_ffn on 1 x {MOE_GATE_TOKENS} tokens (C = {cap}), card "
+        f"against CPU with the same weights: expert indices differing off near-ties "
+        f"{off_tie}, at near-ties {near_tie}; dropped pairs {n_dropped} of "
+        f"{MOE_GATE_TOKENS * cfg.top_k}, the same set {same_drops}; output max_rel_err "
+        f"{err:.3e} (tol {MODEL_TOL:g}); aux card {card['aux']:.7f} CPU {cpu['aux']:.7f} "
+        f"(rel {aux_rel:.3e}, tol {AUX_RTOL:g}); bitwise repeatable on the card; CPU call "
+        f"{cpu['secs']:.2f} s")
+    if off_tie:
+        fail(f"moe_hybrid: {off_tie} tokens routed differently off near-ties, card vs CPU")
+    if near_tie:
+        # A near-tie flip moves later pairs' capacity slots, so the drops and
+        # the output differ by construction: they are not compared then.
+        log(f"[moe] {near_tie} near-tie flips: drops and output not compared")
+    elif not (same_drops and err <= MODEL_TOL and aux_rel <= AUX_RTOL):
+        fail(f"moe_hybrid: card vs CPU: drops equal {same_drops} ({n_dropped}), output "
+             f"{err:.3e}, aux {aux_rel:.3e}")
+    return {"off_tie": off_tie, "near_tie": near_tie, "dropped": n_dropped,
+            "max_rel_err": err, "aux_rel": aux_rel}
+
+
+def serve_model(arch: str, cfg, params, batch, dev, smi) -> dict:
+    """One model of phase 16 served as the reference's
+    ``FleetEngine._execute_jobs`` runs a batch: the main path (counts read
+    around it), its gates, then steady walls, device profiles and peak
+    memory."""
+    import torch
+
+    from repro_torch.models.lm import cache_len_for, forward
+    from repro_torch.serve.step import make_local_exec
+
+    b, s, gen_len = batch
+    vocab = cfg.vocab_size
+    tokens = torch.randint(0, vocab, (b, s + 1), generator=torch.Generator(device=dev).manual_seed(11),
+                           device=dev)
+    prefill_fn, decode_fn = make_local_exec(cfg, gen_len, device=dev)
+
+    def serve():
+        t0 = time.perf_counter()
+        logits, cache = prefill_fn(params, tokens[:, :s])
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        finite = torch.isfinite(logits).all()
+        tok = torch.argmax(logits[:, -1:, :vocab], dim=-1)
+        t0 = time.perf_counter()
+        for _ in range(gen_len):
+            logits, cache = decode_fn(params, cache, tok)
+            finite = finite & torch.isfinite(logits).all()
+            tok = torch.argmax(logits[:, :, :vocab], dim=-1)
+        torch.cuda.synchronize()
+        pos = cache["pos"].tolist()
+        return bool(finite), pos, t_pre, (time.perf_counter() - t0) / gen_len
+
+    torch.cuda.synchronize()
+    reset_counts()
+    finite, pos, t_pre, t_dec = serve()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[moe] {arch} served {b} x {s}-token prompts + {gen_len} greedy tokens: logits finite "
+        f"{finite}, pos {sorted(set(pos))}; prefill {t_pre * 1e3:.1f} ms, decode "
+        f"{t_dec * 1e3:.2f} ms/token (first call); main path launches {counts}")
+    want_ssd = cfg.num_layers if cfg.has_ssm else 0
+    if not (finite and pos == [s + gen_len] * b):
+        fail(f"moe_hybrid: {arch}: finite {finite}, pos {pos}")
+    if counts != {"gmsa_score": 0, "ssd_scan": want_ssd}:
+        fail(f"moe_hybrid: {arch}: launch counts {counts}, expected {want_ssd} ssd_scan")
+    rec = {"counts": counts, "prefill_ms_first": t_pre * 1e3, "decode_ms_first": t_dec * 1e3}
+
+    if cfg.is_moe:
+        # The router's aux over one prompt (prefill_step keeps only the cache).
+        with torch.inference_mode():
+            _, aux = forward(params, cfg, tokens[:1, :s])
+        aux = float(aux)
+        log(f"[moe] {arch} forward on 1 x {s}: summed router aux {aux:.6f} over "
+            f"{cfg.num_layers} layers")
+        if not (math.isfinite(aux) and aux > 0.0):
+            fail(f"moe_hybrid: {arch}: aux {aux}")
+        rec["aux"] = aux
+    else:
+        # Decode consistency: prefill(t[:, :S]) + decode(t[:, S]) == prefill(t[:, :S+1]).
+        _, cache = prefill_fn(params, tokens[:, :s])
+        dec = decode_fn(params, cache, tokens[:, s:s + 1])[0][:, -1, :vocab]
+        del cache
+        full = prefill_fn(params, tokens)[0][:, -1, :vocab]
+        scale = float(full.abs().max())
+        rel = float((dec - full).abs().max()) / scale
+        pick = torch.argmax(dec, dim=-1)
+        gap = full.max(dim=-1).values - torch.gather(full, -1, pick[:, None])[:, 0]
+        off_tie = int(((pick != torch.argmax(full, dim=-1)) & (gap > DECODE_REL_TOL * scale)).sum())
+        log(f"[moe] {arch} decode consistency {b} x {s} (a {cache_len_for(cfg, s + gen_len)}-slot "
+            f"ring, wrapped): prefill+decode vs prefill of S+1, max |diff| / max |logit| = "
+            f"{rel:.3e} (tol {DECODE_REL_TOL:g}), greedy tokens differing off near-ties {off_tie}")
+        if not rel <= DECODE_REL_TOL or off_tie:
+            fail(f"moe_hybrid: {arch} decode consistency: rel {rel:.3e}, off-tie {off_tie}")
+        rec["decode_rel"] = rel
+        del dec, full
+
+    walls = [serve() for _ in range(2)]
+    log(f"[moe] {smi} | {arch} prefill wall per batch ({b} x {s}, calls 2-3): "
+        f"{', '.join(f'{w[2] * 1e3:.1f}' for w in walls)} ms; decode wall per token (batch {b}, "
+        f"{gen_len} tokens each): {', '.join(f'{w[3] * 1e3:.2f}' for w in walls)} ms")
+    rec["prefill_ms"] = [w[2] * 1e3 for w in walls]
+    rec["decode_ms"] = [w[3] * 1e3 for w in walls]
+
+    _, cache = prefill_fn(params, tokens[:, :s])
+    wall, events = device_profile(lambda: decode_fn(params, cache, tokens[:, s:s + 1]))
+    del cache
+    dev_us = sum(us for _, us, _ in events)
+    launched = sum(c for _, _, c in events)
+    log(f"[moe] {smi} | {arch} one decode step (batch {b}) under torch.profiler: "
+        f"{wall * 1e3:.1f} ms wall, device busy {dev_us / 1e3:.2f} ms "
+        f"({100 * dev_us / 1e6 / wall:.1f}%), {launched} device kernels")
+    rec["decode_launches"] = launched
+    wall, events = device_profile(lambda: prefill_fn(params, tokens[:, :s]))
+    dev_us = sum(us for _, us, _ in events)
+    gemm_us = sum(us for name, us, _ in events if is_gemm_kernel(name))
+    ssd_us = sum(us for name, us, _ in events if is_ssd_kernel(name))
+    top = ", ".join(f"{name[:48]} {us / 1e3:.2f} ms x{c}" for name, us, c in events[:6])
+    pct = lambda us: f"{100 * us / dev_us:.1f}%" if dev_us > 0 else "not measured"
+    log(f"[moe] {smi} | {arch} one prefill ({b} x {s}) under torch.profiler: {wall * 1e3:.1f} ms "
+        f"wall, device busy {dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}%); GEMM "
+        f"kernels {gemm_us / 1e3:.1f} ms = {pct(gemm_us)}; ssd_scan chain {ssd_us / 1e3:.2f} ms "
+        f"= {pct(ssd_us)}; top: {top}")
+    rec.update(prefill_busy_ms=dev_us / 1e3, gemm_share=gemm_us / dev_us if dev_us else None,
+               ssd_ms=ssd_us / 1e3)
+
+    if cfg.is_moe:
+        # One MoE layer at the prefill's real input, by kernel name: the
+        # GEMMs are the three expert products and the (S, D) x (D, E)
+        # router; every other kernel is routing, dispatch and combine.
+        from repro_torch.models import moe
+        from repro_torch.models.layers import rms_norm
+
+        with torch.inference_mode():
+            lp = {name: leaf[0] for name, leaf in params["blocks"].items()}
+            x = rms_norm(params["embed"][tokens[:, :s]], lp["ln2"], cfg.norm_eps)
+            _, events = device_profile(lambda: moe.moe_ffn(
+                x, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"], cfg))
+        del x
+        layer_us = sum(us for _, us, _ in events)
+        expert_us = sum(us for name, us, _ in events if is_gemm_kernel(name))
+        route_us = layer_us - expert_us
+        top = ", ".join(f"{name[:40]} {us / 1e3:.2f} ms x{c}" for name, us, c in events[:5])
+        log(f"[moe] {smi} | {arch} layer 0's moe_ffn at ({b}, {s}) under torch.profiler: "
+            f"device {layer_us / 1e3:.2f} ms: expert GEMMs (and the router's) "
+            f"{expert_us / 1e3:.2f} ms, routing/dispatch/combine {route_us / 1e3:.2f} ms; "
+            f"x{cfg.num_layers} layers = {pct(cfg.num_layers * expert_us)} and "
+            f"{pct(cfg.num_layers * route_us)} of prefill device time; top: {top}")
+        rec.update(expert_share=cfg.num_layers * expert_us / dev_us if dev_us else None,
+                   route_share=cfg.num_layers * route_us / dev_us if dev_us else None,
+                   expert_ms_layer=expert_us / 1e3, route_ms_layer=route_us / 1e3)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[moe] {smi} | {arch} peak device memory {rec['peak_gib']:.2f} GiB")
+    return rec
+
+
+def phase_moe_hybrid(dev, smi, variant: str = "full", batches=None) -> dict:
+    """Phase 16: deepseek-moe-16b and phi3.5-moe (depth cut) and hymba-1.5b
+    at their published widths through ``make_local_exec``, the one-layer
+    card-against-CPU MoE gate, then ``FleetEngine`` executing with a MoE
+    class and with a hybrid + dense pair. ``variant="smoke"`` (with small
+    ``batches``: arch -> (b, s, gen)) rehearses it on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.benchmarks import serve_bench
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_traces
+    from repro_torch.models.lm import count_params, init_params
+    from repro_torch.serve import FleetConfig as ServeFleetConfig
+    from repro_torch.serve import FleetEngine, RequestClass
+
+    out = {}
+    for arch, (n_params, layers, batch) in MOE_HYBRID_ARCHS.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        cfg = get_arch(arch, variant)
+        if variant == "full" and count_params(cfg) != n_params:
+            fail(f"{arch}: {count_params(cfg)} parameters, expected {n_params}")
+        full_layers = cfg.num_layers
+        if layers < full_layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        depth = (f"{cfg.num_layers} of {full_layers} layers" if cfg.num_layers < full_layers
+                 else f"{cfg.num_layers} layers")
+        batch = (batches or {}).get(arch, batch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.float32,
+                             device=dev)
+        torch.cuda.synchronize()
+        ffn = (f"{cfg.num_experts} experts (top {cfg.top_k}, {cfg.num_shared_experts} shared, "
+               f"width {cfg.moe_d_ff})" if cfg.is_moe else f"d_ff {cfg.d_ff}")
+        ssm = (f", SSM {cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state {cfg.ssm_state}"
+               if cfg.has_ssm else "")
+        log(f"[moe] {arch} ({variant}: {depth}, d_model {cfg.d_model}, {cfg.num_heads} heads "
+            f"on {cfg.num_kv_heads} x {cfg.resolved_head_dim}, {ffn}{ssm}, window "
+            f"{cfg.sliding_window}): {count_params(cfg)} random fp32 params "
+            f"({count_params(cfg, active_only=True)} active per token) initialised on the card "
+            f"in {time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} "
+            f"GiB held")
+        rec = serve_model(arch, cfg, params, batch, dev, smi)
+        if arch == "deepseek-moe-16b":
+            tokens = torch.randint(0, cfg.vocab_size, (1, MOE_GATE_TOKENS),
+                                   generator=torch.Generator(device=dev).manual_seed(13),
+                                   device=dev)
+            rec["layer_gate"] = moe_layer_gate(params, cfg, tokens)
+        out[arch] = rec
+        del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (d) FleetEngine executing with the new classes, one run per class set.
+    x = SERVE_EXEC
+    for archs in MOE_HYBRID_SERVE:
+        torch.cuda.empty_cache()
+        x_omega, x_pue, x_r, x_up, x_down, x_layout = serve_traces(
+            len(archs), x["pods"], x["slots"], x["seed"], dev)
+        xfc = ServeFleetConfig(n_pods=x["pods"], horizon_slots=x["slots"], v=1.0,
+                               seed=x["seed"], admit_max=x["admit_max"], dispatch="kernel")
+        rcs = [RequestClass(a, cfg=get_arch(a, variant), energy_cfg=get_arch(a, variant),
+                            arrival_rate=x["arrival"]) for a in archs]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        xeng = FleetEngine(xfc, rcs, x_omega, x_pue, x_r, up=x_up, down=x_down, layout=x_layout,
+                           device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        ok = watch_execution(xeng, dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        xout = xeng.run(execute_real=True)
+        torch.cuda.synchronize()
+        x_wall = time.perf_counter() - t0
+        x_counts = read_counts()
+        want = {a: [min(int(round(c)), xfc.exec_cap) for c in xout["completed"][:, i]]
+                for i, a in enumerate(archs)}
+        b = xfc.batch_per_exec
+        batches_run = {a: [min(b, j - i) for j in want[a] for i in range(0, j, b)] for a in archs}
+        want_ssd = sum(rc.cfg.num_layers * len(batches_run[rc.name]) for rc in rcs
+                       if rc.cfg.has_ssm)
+        try:
+            conserve = serve_bench.check_conservation(xout)
+        except AssertionError as exc:
+            fail(f"moe_hybrid: serving {archs}: {exc}")
+        n_jobs = sum(sum(w) for w in want.values())
+        per_job = xout["exec_seconds"] / max(xout["exec_jobs"], 1)
+        log(f"[moe] {smi} | FleetEngine with classes {list(archs)} ({variant} width, random fp32 "
+            f"weights, built in {t_init:.2f} s), N={x['pods']}, T={x['slots']}, "
+            f"dispatch='kernel': jobs per slot {want}, exec_jobs {xout['exec_jobs']}, prefill "
+            f"batches {ok['batches']}; launches {x_counts}; logits finite {bool(ok['finite'])}, "
+            f"tokens in vocabulary {bool(ok['vocab'])}; conservation max_rel {conserve:.3e}; run "
+            f"wall {x_wall:.2f} s, {x_wall / x['slots']:.3f} s per slot, execution "
+            f"{xout['exec_seconds']:.2f} s = {per_job:.3f} s per job; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not (xout["exec_jobs"] == n_jobs > 0 and ok["batches"] == batches_run
+                and x_counts == {"gmsa_score": x["slots"], "ssd_scan": want_ssd}
+                and xout["exec_seconds"] > 0.0
+                and bool(ok["finite"]) and bool(ok["vocab"])):
+            fail(f"moe_hybrid: serving execution gates for {archs}: exec_jobs "
+                 f"{xout['exec_jobs']} (want {n_jobs}), launches {x_counts} (want "
+                 f"{x['slots']} gmsa_score, {want_ssd} ssd_scan)")
+        key = "serve_moe" if any(get_arch(a, variant).is_moe for a in archs) else "serve_hybrid"
+        out[key] = {"counts": x_counts, "per_job_s": per_job, "exec_jobs": xout["exec_jobs"]}
+        del xeng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -2466,6 +2852,7 @@ def main() -> int:
     placed = phase_placement(dev, smi)
     serve = phase_serve(dev, smi)
     dense_launches = phase_dense(dev, smi)
+    moe_hybrid = phase_moe_hybrid(dev, smi)
 
     entry = {
         "name": "gmsa_score",
@@ -2480,6 +2867,8 @@ def main() -> int:
         "launches_placed_sweep": placed["launches_placed_sweep"],
         "launches_serve": serve["gmsa_score"],
         "launches_serve_dense": dense_launches,
+        "launches_serve_moe": moe_hybrid["serve_moe"]["counts"]["gmsa_score"],
+        "launches_serve_hybrid": moe_hybrid["serve_hybrid"]["counts"]["gmsa_score"],
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -2537,6 +2926,13 @@ def main() -> int:
         "plain_ms_serve": ssd["plain_ms_serve"],
         "bound_ms_serve": ssd["bound_ms_serve"],
         "bound_by_serve": ssd["bound_by_serve"],
+        "launches_hybrid": moe_hybrid["hymba-1.5b"]["counts"]["ssd_scan"],
+        "launches_serve_hybrid": moe_hybrid["serve_hybrid"]["counts"]["ssd_scan"],
+        "max_abs_err_hybrid": ssd["max_abs_err_hybrid"],
+        "ms_hybrid": ssd["ms_hybrid"],
+        "plain_ms_hybrid": ssd["plain_ms_hybrid"],
+        "bound_ms_hybrid": ssd["bound_ms_hybrid"],
+        "bound_by_hybrid": ssd["bound_by_hybrid"],
     }
     log(f"[device] {smi}")
     print(json.dumps({"kernels": [entry, ssd_entry]}))

@@ -1,5 +1,5 @@
 """Model assembly for the port: init / forward / prefill / decode / param
-counting — the dense attention and SSM (Mamba-2) families of
+counting — the dense attention, SSM (Mamba-2), MoE and hybrid families of
 ``repro.models.lm``.
 
 The params are a dict of tensors under the JAX package's names and layouts:
@@ -7,12 +7,16 @@ The params are a dict of tensors under the JAX package's names and layouts:
 layers looped over in Python. So :mod:`repro_torch.bridge` carries a JAX
 pytree over leaf for leaf, and the tests compare like with like.
 
-A layer is attention (GQA with RoPE, :mod:`repro_torch.models.attention`)
-or a Mamba-2 SSD mixer, followed by a dense FFN (SwiGLU with RMSNorm, or
-GELU with LayerNorm) when ``d_ff > 0``. Each prefill layer's SSD scan goes
-through the hand-written CUDA kernel (:func:`repro_torch.kernels.ssd_scan.ssd_scan`)
-on a CUDA device, and through its plain sequential version on the CPU.
-Attention is plain PyTorch, as the JAX package's is plain ``jnp``. The
+A layer's mixer is attention (GQA with RoPE,
+:mod:`repro_torch.models.attention`), a Mamba-2 SSD mixer, or — hybrid
+(Hymba) — both in parallel, each branch RMS-normed and the two averaged.
+Its FFN is a top-k MoE (:mod:`repro_torch.models.moe`, plus shared
+experts) when the config has experts, else a dense FFN (SwiGLU with
+RMSNorm, or GELU with LayerNorm) when ``d_ff > 0``. Each prefill layer's
+SSD scan goes through the hand-written CUDA kernel
+(:func:`repro_torch.kernels.ssd_scan.ssd_scan`) on a CUDA device, and
+through its plain sequential version on the CPU. Attention and the MoE
+are plain PyTorch, as the JAX package's are plain ``jnp``. The
 projections, the FFN and the LM head are plain matmuls (``torch.matmul``).
 
 The decode cache holds, per attention layer, a KV ring of ``sc`` slots
@@ -20,8 +24,8 @@ The decode cache holds, per attention layer, a KV ring of ``sc`` slots
 layer the recurrent state and the conv tail; ``pos`` (int32) counts the
 positions done.
 
-MoE, hybrid and frontend configs raise ``NotImplementedError``: those
-families come with later slices of the port.
+Frontend configs raise ``NotImplementedError``: that family comes with
+the next slice of the port.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from repro_torch.models.layers import (
     swiglu,
     trunc_normal,
 )
+from repro_torch.models.moe import moe_ffn, shared_expert_ffn
 from repro_torch.models.ssm import causal_conv, causal_conv_update, ssd_step
 
 VOCAB_PAD_MULTIPLE = 128
@@ -58,20 +63,15 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for the families the port does not run
-    yet: MoE, hybrid attention+SSM and modality frontends. Dense attention
-    (SwiGLU or GELU, causal or not, QKV bias, sliding window, tied or
-    untied head) and Mamba-2 SSM models pass."""
-    missing = [what for what, on in (
-        ("MoE (next: moe.py with the MoE configs)", cfg.is_moe),
-        ("hybrid attention+SSM (after the frontends)", cfg.hybrid),
-        (f"the {cfg.frontend} frontend (after MoE)", bool(cfg.frontend)),
-    ) if on]
-    if missing:
+    """Raise ``NotImplementedError`` for the family the port does not run
+    yet: modality frontends. Dense attention (SwiGLU or GELU, causal or
+    not, QKV bias, sliding window, tied or untied head), Mamba-2 SSM, MoE
+    and hybrid attention + SSM models pass."""
+    if cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense attention and SSM (Mamba-2) families; "
-            f"{', '.join(missing)} comes with a later slice of the port "
-            "(ROADMAP.md §1, slice 7)"
+            f"{cfg.name}: the port runs the dense attention, SSM (Mamba-2), MoE and hybrid "
+            f"families; the {cfg.frontend} frontend comes with the next slice of the port "
+            "(ROADMAP.md §1, slice 7b)"
         )
 
 
@@ -130,7 +130,22 @@ def layer_param_specs(cfg: ModelConfig) -> dict[str, tuple[tuple, int, str]]:
             "ssm_norm": ((di,), 0, "ones"),
             "ssm_out": ((di, d), di, "normal"),
         })
-    if cfg.d_ff > 0:
+    if cfg.hybrid:
+        specs["branch_attn_norm"] = ((d,), 0, "ones")
+        specs["branch_ssm_norm"] = ((d,), 0, "ones")
+    if cfg.is_moe:
+        f = cfg.moe_d_ff or cfg.d_ff
+        specs["ln2"] = ((d,), 0, "ones")
+        specs["router"] = ((d, cfg.num_experts), d, "normal")
+        specs["we_gate"] = ((cfg.num_experts, d, f), d, "normal")
+        specs["we_up"] = ((cfg.num_experts, d, f), d, "normal")
+        specs["we_down"] = ((cfg.num_experts, f, d), f, "normal")
+        if cfg.num_shared_experts:
+            fs = cfg.num_shared_experts * f
+            specs["ws_gate"] = ((d, fs), d, "normal")
+            specs["ws_up"] = ((d, fs), d, "normal")
+            specs["ws_down"] = ((fs, d), fs, "normal")
+    elif cfg.d_ff > 0:
         f = cfg.d_ff
         specs["ln2"] = ((d,), 0, "ones")
         if cfg.act == "gelu":
@@ -285,13 +300,31 @@ def _ssm_block(lp: Params, h: Tensor, cfg: ModelConfig):
     return y @ lp["ssm_out"], state, conv_tail
 
 
-def _mlp_block(lp: Params, h: Tensor, cfg: ModelConfig) -> Tensor:
-    """Dense FFN half-block: GELU with LayerNorm, or SwiGLU with RMSNorm."""
+def _mlp_block(lp: Params, h: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor | None]:
+    """FFN half-block: (out, aux). MoE (routed experts plus any shared
+    ones) with its router's aux loss; else GELU with LayerNorm, or SwiGLU
+    with RMSNorm, and aux ``None`` (no router)."""
+    if cfg.is_moe:
+        norm = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        out, aux = moe_ffn(norm, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"], cfg)
+        if cfg.num_shared_experts:
+            out = out + shared_expert_ffn(norm, lp["ws_gate"], lp["ws_up"], lp["ws_down"])
+        return out, aux
     if cfg.act == "gelu":
         norm = layer_norm(h, lp["ln2"], lp["ln2_bias"], cfg.norm_eps)
-        return gelu_mlp(norm, lp["w_up"], lp["b_up"], lp["w_down"], lp["b_down"])
+        return gelu_mlp(norm, lp["w_up"], lp["b_up"], lp["w_down"], lp["b_down"]), None
     norm = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    return swiglu(norm, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return swiglu(norm, lp["w_gate"], lp["w_up"], lp["w_down"]), None
+
+
+def _mix(lp: Params, cfg: ModelConfig, attn_out: Tensor | None, ssm_out: Tensor | None) -> Tensor:
+    """The mixer's residual term: the hybrid's mean of the two RMS-normed
+    branches; else attention where the config has it (the JAX model's
+    choice when a non-hybrid config has both), else the SSM."""
+    if cfg.hybrid:
+        return 0.5 * (rms_norm(attn_out, lp["branch_attn_norm"], cfg.norm_eps)
+                      + rms_norm(ssm_out, lp["branch_ssm_norm"], cfg.norm_eps))
+    return attn_out if cfg.has_attention else ssm_out
 
 
 def _ring_gather(kv: Tensor, sc: int) -> Tensor:
@@ -323,7 +356,8 @@ def _logits(params: Params, cfg: ModelConfig, h: Tensor) -> Tensor:
 
 def _trunk(params: Params, cfg: ModelConfig, tokens: Tensor, attn_impl: str,
            collect_cache: bool, cache_dtype, cache_len: int | None):
-    """Embed and every layer: (final hidden state (B,S,D), cache or None)."""
+    """Embed and every layer: (final hidden state (B,S,D), the layers'
+    summed router aux (fp32 scalar, 0 without experts), cache or None)."""
     check_family(cfg)
     h = params["embed"][tokens]
     s = h.shape[1]
@@ -333,18 +367,18 @@ def _trunk(params: Params, cfg: ModelConfig, tokens: Tensor, attn_impl: str,
         sin, cos = rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta)
         sc = cache_len_for(cfg, cache_len or s)
     caches: dict[str, list[Tensor]] = {}
+    auxes: list[Tensor] = []
+    attn_out = ssm_out = None
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
-        # Without hybrid, attention is the mixer where a config has both (the
-        # JAX model's choice); the SSM layer still runs, for its cache leaves.
+        # A non-hybrid config with both still runs its SSM layer, for its
+        # cache leaves (_mix takes attention).
         if cfg.has_attention:
-            mixed, (k, v) = _attn_block(lp, h, cfg, sin, cos, attn_impl, positions)
+            attn_out, (k, v) = _attn_block(lp, h, cfg, sin, cos, attn_impl, positions)
         if cfg.has_ssm:
             ssm_out, state, conv_tail = _ssm_block(lp, h, cfg)
-            if not cfg.has_attention:
-                mixed = ssm_out
         if cfg.has_attention or cfg.has_ssm:
-            h = h + mixed
+            h = h + _mix(lp, cfg, attn_out, ssm_out)
         if collect_cache:
             if cfg.has_attention:
                 caches.setdefault("k", []).append(_ring_gather(k, sc).to(cache_dtype))
@@ -352,13 +386,18 @@ def _trunk(params: Params, cfg: ModelConfig, tokens: Tensor, attn_impl: str,
             if cfg.has_ssm:
                 caches.setdefault("ssm_state", []).append(state)
                 caches.setdefault("conv_state", []).append(conv_tail.to(cache_dtype))
-        if cfg.d_ff > 0:
-            h = h + _mlp_block(lp, h, cfg)
+        if cfg.d_ff > 0 or cfg.is_moe:
+            mlp_out, aux = _mlp_block(lp, h, cfg)
+            h = h + mlp_out
+            if aux is not None:
+                auxes.append(aux)
+    aux = (torch.stack(auxes).sum() if auxes
+           else torch.zeros((), dtype=torch.float32, device=h.device))
     if not collect_cache:
-        return h, None
+        return h, aux, None
     cache = {name: torch.stack(leaves) for name, leaves in caches.items()}
     cache["pos"] = torch.full((h.shape[0],), s, dtype=torch.int32, device=h.device)
-    return h, cache
+    return h, aux, cache
 
 
 def forward(
@@ -371,12 +410,13 @@ def forward(
     cache_len: int | None = None,
 ) -> tuple[Tensor, Tensor] | tuple[Tensor, Tensor, Params]:
     """Full-sequence forward. Returns (logits fp32 (B,S,Vp), aux_loss) — plus
-    the assembled decode cache when ``collect_cache`` (prefill). Dense and
-    SSM models have no router, so aux_loss is 0. ``attn_impl``:
+    the assembled decode cache when ``collect_cache`` (prefill). aux_loss
+    sums the MoE layers' router losses (each the mean over rows of the
+    Switch loss); models without experts give 0. ``attn_impl``:
     ``"blockwise"`` or ``"naive"``."""
-    h, cache = _trunk(params, cfg, tokens, attn_impl, collect_cache, cache_dtype, cache_len)
+    h, aux, cache = _trunk(params, cfg, tokens, attn_impl, collect_cache, cache_dtype,
+                           cache_len)
     logits = _logits(params, cfg, h)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     if collect_cache:
         return logits, aux, cache
     return logits, aux
@@ -397,7 +437,7 @@ def prefill_step(
     defaults to the prompt length (ring eviction starts immediately). An
     SSM cache is O(1) in length and ignores it.
     """
-    h, cache = _trunk(params, cfg, tokens, attn_impl, True, cache_dtype, cache_len)
+    h, _, cache = _trunk(params, cfg, tokens, attn_impl, True, cache_dtype, cache_len)
     return _logits(params, cfg, h[:, -1:]), cache
 
 
@@ -520,22 +560,22 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: Tensor,
         sin, cos = rope_table(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)  # (B,1,half)
         new["k"], new["v"] = cache["k"].clone(), cache["v"].clone()
     states, convs = [], []
+    attn_out = ssm_out = None
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         if cfg.has_attention:
-            mixed = _attn_decode(lp, h, cfg, new["k"][i], new["v"][i], pos, sin, cos,
-                                 uniform_pos)
+            attn_out = _attn_decode(lp, h, cfg, new["k"][i], new["v"][i], pos, sin, cos,
+                                    uniform_pos)
         if cfg.has_ssm:
             ssm_out, state, conv_state = _ssm_decode(lp, h, cfg, cache["conv_state"][i],
                                                      cache["ssm_state"][i])
             states.append(state)
             convs.append(conv_state)
-            if not cfg.has_attention:
-                mixed = ssm_out
         if cfg.has_attention or cfg.has_ssm:
-            h = h + mixed
-        if cfg.d_ff > 0:
-            h = h + _mlp_block(lp, h, cfg)
+            h = h + _mix(lp, cfg, attn_out, ssm_out)
+        if cfg.d_ff > 0 or cfg.is_moe:
+            # One token per row: capacity 1, so no MoE pair is dropped.
+            h = h + _mlp_block(lp, h, cfg)[0]
     if cfg.has_ssm:
         new["ssm_state"], new["conv_state"] = torch.stack(states), torch.stack(convs)
     new["pos"] = pos + 1

@@ -634,3 +634,122 @@ def test_dense_engine_launches_gmsa_score_once_per_slot(cuda):
     want = sum(min(int(round(c)), eng.fcfg.exec_cap) for c in out["completed"][:, 0])
     assert out["exec_jobs"] == want > 0
     serve_bench.check_conservation(out)
+
+
+# ---------------------------------------------------------------------------
+# The MoE and hybrid families on the card (MoE plain PyTorch; the hybrid's
+# SSM through ssd_scan at 50 heads x 64, state 16)
+# ---------------------------------------------------------------------------
+
+def _to(p, dev):
+    out = {k: v.to(dev) for k, v in p.items() if k != "blocks"}
+    out["blocks"] = {k: v.to(dev) for k, v in p["blocks"].items()}
+    return out
+
+
+@pytest.mark.parametrize("b,s,chunk", [(2, 300, 256), (4, 32, 32), (1, 2000, 256)])
+def test_ssd_scan_kernel_at_hymba_heads_and_state(cuda, b, s, chunk):
+    """hymba-1.5b's SSM shape (H = 50, P = 64, N = 16): the chain against
+    the sequential plain version (SSD_TOL) and its workspaces against the
+    plain phases, one counted launch per call."""
+    ops = _ssd_inputs(s + chunk + b, b, s, 50, 64, 16, torch.float32, cuda)
+    before = ssd_scan_cuda.launches
+    y, hf = ssd_scan(*ops, chunk=chunk)
+    assert ssd_scan_cuda.launches == before + 1
+    y0, h0 = ssd_scan_ref(*ops)
+    torch.testing.assert_close(y, y0, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(hf, h0, rtol=3e-4, atol=3e-4)
+    if s % chunk == 0:
+        y1, _, cum, g, h_in = _ssd_scan_cuda_phases(*ops, chunk)
+        _, _, cum0, g0, h_in0 = ssd_scan_phases_ref(*ops, chunk)
+        torch.testing.assert_close(cum, cum0, rtol=1e-12, atol=0)
+        tri = torch.ones(chunk, chunk, dtype=torch.bool, device=cuda).tril()
+        assert _rel(g[..., tri], g0[..., tri]) <= 1e-4 and _rel(h_in, h_in0) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b"])
+def test_moe_and_hybrid_smoke_models_on_the_card_match_the_cpu(cuda, arch):
+    """Prefill (80 tokens: MoE capacity rounded, pairs drop; the hybrid's
+    window of 64 in force, one ssd_scan launch per layer), the forward's
+    summed aux, and decode on both ``uniform_pos`` paths agree with the CPU
+    run of the same weights (tests/test_models.py's 2e-4)."""
+    cfg = get_arch(arch, "smoke")
+    p = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = _to(p, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 81)))
+    pre, _ = make_local_exec(cfg, 2)
+    before = ssd_scan_cuda.launches
+    logits, cache = pre(p_gpu, tokens[:, :80])
+    assert ssd_scan_cuda.launches == before + (cfg.num_layers if cfg.has_ssm else 0)
+    logits_c, cache_c = lm.prefill_step(p, cfg, tokens[:, :80], cache_dtype=torch.float32,
+                                        cache_len=82)
+    torch.testing.assert_close(logits.cpu(), logits_c, rtol=2e-4, atol=2e-4)
+    for leaf in cache_c:
+        torch.testing.assert_close(cache[leaf].cpu(), cache_c[leaf], rtol=2e-4, atol=2e-4)
+    with torch.inference_mode():
+        _, aux = lm.forward(p_gpu, cfg, tokens[:, :80].to(cuda))
+    _, aux_c = lm.forward(p, cfg, tokens[:, :80])
+    assert float(aux) == pytest.approx(float(aux_c), rel=1e-6) and (float(aux) > 0) == cfg.is_moe
+    for uniform_pos in (True, False):
+        step, _ = lm.decode_step(p_gpu, cfg, cache, tokens[:, 80:81].to(cuda),
+                                 uniform_pos=uniform_pos)
+        step_c, _ = lm.decode_step(p, cfg, cache_c, tokens[:, 80:81], uniform_pos=uniform_pos)
+        torch.testing.assert_close(step.cpu(), step_c, rtol=2e-4, atol=2e-4)
+
+
+def test_moe_ffn_on_the_card_routes_drops_and_combines_as_the_cpu(cuda):
+    """One deepseek-moe-16b-width MoE layer (64 experts, top 6, d 2048, f
+    1408) on 2 x 256 tokens: expert indices and dropped pairs equal to the
+    CPU's on the same weights (no near-tie among these draws), output
+    within 2e-4 relative, aux within 1e-6, and the card's call bitwise
+    repeatable (the combine has no atomics)."""
+    from repro_torch.models import moe
+
+    cfg = get_arch("deepseek-moe-16b", "full")
+    gen = torch.Generator().manual_seed(4)
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    x = torch.randn((2, 256, d), generator=gen)
+    w = [torch.randn(shape, generator=gen) * shape[-2] ** -0.5
+         for shape in ((d, e), (e, d, f), (e, d, f), (e, f, d))]
+    y_c, aux_c = moe.moe_ffn(x, *w, cfg)
+    w_g, x_g = [t.to(cuda) for t in w], x.to(cuda)
+    y, aux = moe.moe_ffn(x_g, *w_g, cfg)
+    y2, aux2 = moe.moe_ffn(x_g, *w_g, cfg)
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    _, idx, _ = moe.route_topk(x_g, w_g[0], cfg.top_k)
+    _, idx_c, _ = moe.route_topk(x, w[0], cfg.top_k)
+    assert torch.equal(idx.cpu(), idx_c)
+    cap = moe.expert_capacity(256, cfg, 1.25)
+    drop = moe.dispatch_plan(idx, e, cap)["pos"] >= cap
+    drop_c = moe.dispatch_plan(idx_c, e, cap)["pos"] >= cap
+    assert torch.equal(drop.cpu(), drop_c) and bool(drop_c.any())
+    assert _rel(y.cpu(), y_c) <= 2e-4
+    assert float(aux) == pytest.approx(float(aux_c), rel=1e-6)
+
+
+def test_moe_and_hybrid_engine_launches_gmsa_score_once_per_slot(cuda):
+    """A deepseek-moe-16b and a hymba-1.5b class (smoke executes) with
+    ``dispatch="kernel"``: one ``gmsa_score`` launch per slot, one
+    ``ssd_scan`` launch per hymba layer per executed batch, every drained
+    job run."""
+    from repro_torch.launch.serve import build_engine
+
+    eng = build_engine(["deepseek-moe-16b", "hymba-1.5b"], slots=6, v=1.0, seed=3, arrival=4.0,
+                       dispatch="kernel", device=cuda)
+    batches = {rc.name: [] for rc in eng.classes}
+    for rc in eng.classes:
+        pre = eng._prefill[rc.name]
+
+        def counted(params, tokens, name=rc.name, pre=pre):
+            batches[name].append(tokens.shape[0])
+            return pre(params, tokens)
+
+        eng._prefill[rc.name] = counted
+    score0, ssd0 = gmsa_score_cuda.launches, ssd_scan_cuda.launches
+    out = eng.run(execute_real=True)
+    assert gmsa_score_cuda.launches == score0 + 6
+    hymba = eng.classes[1].cfg
+    assert ssd_scan_cuda.launches - ssd0 == hymba.num_layers * len(batches["hymba-1.5b"])
+    want = sum(min(int(round(c)), eng.fcfg.exec_cap) for c in out["completed"].reshape(-1))
+    assert out["exec_jobs"] == want > 0 and len(batches["deepseek-moe-16b"]) > 0
+    serve_bench.check_conservation(out)

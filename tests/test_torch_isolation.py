@@ -49,7 +49,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "             'repro_torch.serve.engine', 'repro_torch.launch.serve',\n"
         "             'repro_torch.benchmarks.serve_bench', 'repro_torch.models.attention',\n"
         "             'repro_torch.configs.qwen2_0_5b', 'repro_torch.configs.granite_3_2b',\n"
-        "             'repro_torch.configs.phi4_mini', 'repro_torch.configs.stablelm_12b'):\n"
+        "             'repro_torch.configs.phi4_mini', 'repro_torch.configs.stablelm_12b',\n"
+        "             'repro_torch.models.moe', 'repro_torch.configs.deepseek_moe_16b',\n"
+        "             'repro_torch.configs.phi35_moe', 'repro_torch.configs.hymba_1_5b'):\n"
         "    assert need in sys.modules, need\n"
         "print('ok', len(sys.modules))\n"
     )

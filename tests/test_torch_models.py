@@ -154,17 +154,38 @@ def test_trunc_normal_distribution_matches_jax():
         assert abs(sample.mean()) < 0.01 * std
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_trunc_normal_in_place_draws_bitwise_the_out_of_place_ones(dtype):
+    """The in-place draw (one buffer per leaf) gives bitwise the values of
+    the earlier out-of-place form, a second erfinv buffer, on the same
+    generator state — a stacked expert leaf included."""
+    shape, fan_in = (3, 4, 96, 40), 96
+
+    def out_of_place(gen):
+        lo = 0.5 * (1.0 + math.erf(-3.0 / math.sqrt(2.0)))
+        u = torch.rand(shape, generator=gen, dtype=torch.float32)
+        z = torch.erfinv(u.mul_(2.0 * (1.0 - 2.0 * lo)).add_(2.0 * lo - 1.0))
+        z.mul_(math.sqrt(2.0)).clamp_(-3.0, 3.0)
+        return z.mul_(fan_in ** -0.5).to(getattr(torch, dtype))
+
+    got = trunc_normal(torch.Generator().manual_seed(5), shape, fan_in, getattr(torch, dtype))
+    want = out_of_place(torch.Generator().manual_seed(5))
+    assert got.dtype == want.dtype and torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
 # ---------------------------------------------------------------------------
 # Configs, specs, counts, init
 # ---------------------------------------------------------------------------
 
 def test_registry_has_mamba2_only_and_names_it():
-    """The registry holds mamba2-2.7b and the four dense GQA decoders; an
-    id not ported yet (a MoE one) raises KeyError naming what there is."""
+    """The registry holds mamba2-2.7b, the four dense GQA decoders, the two
+    MoE decoders and the hybrid; an id not ported yet (a frontend one)
+    raises KeyError naming what there is."""
     dense = ["granite-3-2b", "phi4-mini-3.8b", "qwen2-0.5b", "stablelm-12b"]
-    assert TC.list_archs() == sorted(dense + [ARCH])
+    moe_hybrid = ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b"]
+    assert TC.list_archs() == sorted(dense + moe_hybrid + [ARCH])
     with pytest.raises(KeyError, match=ARCH):
-        TC.get_arch("deepseek-moe-16b")
+        TC.get_arch("hubert-xlarge")
 
 
 @pytest.mark.parametrize("variant", ["full", "smoke"])
@@ -354,24 +375,29 @@ def test_device_none_means_cuda_and_raises_without_it(entry, smoke):
 
 
 @pytest.mark.parametrize("change", [
-    {"num_heads": 4, "num_kv_heads": 4}, {"num_experts": 4, "top_k": 2},
-    {"hybrid": True}, {"d_ff": 256}, {"frontend": "vision"}, {"ssm_state": 0},
+    {"num_heads": 4, "num_kv_heads": 4}, {"num_experts": 4, "top_k": 2, "moe_d_ff": 64},
+    {"hybrid": True, "num_heads": 4, "num_kv_heads": 4}, {"d_ff": 256}, {"frontend": "vision"},
+    {"ssm_state": 0},
 ])
 def test_other_model_families_raise_not_implemented(change):
-    """MoE, hybrid and frontend configs raise, naming the later slice. The
-    families the port now runs (attention heads, a dense FFN, no SSM state)
-    build: their counts are the JAX package's, make_local_exec takes them
-    and a forward gives finite logits."""
+    """Frontend configs raise, naming the next slice. The families the port
+    now runs (attention heads, MoE experts, the hybrid, a dense FFN, no SSM
+    state) build: their counts are the JAX package's, make_local_exec takes
+    them and a forward gives finite logits; only a MoE config has a router
+    aux. The MoE case gives the SSM smoke model experts of width 64 (its
+    d_ff is 0); the hybrid case gives it attention heads to mix with."""
     cfg = dataclasses.replace(TC.get_arch(ARCH, "smoke"), **change)
-    if not (cfg.is_moe or cfg.hybrid or cfg.frontend):
+    if not cfg.frontend:
         cfg_j = dataclasses.replace(JC.get_arch(ARCH, "smoke"), **change)
         assert lm.count_params(cfg) == jlm.count_params(cfg_j)
+        assert lm.count_params(cfg, active_only=True) == jlm.count_params(cfg_j, active_only=True)
         make_local_exec(cfg, 4, device="cpu")
         p = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-        logits, _ = lm.forward(p, cfg, torch.zeros((1, 8), dtype=torch.int64))
+        logits, aux = lm.forward(p, cfg, torch.zeros((1, 8), dtype=torch.int64))
         assert tuple(logits.shape) == (1, 8, 512) and bool(torch.isfinite(logits).all())
+        assert bool(torch.isfinite(aux)) and (float(aux) > 0.0) == cfg.is_moe
         return
-    with pytest.raises(NotImplementedError, match="later"):
+    with pytest.raises(NotImplementedError, match="next slice"):
         lm.count_params(cfg)
     with pytest.raises(NotImplementedError):
         make_local_exec(cfg, 4, device="cpu")

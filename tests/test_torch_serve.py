@@ -274,8 +274,9 @@ def test_request_class_methods_match_reference(variant, prompt_len, gen_len):
 def test_kv_gb_attention_branch_and_engine_refuses_attention():
     """A port ModelConfig with the reference's qwen2-0.5b fields prices its
     KV cache as the reference does. The engine builds a qwen2-0.5b class
-    (smoke executes, full prices) and a mamba class priced on qwen; it still
-    refuses a MoE class."""
+    (smoke executes, full prices), a mamba class priced on qwen and a MoE
+    class (executed, or pricing a mamba one); it still refuses a frontend
+    class."""
     cfg_j = jget("qwen2-0.5b", "full")
     cfg_t = ModelConfig(**dataclasses.asdict(cfg_j))
     assert cfg_t.has_attention and cfg_t == get_arch("qwen2-0.5b", "full")
@@ -292,8 +293,14 @@ def test_kv_gb_attention_branch_and_engine_refuses_attention():
         eng = te.FleetEngine(fc, [rc], omega, pue, r[:1], device=CPU)
         assert leaf in eng.params[rc.name]["blocks"]
     moe = dataclasses.replace(get_arch("qwen2-0.5b", "smoke"), num_experts=4, top_k=2)
-    for rc in (te.RequestClass("moe", cfg=moe), te.RequestClass("moe", cfg=smoke, energy_cfg=moe)):
-        with pytest.raises(NotImplementedError, match="slice 7"):
+    for rc, leaf in ((te.RequestClass("moe", cfg=moe), "we_gate"),
+                     (te.RequestClass("moe", cfg=smoke, energy_cfg=moe), "w_x")):
+        eng = te.FleetEngine(fc, [rc], omega, pue, r[:1], device=CPU)
+        assert leaf in eng.params[rc.name]["blocks"]
+    vision = dataclasses.replace(get_arch("qwen2-0.5b", "smoke"), frontend="vision")
+    for rc in (te.RequestClass("vlm", cfg=vision),
+               te.RequestClass("vlm", cfg=smoke, energy_cfg=vision)):
+        with pytest.raises(NotImplementedError, match="slice 7b"):
             te.FleetEngine(fc, [rc], omega, pue, r[:1], device=CPU)
 
 

@@ -34,11 +34,12 @@ CPU = "cpu"
 ARCH = "qwen2-0.5b"
 
 
-def _dense_pair(dispatch: str):
-    """(reference engine, port engine) on the reference fixture's scenario."""
-    jeng = j_build_engine([ARCH], slots=T, v=1.0, seed=3, arrival=4.0, dispatch=dispatch)
-    rcs = [te.RequestClass(name=ARCH, cfg=get_arch(ARCH, "smoke"),
-                           energy_cfg=get_arch(ARCH, "full"), arrival_rate=4.0)]
+def _engine_pair(dispatch: str, arch: str = ARCH):
+    """(reference engine, port engine) on the reference fixture's scenario,
+    one class of ``arch`` (smoke executes, full prices)."""
+    jeng = j_build_engine([arch], slots=T, v=1.0, seed=3, arrival=4.0, dispatch=dispatch)
+    rcs = [te.RequestClass(name=arch, cfg=get_arch(arch, "smoke"),
+                           energy_cfg=get_arch(arch, "full"), arrival_rate=4.0)]
     fcfg = te.FleetConfig(n_pods=4, horizon_slots=T, v=1.0, seed=3, dispatch=dispatch)
     teng = te.FleetEngine(fcfg, rcs, np.asarray(jeng.omega), np.asarray(jeng.pue),
                           np.asarray(jeng.r),
@@ -49,7 +50,7 @@ def _dense_pair(dispatch: str):
 
 @pytest.mark.parametrize("dispatch", ["staged", "kernel"])
 def test_dense_engine_matches_reference_with_real_execution(dispatch):
-    jeng, teng = _dense_pair(dispatch)
+    jeng, teng = _engine_pair(dispatch)
     assert "wq" in teng.params[ARCH]["blocks"]
     j_stream, t_stream = [], []
     jout = jeng.run(execute_real=True, stream=j_stream.append)
@@ -71,7 +72,7 @@ def test_dense_classes_execute_every_drained_job_through_attention():
     """``_execute_jobs`` on a qwen2-0.5b class: exactly n_jobs, the last
     batch sliced to the remainder; each prefill fills a KV ring of
     prompt + gen_len slots, and decode advances it gen_len times."""
-    _, teng = _dense_pair("kernel")
+    _, teng = _engine_pair("kernel")
     rc = teng.classes[0]
     pre = teng._prefill[ARCH]
     seen = []
