@@ -176,7 +176,38 @@ Phases, each printing one line or more; any failure exits non-zero:
              ``ssd_scan`` 32 per hymba batch, exact ``exec_jobs``,
              conservation; seconds per job. Phase 7 holds ``ssd_scan`` at
              hymba's three shapes and times its 4 x 2048 prefill.
-17. results — one JSON line of per-kernel numbers, then the device line.
+17. frontends — the modality-frontend backbones (plain PyTorch; no kernel
+             on their own path): (a) full-width, full-depth hubert-xlarge
+             (random fp32 weights) on 4 x 1500 stub frames from
+             ``make_batch`` (bf16, no tokens): exact parameter count, its
+             decode shapes refused by ``shape_applicable``, logits finite
+             and (4, 1500, 512), no kernel launched, blockwise against naive
+             attention at 1 x 1500 within FRONTEND_ATTN_TOL (non-causal, keys
+             padded to 2048); forward wall, device busy share, attention's
+             share of device time, peak memory; (b) internvl2-76b at its
+             published widths, 8 of its 80 layers, ``prefill_step`` on 4 x
+             (256 image + 1792 text) from ``make_batch``'s vision stub, then
+             16 greedy tokens: exact counts, finite logits, pos 2064, no
+             kernel launched, decode consistent with the whole prefill
+             within DECODE_REL_TOL; prefill wall, decode wall and launches
+             per token, busy share, peak memory; (c) both smoke models on
+             the card against the CPU with the same weights and numpy stubs
+             (forward, prefill logits, KV ring) within MODEL_TOL; (d)
+             ``FleetEngine`` executing N = 4, T = 6 with a full-width
+             hubert-xlarge class (token prompts) and qwen2-0.5b: one
+             ``gmsa_score`` launch per slot, no ``ssd_scan``, exact
+             ``exec_jobs``, conservation.
+18. entry points — ``python -m repro_torch.examples.{quickstart,
+             staged_jobs, adaptive_placement, serve_geo}`` at once, each
+             exiting 0 only where its claim holds (GMSA V=100 cheapest with
+             bounded backlog; the stage-aware arm cheaper on cost and WAN
+             GB; adaptive placement cheaper, no dispatch to the dead site;
+             both serving classes executing); then ``python -m
+             repro_torch.benchmarks.run --record build/bench_torch.json``
+             with REPRO_BENCH_RUNS=100: exit 0, a CSV line with positive µs
+             per call from every ported bench, the three SKIPPED lines, the
+             record labelled torch_full.
+19. results — one JSON line of per-kernel numbers, then the device line.
 
 Numbers are measured on whatever card runs this; the bound uses the H100
 SXM's published peaks (3.35 TB/s, 67 TFLOP/s fp32) at its 700 W limit.
@@ -366,6 +397,33 @@ AUX_RTOL = 1e-6
 #: one run each, the card freed between them (deepseek's 62.9 GiB of
 #: weights fill it).
 MOE_HYBRID_SERVE = (("deepseek-moe-16b",), ("hymba-1.5b", "qwen2-0.5b"))
+#: Phase 17, the frontend backbones. hubert-xlarge at full width and depth
+#: on 4 x 1500 frames (30 s of audio at 50 frames/s, a typical speech chunk;
+#: 1500 keys pad to 2048, so the padded-key mask runs under non-causal
+#: attention): (arch, exact parameter count, (requests, frames)).
+#: internvl2-76b at its published widths cut to 8 of its 80 layers (263 GiB
+#: in fp32 at full depth, 33.4 GiB cut) on 4 x (256 image + 1792 text)
+#: tokens + 16 greedy ones: (arch, count at full depth, layers run, count at
+#: those layers, (requests, prefix + text tokens, generated tokens)).
+HUBERT = ("hubert-xlarge", 946_241_280, (4, 1500))
+INTERNVL = ("internvl2-76b", 70_562_103_296, 8, 8_954_986_496, (4, 2048, 16))
+#: hubert's blockwise against naive logits at 1 x 1500, relative to max
+#: |logit|: 48 fp32 layers with the softmax summed in another order.
+FRONTEND_ATTN_TOL = 1e-3
+#: Phase 17 (d): the serving execution run with a full-width audio class
+#: fed token prompts (as the reference's make_local_exec feeds it) beside a
+#: dense one.
+FRONTEND_SERVE = ("hubert-xlarge", "qwen2-0.5b")
+#: Phase 18, the user-facing entry points: the examples (run at once, each
+#: its own process), then the bench orchestrator at ENTRY_BENCH_RUNS runs,
+#: each ported bench known by its CSV lines' prefix.
+ENTRY_EXAMPLES = ("quickstart", "staged_jobs", "adaptive_placement", "serve_geo")
+ENTRY_BENCH_RUNS = 100
+ENTRY_BENCHES = {"fig5": "fig5", "fig6": "fig6", "sim_bench": "sim_",
+                 "placement_bench": "placement_", "jobs_bench": "jobs_",
+                 "serve_bench": "torch_serve_"}
+ENTRY_SKIPPED = ("kernel_bench", "shard_bench", "roofline")
+ENTRY_RECORD = "build/bench_torch.json"
 
 
 def log(msg: str) -> None:
@@ -2722,12 +2780,8 @@ def phase_moe_hybrid(dev, smi, variant: str = "full", batches=None) -> dict:
 
     import torch
 
-    from repro_torch.benchmarks import serve_bench
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import serve_traces
     from repro_torch.models.lm import count_params, init_params
-    from repro_torch.serve import FleetConfig as ServeFleetConfig
-    from repro_torch.serve import FleetEngine, RequestClass
 
     out = {}
     for arch, (n_params, layers, batch) in MOE_HYBRID_ARCHS.items():
@@ -2769,61 +2823,419 @@ def phase_moe_hybrid(dev, smi, variant: str = "full", batches=None) -> dict:
     torch.cuda.empty_cache()
 
     # (d) FleetEngine executing with the new classes, one run per class set.
-    x = SERVE_EXEC
     for archs in MOE_HYBRID_SERVE:
-        torch.cuda.empty_cache()
-        x_omega, x_pue, x_r, x_up, x_down, x_layout = serve_traces(
-            len(archs), x["pods"], x["slots"], x["seed"], dev)
-        xfc = ServeFleetConfig(n_pods=x["pods"], horizon_slots=x["slots"], v=1.0,
-                               seed=x["seed"], admit_max=x["admit_max"], dispatch="kernel")
-        rcs = [RequestClass(a, cfg=get_arch(a, variant), energy_cfg=get_arch(a, variant),
-                            arrival_rate=x["arrival"]) for a in archs]
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        xeng = FleetEngine(xfc, rcs, x_omega, x_pue, x_r, up=x_up, down=x_down, layout=x_layout,
-                           device=dev)
-        torch.cuda.synchronize()
-        t_init = time.perf_counter() - t0
-        ok = watch_execution(xeng, dev)
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        xout = xeng.run(execute_real=True)
-        torch.cuda.synchronize()
-        x_wall = time.perf_counter() - t0
-        x_counts = read_counts()
-        want = {a: [min(int(round(c)), xfc.exec_cap) for c in xout["completed"][:, i]]
-                for i, a in enumerate(archs)}
-        b = xfc.batch_per_exec
-        batches_run = {a: [min(b, j - i) for j in want[a] for i in range(0, j, b)] for a in archs}
-        want_ssd = sum(rc.cfg.num_layers * len(batches_run[rc.name]) for rc in rcs
-                       if rc.cfg.has_ssm)
-        try:
-            conserve = serve_bench.check_conservation(xout)
-        except AssertionError as exc:
-            fail(f"moe_hybrid: serving {archs}: {exc}")
-        n_jobs = sum(sum(w) for w in want.values())
-        per_job = xout["exec_seconds"] / max(xout["exec_jobs"], 1)
-        log(f"[moe] {smi} | FleetEngine with classes {list(archs)} ({variant} width, random fp32 "
-            f"weights, built in {t_init:.2f} s), N={x['pods']}, T={x['slots']}, "
-            f"dispatch='kernel': jobs per slot {want}, exec_jobs {xout['exec_jobs']}, prefill "
-            f"batches {ok['batches']}; launches {x_counts}; logits finite {bool(ok['finite'])}, "
-            f"tokens in vocabulary {bool(ok['vocab'])}; conservation max_rel {conserve:.3e}; run "
-            f"wall {x_wall:.2f} s, {x_wall / x['slots']:.3f} s per slot, execution "
-            f"{xout['exec_seconds']:.2f} s = {per_job:.3f} s per job; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        if not (xout["exec_jobs"] == n_jobs > 0 and ok["batches"] == batches_run
-                and x_counts == {"gmsa_score": x["slots"], "ssd_scan": want_ssd}
-                and xout["exec_seconds"] > 0.0
-                and bool(ok["finite"]) and bool(ok["vocab"])):
-            fail(f"moe_hybrid: serving execution gates for {archs}: exec_jobs "
-                 f"{xout['exec_jobs']} (want {n_jobs}), launches {x_counts} (want "
-                 f"{x['slots']} gmsa_score, {want_ssd} ssd_scan)")
         key = "serve_moe" if any(get_arch(a, variant).is_moe for a in archs) else "serve_hybrid"
-        out[key] = {"counts": x_counts, "per_job_s": per_job, "exec_jobs": xout["exec_jobs"]}
-        del xeng
+        out[key] = serve_execution(archs, variant, dev, smi, "moe")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    return out
+
+
+def serve_execution(archs, variant: str, dev, smi, phase: str) -> dict:
+    """``FleetEngine`` on phase 14's N = 4, T = 6 execution run with one
+    class per arch (``variant`` width, random fp32 weights), dispatch
+    through ``gmsa_score``, executing the drained jobs: one ``gmsa_score``
+    launch per slot, ``ssd_scan`` once per SSM layer per executed batch,
+    exact ``exec_jobs``, finite logits, tokens in vocabulary, conservation.
+    Returns the counts, seconds per job and ``exec_jobs``."""
+    import torch
+
+    from repro_torch.benchmarks import serve_bench
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_traces
+    from repro_torch.serve import FleetConfig as ServeFleetConfig
+    from repro_torch.serve import FleetEngine, RequestClass
+
+    x = SERVE_EXEC
+    torch.cuda.empty_cache()
+    x_omega, x_pue, x_r, x_up, x_down, x_layout = serve_traces(
+        len(archs), x["pods"], x["slots"], x["seed"], dev)
+    xfc = ServeFleetConfig(n_pods=x["pods"], horizon_slots=x["slots"], v=1.0,
+                           seed=x["seed"], admit_max=x["admit_max"], dispatch="kernel")
+    rcs = [RequestClass(a, cfg=get_arch(a, variant), energy_cfg=get_arch(a, variant),
+                        arrival_rate=x["arrival"]) for a in archs]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    xeng = FleetEngine(xfc, rcs, x_omega, x_pue, x_r, up=x_up, down=x_down, layout=x_layout,
+                       device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    ok = watch_execution(xeng, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    xout = xeng.run(execute_real=True)
+    torch.cuda.synchronize()
+    x_wall = time.perf_counter() - t0
+    x_counts = read_counts()
+    want = {a: [min(int(round(c)), xfc.exec_cap) for c in xout["completed"][:, i]]
+            for i, a in enumerate(archs)}
+    b = xfc.batch_per_exec
+    batches_run = {a: [min(b, j - i) for j in want[a] for i in range(0, j, b)] for a in archs}
+    want_ssd = sum(rc.cfg.num_layers * len(batches_run[rc.name]) for rc in rcs
+                   if rc.cfg.has_ssm)
+    try:
+        conserve = serve_bench.check_conservation(xout)
+    except AssertionError as exc:
+        fail(f"{phase}: serving {list(archs)}: {exc}")
+    n_jobs = sum(sum(w) for w in want.values())
+    per_job = xout["exec_seconds"] / max(xout["exec_jobs"], 1)
+    log(f"[{phase}] {smi} | FleetEngine with classes {list(archs)} ({variant} width, random "
+        f"fp32 weights, built in {t_init:.2f} s), N={x['pods']}, T={x['slots']}, "
+        f"dispatch='kernel': jobs per slot {want}, exec_jobs {xout['exec_jobs']}, prefill "
+        f"batches {ok['batches']}; launches {x_counts}; logits finite {bool(ok['finite'])}, "
+        f"tokens in vocabulary {bool(ok['vocab'])}; conservation max_rel {conserve:.3e}; run "
+        f"wall {x_wall:.2f} s, {x_wall / x['slots']:.3f} s per slot, execution "
+        f"{xout['exec_seconds']:.2f} s = {per_job:.3f} s per job; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (xout["exec_jobs"] == n_jobs > 0 and ok["batches"] == batches_run
+            and x_counts == {"gmsa_score": x["slots"], "ssd_scan": want_ssd}
+            and xout["exec_seconds"] > 0.0
+            and bool(ok["finite"]) and bool(ok["vocab"])):
+        fail(f"{phase}: serving execution gates for {list(archs)}: exec_jobs "
+             f"{xout['exec_jobs']} (want {n_jobs}), launches {x_counts} (want "
+             f"{x['slots']} gmsa_score, {want_ssd} ssd_scan)")
+    del xeng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"counts": x_counts, "per_job_s": per_job, "exec_jobs": xout["exec_jobs"]}
+
+
+def phase_frontends(dev, smi, variant: str = "full", hubert_batch=None,
+                    internvl_batch=None) -> dict:
+    """Phase 17: hubert-xlarge at full width and depth and internvl2-76b at
+    its published widths (8 of 80 layers), each on its frontend's stub
+    batch from ``make_batch``; both smoke models on the card against the
+    CPU; then ``FleetEngine`` executing with a full-width hubert-xlarge
+    class beside qwen2-0.5b. ``variant="smoke"`` (with small batches)
+    rehearses it on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import SHAPES, ShapeConfig, get_arch, shape_applicable
+    from repro_torch.models.attention import attend_blockwise
+    from repro_torch.models.frontends import frontend_spec
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.models.lm import (
+        count_params,
+        decode_step,
+        forward,
+        init_params,
+        padded_vocab,
+        prefill_step,
+    )
+
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def prefill_profile(arch, cfg, fn, b, s, rec):
+        """One call under torch.profiler: busy share, GEMM share, and
+        attention's share (blockwise at the model's shape, timed alone, x
+        layers)."""
+        wall, events = device_profile(fn)
+        dev_us = sum(us for _, us, _ in events)
+        gemm_us = sum(us for name, us, _ in events if is_gemm_kernel(name))
+        q, k, v, pos = attention_inputs(torch.Generator(device=dev).manual_seed(21), b, s,
+                                        cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                                        dev)
+        with torch.inference_mode():
+            t_attn = call_time_ms(lambda: attend_blockwise(
+                q, k, v, pos, pos, causal=cfg.causal, window=cfg.sliding_window), iters=5)
+        del q, k, v
+        pct = lambda us: f"{100 * us / dev_us:.1f}%" if dev_us > 0 else "not measured"
+        top = ", ".join(f"{name[:48]} {us / 1e3:.2f} ms x{c}" for name, us, c in events[:6])
+        log(f"[frontends] {smi} | {arch} one forward ({b} x {s}) under torch.profiler: "
+            f"{wall * 1e3:.1f} ms wall, device busy {dev_us / 1e3:.1f} ms "
+            f"({100 * dev_us / 1e6 / wall:.1f}%); GEMM kernels {pct(gemm_us)}; attention "
+            f"(blockwise, {t_attn:.2f} ms per layer timed alone, x{cfg.num_layers}) = "
+            f"{pct(cfg.num_layers * t_attn * 1e3)} of device time; top: {top}")
+        rec.update(busy_ms=dev_us / 1e3, busy_share=dev_us / 1e6 / wall,
+                   gemm_share=gemm_us / dev_us if dev_us else None,
+                   attn_ms_layer=t_attn,
+                   attn_share=cfg.num_layers * t_attn * 1e3 / dev_us if dev_us else None)
+
+    # (a) hubert-xlarge: the audio encoder at its published widths and depth.
+    arch, n_params, (b, s) = HUBERT
+    b, s = hubert_batch or (b, s)
+    cfg = get_arch(arch, variant)
+    if variant == "full" and count_params(cfg) != n_params:
+        fail(f"{arch}: {count_params(cfg)} parameters, expected {n_params}")
+    refused = {name: shape_applicable(cfg, shape)[1] for name, shape in SHAPES.items()
+               if not shape_applicable(cfg, shape)[0]}
+    if sorted(refused) != ["decode_32k", "long_500k"]:
+        fail(f"frontends: {arch}'s refused shapes {refused}, expected its two decode shapes")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.float32,
+                         device=dev)
+    pre = make_batch(cfg, ShapeConfig("audio", "prefill", s, b),
+                     torch.Generator(device=dev).manual_seed(5), device=dev)["prefix_embeds"]
+    torch.cuda.synchronize()
+    log(f"[frontends] {arch} ({variant}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads x {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, {cfg.act}, causal "
+        f"{cfg.causal}): {count_params(cfg)} random fp32 params initialised on the card in "
+        f"{time.perf_counter() - t0:.2f} s; stub frames {tuple(pre.shape)} {pre.dtype}; refused "
+        f"shapes {refused}")
+
+    def encode(x, impl="blockwise"):
+        with torch.inference_mode():
+            return forward(params, cfg, None, prefix_embeds=x, attn_impl=impl)[0]
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = encode(pre)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = read_counts()
+    finite = bool(torch.isfinite(logits).all())
+    got_shape, want_shape = tuple(logits.shape), (b, s, padded_vocab(cfg))
+    del logits
+    blk, naive = encode(pre[:1]), encode(pre[:1], "naive")
+    attn_rel = float((blk - naive).abs().max() / naive.abs().max())
+    del blk, naive
+    log(f"[frontends] {arch} forward on {b} x {s} stub frames: logits {got_shape} (want "
+        f"{want_shape}), finite {finite}, first call {t_first * 1e3:.1f} ms; main path launches "
+        f"{counts}; blockwise vs naive at 1 x {s}: max |diff| / max |logit| = {attn_rel:.3e} "
+        f"(tol {FRONTEND_ATTN_TOL:g})")
+    if not (finite and got_shape == want_shape):
+        fail(f"frontends: {arch}: logits {got_shape} (want {want_shape}), finite {finite}")
+    if any(counts.values()):
+        fail(f"frontends: {arch}: launch counts {counts}, expected none")
+    if not attn_rel <= FRONTEND_ATTN_TOL:
+        fail(f"frontends: {arch}: blockwise off naive by {attn_rel:.3e}")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode(pre)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log(f"[frontends] {smi} | {arch} forward wall ({b} x {s} frames, calls 2-4): "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms")
+    rec = {"counts": counts, "forward_ms": [w * 1e3 for w in walls], "attn_rel": attn_rel}
+    prefill_profile(arch, cfg, lambda: encode(pre), b, s, rec)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[frontends] {smi} | {arch} peak device memory {rec['peak_gib']:.2f} GiB")
+    out[arch] = rec
+    del params, pre
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (b) internvl2-76b: the vision-language decoder, depth cut, served.
+    arch, n_full, layers, n_cut, (b, s, gen_len) = INTERNVL
+    b, s, gen_len = internvl_batch or (b, s, gen_len)
+    cfg = get_arch(arch, variant)
+    if variant == "full" and count_params(cfg) != n_full:
+        fail(f"{arch}: {count_params(cfg)} parameters, expected {n_full}")
+    full_layers = cfg.num_layers
+    cfg = dataclasses.replace(cfg, num_layers=min(layers, full_layers))
+    if variant == "full" and count_params(cfg) != n_cut:
+        fail(f"{arch}: {count_params(cfg)} parameters at {layers} layers, expected {n_cut}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.float32,
+                         device=dev)
+    batch = make_batch(cfg, ShapeConfig("vision", "prefill", s, b),
+                       torch.Generator(device=dev).manual_seed(7), device=dev)
+    pre, tokens = batch["prefix_embeds"], batch["tokens"]
+    torch.cuda.synchronize()
+    vocab = cfg.vocab_size
+    log(f"[frontends] {arch} ({variant}: {cfg.num_layers} of {full_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads on {cfg.num_kv_heads} x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {vocab}): {count_params(cfg)} random "
+        f"fp32 params initialised on the card in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held; stub batch: patches "
+        f"{tuple(pre.shape)} {pre.dtype}, tokens {tuple(tokens.shape)}")
+
+    def prefill(toks):
+        with torch.inference_mode():
+            return prefill_step(params, cfg, toks, prefix_embeds=pre, cache_dtype=torch.float32,
+                                cache_len=s + gen_len)
+
+    def serve():
+        t0 = time.perf_counter()
+        logits, cache = prefill(tokens)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        finite = torch.isfinite(logits).all()
+        tok = torch.argmax(logits[:, -1:, :vocab], dim=-1)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for _ in range(gen_len):
+                logits, cache = decode_step(params, cfg, cache, tok)
+                finite = finite & torch.isfinite(logits).all()
+                tok = torch.argmax(logits[:, :, :vocab], dim=-1)
+        torch.cuda.synchronize()
+        return bool(finite), cache["pos"].tolist(), t_pre, (time.perf_counter() - t0) / gen_len
+
+    torch.cuda.synchronize()
+    reset_counts()
+    finite, pos, t_pre, t_dec = serve()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_img = min(frontend_spec(cfg.frontend, s).prefix_tokens, s // 2)
+    log(f"[frontends] {arch} served {b} x ({pre.shape[1]} image + {tokens.shape[1]} text) "
+        f"tokens + {gen_len} greedy: logits finite {finite}, pos {sorted(set(pos))}; prefill "
+        f"{t_pre * 1e3:.1f} ms, decode {t_dec * 1e3:.2f} ms/token (first call); main path "
+        f"launches {counts}")
+    if not (finite and pos == [s + gen_len] * b and pre.shape[1] == n_img):
+        fail(f"frontends: {arch}: finite {finite}, pos {pos} (want {s + gen_len})")
+    if any(counts.values()):
+        fail(f"frontends: {arch}: launch counts {counts}, expected none")
+    # Decode consistency: prefill(prefix + t[:, :-1]) + decode(t[:, -1]) ==
+    # prefill(prefix + t)'s last position.
+    _, cache = prefill(tokens[:, :-1])
+    with torch.inference_mode():
+        dec = decode_step(params, cfg, cache, tokens[:, -1:])[0][:, -1, :vocab]
+    del cache
+    whole = prefill(tokens)[0][:, -1, :vocab]
+    scale = float(whole.abs().max())
+    rel = float((dec - whole).abs().max()) / scale
+    pick = torch.argmax(dec, dim=-1)
+    gap = whole.max(dim=-1).values - torch.gather(whole, -1, pick[:, None])[:, 0]
+    off_tie = int(((pick != torch.argmax(whole, dim=-1)) & (gap > DECODE_REL_TOL * scale)).sum())
+    log(f"[frontends] {arch} decode consistency {b} x {s}: prefill + decode vs the whole "
+        f"prefill, max |diff| / max |logit| = {rel:.3e} (tol {DECODE_REL_TOL:g}), greedy tokens "
+        f"differing off near-ties {off_tie}")
+    if not rel <= DECODE_REL_TOL or off_tie:
+        fail(f"frontends: {arch} decode consistency: rel {rel:.3e}, off-tie {off_tie}")
+    del dec, whole
+    walls = [serve() for _ in range(3)]
+    log(f"[frontends] {smi} | {arch} prefill wall per batch ({b} x {s}, calls 2-4): "
+        f"{', '.join(f'{w[2] * 1e3:.1f}' for w in walls)} ms; decode wall per token (batch {b}, "
+        f"{gen_len} tokens each): {', '.join(f'{w[3] * 1e3:.2f}' for w in walls)} ms")
+    rec = {"counts": counts, "prefill_ms": [w[2] * 1e3 for w in walls],
+           "decode_ms": [w[3] * 1e3 for w in walls], "decode_rel": rel}
+    _, cache = prefill(tokens[:, :-1])
+
+    def step():
+        with torch.inference_mode():
+            decode_step(params, cfg, cache, tokens[:, -1:])
+
+    wall, events = device_profile(step)
+    del cache
+    dev_us = sum(us for _, us, _ in events)
+    rec["decode_launches"] = sum(c for _, _, c in events)
+    log(f"[frontends] {smi} | {arch} one decode step (batch {b}) under torch.profiler: "
+        f"{wall * 1e3:.1f} ms wall, device busy {dev_us / 1e3:.2f} ms "
+        f"({100 * dev_us / 1e6 / wall:.1f}%), {rec['decode_launches']} device kernels")
+    prefill_profile(arch, cfg, lambda: prefill(tokens), b, s, rec)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[frontends] {smi} | {arch} peak device memory {rec['peak_gib']:.2f} GiB")
+    out[arch] = rec
+    del params, pre, tokens, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (c) both smoke models on the card against the CPU: the same weights
+    # (drawn on the CPU, copied) and the same numpy stubs and tokens.
+    rng = np.random.default_rng(17)
+    for arch, n_pre, n_text in (("hubert-xlarge", 40, 0), ("internvl2-76b", 16, 24)):
+        cfg = get_arch(arch, "smoke")
+        p_cpu = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, device="cpu")
+        p_dev = {name: ({k: v.to(dev) for k, v in leaf.items()} if name == "blocks"
+                        else leaf.to(dev)) for name, leaf in p_cpu.items()}
+        stub = frontend_spec(cfg.frontend, n_pre).stub_dim
+        pre_np = (0.02 * rng.standard_normal((2, n_pre, stub))).astype(np.float32)
+        tok_np = rng.integers(0, cfg.vocab_size, (2, n_text)) if n_text else None
+        errs = {}
+        with torch.inference_mode():
+            runs = {}
+            for where, p, d in (("cpu", p_cpu, "cpu"), ("card", p_dev, dev)):
+                pre_t = torch.from_numpy(pre_np).to(d)
+                tok_t = None if tok_np is None else torch.from_numpy(tok_np).to(d)
+                logits = forward(p, cfg, tok_t, prefix_embeds=pre_t)[0]
+                last, cache = prefill_step(p, cfg, tok_t, prefix_embeds=pre_t,
+                                           cache_dtype=torch.float32, cache_len=n_pre + n_text + 4)
+                runs[where] = (logits.cpu(), last.cpu(), cache["k"].cpu())
+        for i, name in enumerate(("forward", "prefill", "cache k")):
+            errs[name] = rel_err(runs["card"][i], runs["cpu"][i])
+        log(f"[frontends] {arch} smoke on the card against the CPU (same weights, same numpy "
+            f"stubs): max_rel_err {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol "
+            f"{MODEL_TOL:g})")
+        if not max(errs.values()) <= MODEL_TOL:
+            fail(f"frontends: {arch} smoke, card against CPU: {errs}")
+        out[f"{arch}_card_vs_cpu"] = errs
+
+    # (d) FleetEngine with a full-width audio class executing.
+    out["serve"] = serve_execution(FRONTEND_SERVE, variant, dev, smi, "frontends")
+    return out
+
+
+def phase_entry_points(dev, smi, device_args=(), example_runs=None,
+                      bench_runs: int = ENTRY_BENCH_RUNS) -> dict:
+    """Phase 18: the four examples as a user runs them (each its own
+    process, all at once; ``example_runs`` None: the reference's counts),
+    each exiting 0 only where its claim holds; then ``python -m
+    repro_torch.benchmarks.run --record build/bench_torch.json`` at
+    ``bench_runs`` runs: every ported bench with a CSV line of positive µs
+    per call, the SKIPPED lines, exit 0, the record labelled torch_full.
+    ``device_args=("--device", "cpu")`` and small counts rehearse it on the
+    CPU."""
+    import re
+    import tempfile
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        t0 = time.perf_counter()
+        try:
+            for name in ENTRY_EXAMPLES:
+                log_path = Path(tmp) / f"{name}.log"
+                with open(log_path, "w") as sink:
+                    procs[name] = subprocess.Popen(
+                        [sys.executable, "-m", f"repro_torch.examples.{name}", *device_args]
+                        + (["--runs", str(example_runs)] if example_runs else []),
+                        stdout=sink, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+            for name, proc in procs.items():
+                rc = proc.wait(timeout=900)
+                text = (Path(tmp) / f"{name}.log").read_text()
+                out[name] = {"rc": rc, "seconds": time.perf_counter() - t0}
+                log(f"[entry] python -m repro_torch.examples.{name}: exit {rc}, done "
+                    f"{out[name]['seconds']:.1f} s after the four started")
+                for line in text.splitlines():
+                    log(f"[entry] {name} | {line}")
+                if rc != 0:
+                    fail(f"entry points: examples.{name} exited {rc} (its claim, or an error)")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+    record = ROOT / ENTRY_RECORD
+    record.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.benchmarks.run", "--record",
+                          ENTRY_RECORD, *device_args], capture_output=True, text=True,
+                         timeout=900, cwd=ROOT, env={**env, "REPRO_BENCH_RUNS": str(bench_runs)})
+    wall = time.perf_counter() - t0
+    lines = [m.groups() for m in (re.match(r"^([\w.]+),(-?[0-9.]+),(.*)$", line)
+                                  for line in run.stdout.splitlines()) if m]
+    for name, us, derived in lines:
+        log(f"[entry] {smi} | bench {name},{us},{derived}")
+    ran = {bench: [float(us) for name, us, _ in lines if name.startswith(prefix)]
+           for bench, prefix in ENTRY_BENCHES.items()}
+    skipped = [name for name, _, derived in lines if derived.startswith("SKIPPED")]
+    failed = [name for name, _, derived in lines if derived == "FAILED"]
+    history = json.loads(record.read_text()) if record.exists() else []
+    n_records = len(history[-1]["benches"]) if history else 0
+    log(f"[entry] python -m repro_torch.benchmarks.run (REPRO_BENCH_RUNS={bench_runs}): exit "
+        f"{run.returncode} in {wall:.1f} s; CSV lines per bench "
+        f"{ {k: len(v) for k, v in ran.items()} }; skipped {skipped}; failed {failed}; record "
+        f"{ENTRY_RECORD}: {[h['label'] for h in history]}, {n_records} records")
+    if not (run.returncode == 0 and not failed and all(v and max(v) > 0.0 for v in ran.values())
+            and sorted(skipped) == sorted(ENTRY_SKIPPED)
+            and [h["label"] for h in history] == ["torch_full"]
+            and n_records == len(lines) - len(skipped)):
+        fail(f"entry points: the orchestrator: exit {run.returncode}, failed {failed}, "
+             f"skipped {skipped}, lines {ran}: {run.stdout[-2000:]} {run.stderr[-2000:]}")
+    out["orchestrator"] = {"seconds": wall, "records": n_records}
     return out
 
 
@@ -2853,6 +3265,12 @@ def main() -> int:
     serve = phase_serve(dev, smi)
     dense_launches = phase_dense(dev, smi)
     moe_hybrid = phase_moe_hybrid(dev, smi)
+    t0 = time.perf_counter()
+    front = phase_frontends(dev, smi)
+    log(f"[frontends] phase 17 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_entry_points(dev, smi)
+    log(f"[entry] phase 18 took {time.perf_counter() - t0:.1f} s")
 
     entry = {
         "name": "gmsa_score",
@@ -2869,6 +3287,9 @@ def main() -> int:
         "launches_serve_dense": dense_launches,
         "launches_serve_moe": moe_hybrid["serve_moe"]["counts"]["gmsa_score"],
         "launches_serve_hybrid": moe_hybrid["serve_hybrid"]["counts"]["gmsa_score"],
+        "launches_frontends": front["hubert-xlarge"]["counts"]["gmsa_score"]
+        + front["internvl2-76b"]["counts"]["gmsa_score"],
+        "launches_serve_frontend": front["serve"]["counts"]["gmsa_score"],
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -2928,6 +3349,9 @@ def main() -> int:
         "bound_by_serve": ssd["bound_by_serve"],
         "launches_hybrid": moe_hybrid["hymba-1.5b"]["counts"]["ssd_scan"],
         "launches_serve_hybrid": moe_hybrid["serve_hybrid"]["counts"]["ssd_scan"],
+        "launches_frontends": front["hubert-xlarge"]["counts"]["ssd_scan"]
+        + front["internvl2-76b"]["counts"]["ssd_scan"],
+        "launches_serve_frontend": front["serve"]["counts"]["ssd_scan"],
         "max_abs_err_hybrid": ssd["max_abs_err_hybrid"],
         "ms_hybrid": ssd["ms_hybrid"],
         "plain_ms_hybrid": ssd["plain_ms_hybrid"],

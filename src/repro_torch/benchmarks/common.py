@@ -10,6 +10,7 @@ only to a path its caller names.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import subprocess
 import time
@@ -17,8 +18,9 @@ import time
 import torch
 
 #: Paper methodology: 1000 Monte-Carlo runs (each entry point's ``--runs``
-#: default).
-N_RUNS = 1000
+#: default). Override for quick iterations:
+#: ``REPRO_BENCH_RUNS=100 python -m repro_torch.benchmarks.run``
+N_RUNS = int(os.environ.get("REPRO_BENCH_RUNS", "1000"))
 
 _REPO = pathlib.Path(__file__).resolve().parents[3]
 

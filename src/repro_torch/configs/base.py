@@ -1,6 +1,7 @@
 """Model and workload-shape configuration: the port's own copy of the JAX
-package's ``configs/base.py`` (the dataclasses and ``SHAPES``), kept here so
-the port imports nothing of that package."""
+package's ``configs/base.py`` (the dataclasses, ``SHAPES`` and the cell
+policy ``shape_applicable``), kept here so the port imports nothing of that
+package."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ class ModelConfig:
 
     ``[audio]``/``[vlm]`` entries describe the transformer backbone only; the
     modality frontend is a stub supplying precomputed frame/patch embeddings
-    (not in the port yet).
+    (``repro_torch.models.frontends``).
     """
 
     name: str
@@ -113,3 +114,24 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
 }
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether (arch, shape) is a runnable cell; else the documented reason.
+
+    * encoder-only backbones have no autoregressive step, so no decode
+      shapes;
+    * ``long_500k`` needs sub-quadratic attention: SSM or sliding-window
+      models only; pure full-attention archs skip it.
+    """
+    if shape.kind == "decode" and not model.causal:
+        return False, "encoder-only: no autoregressive decode step"
+    if shape.name == "long_500k":
+        subquadratic = (not model.has_attention) or model.sliding_window > 0
+        if not subquadratic:
+            return False, "full quadratic attention: 500k context inapplicable"
+    return True, ""
+
+
+def applicable_shapes(model: ModelConfig) -> list[ShapeConfig]:
+    return [s for s in SHAPES.values() if shape_applicable(model, s)[0]]

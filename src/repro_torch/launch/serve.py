@@ -86,7 +86,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--classes", default="qwen2-0.5b,granite-3-2b",
                     help="comma-separated architecture ids, any of "
-                         "repro_torch.configs.list_archs() (dense, SSM, MoE, hybrid)")
+                         "repro_torch.configs.list_archs() (dense, SSM, MoE, hybrid, "
+                         "frontend: its prompts are tokens only)")
     ap.add_argument("--slots", type=int, default=24)
     ap.add_argument("--v", type=float, default=1.0)
     ap.add_argument("--arrival", type=float, default=6.0)

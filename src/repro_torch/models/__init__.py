@@ -1,5 +1,6 @@
-"""repro_torch.models — the model zoo's dense attention, SSM (Mamba-2), MoE
-and hybrid (attention + SSM) families.
+"""repro_torch.models — the model zoo: dense attention, SSM (Mamba-2), MoE,
+hybrid (attention + SSM), and the frontend backbones (audio encoder,
+vision-language decoder).
 
 * ``layers``    — norms (RMS, Layer), MLPs (SwiGLU, GELU), RoPE, the
   truncated-normal init;
@@ -7,12 +8,14 @@ and hybrid (attention + SSM) families.
 * ``ssm``       — the plain chunked SSD scan, the decode step, causal convs;
 * ``moe``       — top-k routing, sort-based capacity dispatch, the expert
   SwiGLU as batched matmuls, shared experts;
-* ``lm``        — param specs, init, forward / prefill / decode with the KV
-  ring, param counts;
-* ``inputs``    — token batches for prefill and decode, cache specs.
+* ``frontends`` — the modality stubs' geometry (vision patches, audio frames);
+* ``lm``        — param specs, init, forward / prefill (with a frontend's
+  prefix embeddings) / decode with the KV ring, param counts;
+* ``inputs``    — batches for prefill and decode (token ids, frontend stub
+  embeddings), cache specs.
 """
 
-from repro_torch.models import moe
+from repro_torch.models import frontends, moe
 from repro_torch.models.inputs import make_batch
 from repro_torch.models.lm import (
     count_params,
@@ -24,4 +27,4 @@ from repro_torch.models.lm import (
 )
 
 __all__ = ["init_params", "forward", "prefill_step", "decode_step", "count_params",
-           "init_cache", "make_batch", "moe"]
+           "init_cache", "make_batch", "frontends", "moe"]

@@ -1,6 +1,11 @@
-"""Token batches and cache specs per (architecture × shape) cell — the
-token-only part of ``repro.models.inputs`` (frontend stubs come with the
-frontend slice)."""
+"""Batches and cache specs per (architecture × shape) cell — the port of
+``repro.models.inputs``, drawn from an explicit torch generator.
+
+Frontend stubs: a vision (VLM) batch carries 256 precomputed 1024-dim patch
+embeddings per sample beside its text tokens; an audio batch carries one
+512-dim embedding per frame *instead of* tokens
+(:mod:`repro_torch.models.frontends`).
+"""
 
 from __future__ import annotations
 
@@ -8,21 +13,39 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.frontends import AUDIO_STUB_DIM, VISION_STUB_DIM, VISION_TOKENS
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, generator: torch.Generator,
-               device=None) -> dict:
-    """Inputs for train/prefill kinds: random token ids in [0, vocab_size)
-    (int64, torch's index type); train cells add labels and a loss mask."""
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: frontend batches come with the frontend slice")
+               device=None, embed_dtype=torch.bfloat16) -> dict:
+    """Inputs for train/prefill kinds on ``device`` (``None``: CUDA): random
+    token ids in [0, vocab_size) (int64, torch's index type); stub
+    embeddings ``0.02 · N(0, 1)`` cast to ``embed_dtype``. Audio: frames
+    (B, S, 512), no tokens. Vision: ``min(256, S // 2)`` patches (B, n_img,
+    1024) and B x (S − n_img) tokens. Train cells add labels and a loss mask
+    over the text span (the frames, for audio)."""
     dev = resolve_device(device)
     b, s = shape.global_batch, shape.seq_len
-    tokens = lambda: torch.randint(0, cfg.vocab_size, (b, s), generator=generator, device=dev)
-    batch = {"tokens": tokens()}
+    tokens = lambda n: torch.randint(0, cfg.vocab_size, (b, n), generator=generator, device=dev)
+    stubs = lambda n, dim: (0.02 * torch.randn((b, n, dim), generator=generator, device=dev)
+                            ).to(embed_dtype)
+    batch: dict = {}
+    if cfg.frontend == "audio":
+        s_text = s
+        batch["prefix_embeds"] = stubs(s, AUDIO_STUB_DIM)
+    elif cfg.frontend == "vision":
+        # 256 image tokens at the assigned shapes; fewer for tiny smoke
+        # sequences, so that the text span stays non-empty.
+        n_img = min(VISION_TOKENS, s // 2)
+        s_text = s - n_img
+        batch["prefix_embeds"] = stubs(n_img, VISION_STUB_DIM)
+        batch["tokens"] = tokens(s_text)
+    else:
+        s_text = s
+        batch["tokens"] = tokens(s)
     if shape.kind == "train":
-        batch["labels"] = tokens()
-        batch["loss_mask"] = torch.ones((b, s), dtype=torch.float32, device=dev)
+        batch["labels"] = tokens(s_text)
+        batch["loss_mask"] = torch.ones((b, s_text), dtype=torch.float32, device=dev)
     return batch
 
 

@@ -1,6 +1,6 @@
 """Model assembly for the port: init / forward / prefill / decode / param
-counting — the dense attention, SSM (Mamba-2), MoE and hybrid families of
-``repro.models.lm``.
+counting — every family of ``repro.models.lm``: dense attention, SSM
+(Mamba-2), MoE, hybrid, and the modality-frontend backbones.
 
 The params are a dict of tensors under the JAX package's names and layouts:
 ``(in, out)`` weights, each block's leaves stacked on a leading L axis, the
@@ -19,13 +19,16 @@ through its plain sequential version on the CPU. Attention and the MoE
 are plain PyTorch, as the JAX package's are plain ``jnp``. The
 projections, the FFN and the LM head are plain matmuls (``torch.matmul``).
 
+A frontend config (``cfg.frontend``: vision or audio) takes precomputed
+stub embeddings (:mod:`repro_torch.models.frontends`) as ``prefix_embeds``:
+projected (``frontend_proj``), RMS-normed (``frontend_norm``) and put in
+front of the token embeddings (vision) or in their place (audio, no
+tokens); positions and RoPE run over the whole sequence.
+
 The decode cache holds, per attention layer, a KV ring of ``sc`` slots
 (slot ``j`` holds the position ``p`` with ``p % sc == j``), and per SSM
 layer the recurrent state and the conv tail; ``pos`` (int32) counts the
-positions done.
-
-Frontend configs raise ``NotImplementedError``: that family comes with
-the next slice of the port.
+positions done, a prefix's included.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.attention import attend_blockwise, attend_decode, attend_naive
+from repro_torch.models.frontends import AUDIO_STUB_DIM, VISION_STUB_DIM
 from repro_torch.models.layers import (
     apply_rope,
     gelu_mlp,
@@ -62,19 +66,6 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return math.ceil(cfg.vocab_size / VOCAB_PAD_MULTIPLE) * VOCAB_PAD_MULTIPLE
 
 
-def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for the family the port does not run
-    yet: modality frontends. Dense attention (SwiGLU or GELU, causal or
-    not, QKV bias, sliding window, tied or untied head), Mamba-2 SSM, MoE
-    and hybrid attention + SSM models pass."""
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense attention, SSM (Mamba-2), MoE and hybrid "
-            f"families; the {cfg.frontend} frontend comes with the next slice of the port "
-            "(ROADMAP.md §1, slice 7b)"
-        )
-
-
 # ---------------------------------------------------------------------------
 # Param specs (single source of truth for init + counting)
 # ---------------------------------------------------------------------------
@@ -89,7 +80,6 @@ def _ssm_dims(cfg: ModelConfig) -> dict[str, int]:
 
 def layer_param_specs(cfg: ModelConfig) -> dict[str, tuple[tuple, int, str]]:
     """name -> (shape, fan_in, kind) for one layer. kind: normal|zeros|ones|a_log|dt_bias."""
-    check_family(cfg)
     d = cfg.d_model
     specs: dict[str, tuple[tuple, int, str]] = {}
     if cfg.has_attention:
@@ -161,14 +151,20 @@ def layer_param_specs(cfg: ModelConfig) -> dict[str, tuple[tuple, int, str]]:
     return specs
 
 
+_FRONTEND_STUB_DIM = {"vision": VISION_STUB_DIM, "audio": AUDIO_STUB_DIM}
+
+
 def top_param_specs(cfg: ModelConfig) -> dict[str, tuple[tuple, int, str]]:
-    check_family(cfg)
     d, vp = cfg.d_model, padded_vocab(cfg)
     specs = {"embed": ((vp, d), d, "normal"), "final_norm": ((d,), 0, "ones")}
     if cfg.act == "gelu":
         specs["final_norm_bias"] = ((d,), 0, "zeros")
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((d, vp), d, "normal")
+    if cfg.frontend:
+        ds = _FRONTEND_STUB_DIM[cfg.frontend]
+        specs["frontend_proj"] = ((ds, d), ds, "normal")
+        specs["frontend_norm"] = ((d,), 0, "ones")
     return specs
 
 
@@ -354,12 +350,30 @@ def _logits(params: Params, cfg: ModelConfig, h: Tensor) -> Tensor:
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _trunk(params: Params, cfg: ModelConfig, tokens: Tensor, attn_impl: str,
-           collect_cache: bool, cache_dtype, cache_len: int | None):
-    """Embed and every layer: (final hidden state (B,S,D), the layers'
-    summed router aux (fp32 scalar, 0 without experts), cache or None)."""
-    check_family(cfg)
-    h = params["embed"][tokens]
+def _embed(params: Params, cfg: ModelConfig, tokens: Tensor | None,
+           prefix_embeds: Tensor | None) -> Tensor:
+    """The trunk's input (B, S, D): the token embeddings, with a frontend's
+    stub embeddings projected and RMS-normed in front of them (vision) or
+    in their place (audio: ``tokens`` is None). The stubs are cast to the
+    params' dtype before the projection. Without a frontend,
+    ``prefix_embeds`` is ignored."""
+    h = None if tokens is None else params["embed"][tokens]
+    if cfg.frontend and prefix_embeds is not None:
+        pre = prefix_embeds.to(params["final_norm"].dtype) @ params["frontend_proj"]
+        pre = rms_norm(pre, params["frontend_norm"], cfg.norm_eps)
+        h = pre if h is None else torch.cat([pre, h], dim=1)
+    if h is None:
+        raise ValueError(f"{cfg.name}: no tokens, and no prefix_embeds for a frontend to take")
+    return h
+
+
+def _trunk(params: Params, cfg: ModelConfig, tokens: Tensor | None,
+           prefix_embeds: Tensor | None, attn_impl: str, collect_cache: bool, cache_dtype,
+           cache_len: int | None):
+    """Embed (a frontend's prefix included) and every layer: (final hidden
+    state (B,S,D), the layers' summed router aux (fp32 scalar, 0 without
+    experts), cache or None)."""
+    h = _embed(params, cfg, tokens, prefix_embeds)
     s = h.shape[1]
     positions = torch.arange(s, device=h.device)
     sin = cos = None
@@ -403,7 +417,8 @@ def _trunk(params: Params, cfg: ModelConfig, tokens: Tensor, attn_impl: str,
 def forward(
     params: Params,
     cfg: ModelConfig,
-    tokens: Tensor,
+    tokens: Tensor | None,
+    prefix_embeds: Tensor | None = None,
     attn_impl: str = "blockwise",
     collect_cache: bool = False,
     cache_dtype=torch.bfloat16,
@@ -413,9 +428,15 @@ def forward(
     the assembled decode cache when ``collect_cache`` (prefill). aux_loss
     sums the MoE layers' router losses (each the mean over rows of the
     Switch loss); models without experts give 0. ``attn_impl``:
-    ``"blockwise"`` or ``"naive"``."""
-    h, aux, cache = _trunk(params, cfg, tokens, attn_impl, collect_cache, cache_dtype,
-                           cache_len)
+    ``"blockwise"`` or ``"naive"``.
+
+    ``prefix_embeds``: (B, S_pre, stub_dim) precomputed modality embeddings
+    (vision patches, audio frames), the frontend stub. A vision model puts
+    them in front of the token embeddings; for the audio encoder they are
+    the input (``tokens`` may be None). S counts both.
+    """
+    h, aux, cache = _trunk(params, cfg, tokens, prefix_embeds, attn_impl, collect_cache,
+                           cache_dtype, cache_len)
     logits = _logits(params, cfg, h)
     if collect_cache:
         return logits, aux, cache
@@ -425,19 +446,22 @@ def forward(
 def prefill_step(
     params: Params,
     cfg: ModelConfig,
-    tokens: Tensor,
+    tokens: Tensor | None,
+    prefix_embeds: Tensor | None = None,
     attn_impl: str = "blockwise",
     cache_dtype=torch.bfloat16,
     cache_len: int | None = None,
 ) -> tuple[Tensor, Params]:
-    """Serving prefill: run the prompt, return (last-token logits (B,1,Vp),
-    cache). Only the last position goes through the LM head.
+    """Serving prefill: run the prompt (a frontend's ``prefix_embeds`` in
+    front, as :func:`forward`), return (last-token logits (B,1,Vp), cache).
+    Only the last position goes through the LM head.
 
-    ``cache_len``: total KV capacity (prompt + generation headroom);
-    defaults to the prompt length (ring eviction starts immediately). An
-    SSM cache is O(1) in length and ignores it.
+    ``cache_len``: total KV capacity (prefix + prompt + generation
+    headroom); defaults to the prefix + prompt length (ring eviction starts
+    immediately). An SSM cache is O(1) in length and ignores it.
     """
-    h, _, cache = _trunk(params, cfg, tokens, attn_impl, True, cache_dtype, cache_len)
+    h, _, cache = _trunk(params, cfg, tokens, prefix_embeds, attn_impl, True, cache_dtype,
+                         cache_len)
     return _logits(params, cfg, h[:, -1:]), cache
 
 
@@ -457,7 +481,6 @@ def init_cache(
 ) -> Params:
     """Decode-state dict on ``device`` (``None``: CUDA). ``prefilled``
     marks how many positions are done; ``seq_len`` sizes the KV ring."""
-    check_family(cfg)
     dev = resolve_device(device)
     cache: Params = {"pos": torch.full((batch,), prefilled, dtype=torch.int32, device=dev)}
     if cfg.has_attention:
@@ -552,7 +575,6 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: Tensor,
     new K/V go to one ring slot for the whole batch; ``False`` writes one
     slot per row (ragged batches).
     """
-    check_family(cfg)
     pos = cache["pos"]                                     # (B,)
     h = params["embed"][tokens]                            # (B,1,D)
     new: Params = {}

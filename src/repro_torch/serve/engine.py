@@ -69,7 +69,7 @@ from repro_torch.jobs.scheduler import (
     stage_oblivious,
     stage_service_rates_all,
 )
-from repro_torch.models.lm import check_family, init_params
+from repro_torch.models.lm import init_params
 from repro_torch.placement.controller import survivor_renorm
 from repro_torch.placement.replica import replica_read_assignment
 from repro_torch.placement.wan import WanModel, wan_topology
@@ -339,9 +339,6 @@ class FleetEngine:
         self._hist_on = _tel_hist(telemetry)
         self.classes = classes
         self.omega, self.pue, self.r = omega, pue, r
-        for rc in classes:
-            check_family(rc.cfg)
-            check_family(rc.energy_cfg or rc.cfg)
         # One generator for the weights (class by class) and then the prompt
         # tokens of every executed batch.
         self.generator = torch.Generator(device=dev).manual_seed(fcfg.seed)

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.lm import check_family, decode_step, prefill_step
+from repro_torch.models.lm import decode_step, prefill_step
 
 
 def make_local_exec(cfg: ModelConfig, gen_len: int, device=None):
@@ -24,9 +24,9 @@ def make_local_exec(cfg: ModelConfig, gen_len: int, device=None):
     an fp32 cache sized for ``gen_len`` extra tokens (the KV ring holds
     ``S + gen_len`` slots), attention blockwise;
     ``decode_fn(params, cache, tok)`` advances one token, every row at one
-    position (``uniform_pos``).
+    position (``uniform_pos``). A frontend model's prompt is tokens only
+    (no ``prefix_embeds``), as the reference's ``make_local_exec`` feeds it.
     """
-    check_family(cfg)
     dev = resolve_device(device)
 
     def prefill_fn(params, tokens):

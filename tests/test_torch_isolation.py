@@ -51,7 +51,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "             'repro_torch.configs.qwen2_0_5b', 'repro_torch.configs.granite_3_2b',\n"
         "             'repro_torch.configs.phi4_mini', 'repro_torch.configs.stablelm_12b',\n"
         "             'repro_torch.models.moe', 'repro_torch.configs.deepseek_moe_16b',\n"
-        "             'repro_torch.configs.phi35_moe', 'repro_torch.configs.hymba_1_5b'):\n"
+        "             'repro_torch.configs.phi35_moe', 'repro_torch.configs.hymba_1_5b',\n"
+        "             'repro_torch.models.frontends', 'repro_torch.configs.hubert_xlarge',\n"
+        "             'repro_torch.configs.internvl2_76b', 'repro_torch.benchmarks.run',\n"
+        "             'repro_torch.examples.quickstart', 'repro_torch.examples.staged_jobs',\n"
+        "             'repro_torch.examples.adaptive_placement',\n"
+        "             'repro_torch.examples.serve_geo'):\n"
         "    assert need in sys.modules, need\n"
         "print('ok', len(sys.modules))\n"
     )

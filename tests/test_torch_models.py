@@ -178,14 +178,16 @@ def test_trunc_normal_in_place_draws_bitwise_the_out_of_place_ones(dtype):
 # ---------------------------------------------------------------------------
 
 def test_registry_has_mamba2_only_and_names_it():
-    """The registry holds mamba2-2.7b, the four dense GQA decoders, the two
-    MoE decoders and the hybrid; an id not ported yet (a frontend one)
-    raises KeyError naming what there is."""
+    """The registry holds the JAX package's ten architectures: mamba2-2.7b,
+    the four dense GQA decoders, the two MoE decoders, the hybrid and the
+    two frontend backbones; an unknown id raises KeyError naming what there
+    is."""
     dense = ["granite-3-2b", "phi4-mini-3.8b", "qwen2-0.5b", "stablelm-12b"]
     moe_hybrid = ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b"]
-    assert TC.list_archs() == sorted(dense + moe_hybrid + [ARCH])
+    frontends = ["hubert-xlarge", "internvl2-76b"]
+    assert TC.list_archs() == sorted(dense + moe_hybrid + frontends + [ARCH]) == JC.list_archs()
     with pytest.raises(KeyError, match=ARCH):
-        TC.get_arch("hubert-xlarge")
+        TC.get_arch("no-such-arch")
 
 
 @pytest.mark.parametrize("variant", ["full", "smoke"])
@@ -380,27 +382,44 @@ def test_device_none_means_cuda_and_raises_without_it(entry, smoke):
     {"ssm_state": 0},
 ])
 def test_other_model_families_raise_not_implemented(change):
-    """Frontend configs raise, naming the next slice. The families the port
-    now runs (attention heads, MoE experts, the hybrid, a dense FFN, no SSM
-    state) build: their counts are the JAX package's, make_local_exec takes
-    them and a forward gives finite logits; only a MoE config has a router
-    aux. The MoE case gives the SSM smoke model experts of width 64 (its
-    d_ff is 0); the hybrid case gives it attention heads to mix with."""
+    """No family raises any more: every change builds, counts (total and
+    active) as the JAX package does, make_local_exec takes it and a
+    forward gives finite logits; only a MoE config has a router aux. The
+    MoE case gives the SSM smoke model experts of width 64 (its d_ff is 0);
+    the hybrid case gives it attention heads to mix with. The frontend case
+    (a vision stub on the SSM smoke model) carries the frontend leaves, and
+    on bridged JAX weights its prefix forward and make_local_exec's token
+    prefill and decode match the JAX package's within MODEL_TOL."""
     cfg = dataclasses.replace(TC.get_arch(ARCH, "smoke"), **change)
+    cfg_j = dataclasses.replace(JC.get_arch(ARCH, "smoke"), **change)
+    assert lm.count_params(cfg) == jlm.count_params(cfg_j)
+    assert lm.count_params(cfg, active_only=True) == jlm.count_params(cfg_j, active_only=True)
+    make_local_exec(cfg, 4, device="cpu")
+    p = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    logits, aux = lm.forward(p, cfg, torch.zeros((1, 8), dtype=torch.int64))
+    assert tuple(logits.shape) == (1, 8, 512) and bool(torch.isfinite(logits).all())
+    assert bool(torch.isfinite(aux)) and (float(aux) > 0.0) == cfg.is_moe
     if not cfg.frontend:
-        cfg_j = dataclasses.replace(JC.get_arch(ARCH, "smoke"), **change)
-        assert lm.count_params(cfg) == jlm.count_params(cfg_j)
-        assert lm.count_params(cfg, active_only=True) == jlm.count_params(cfg_j, active_only=True)
-        make_local_exec(cfg, 4, device="cpu")
-        p = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-        logits, aux = lm.forward(p, cfg, torch.zeros((1, 8), dtype=torch.int64))
-        assert tuple(logits.shape) == (1, 8, 512) and bool(torch.isfinite(logits).all())
-        assert bool(torch.isfinite(aux)) and (float(aux) > 0.0) == cfg.is_moe
         return
-    with pytest.raises(NotImplementedError, match="next slice"):
-        lm.count_params(cfg)
-    with pytest.raises(NotImplementedError):
-        make_local_exec(cfg, 4, device="cpu")
+    assert set(lm.top_param_specs(cfg)) - set(lm.top_param_specs(TC.get_arch(ARCH, "smoke"))) \
+        == {"frontend_proj", "frontend_norm"}
+    p_j = jlm.init_params(jax.random.key(0), cfg_j, jnp.float32)
+    p = lm_params_from_numpy(jax.tree.map(np.asarray, p_j), cfg, device="cpu")
+    rng = np.random.default_rng(4)
+    pre = (0.02 * rng.standard_normal((2, 6, 1024))).astype(np.float32)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 10))
+    logits_j, _ = jlm.forward(p_j, cfg_j, jnp.asarray(tokens), prefix_embeds=jnp.asarray(pre))
+    logits, _ = lm.forward(p, cfg, torch.from_numpy(tokens), prefix_embeds=torch.from_numpy(pre))
+    assert tuple(logits.shape) == (2, 16, 512)
+    np.testing.assert_allclose(logits.numpy(), _np(logits_j), rtol=MODEL_TOL, atol=MODEL_TOL)
+    pre_j, dec_j = jax_make_local_exec(cfg_j, 4)
+    pre_t, dec_t = make_local_exec(cfg, 4, device="cpu")
+    (lj, cj), (lt, ct) = pre_j(p_j, jnp.asarray(tokens)), pre_t(p, torch.from_numpy(tokens))
+    np.testing.assert_allclose(lt.numpy(), _np(lj), rtol=MODEL_TOL, atol=MODEL_TOL)
+    tok = torch.argmax(lt[:, -1:, :cfg.vocab_size], dim=-1)
+    lj, _ = dec_j(p_j, cj, jnp.asarray(tok.numpy(), jnp.int32))
+    lt, _ = dec_t(p, ct, tok)
+    np.testing.assert_allclose(lt.numpy(), _np(lj), rtol=MODEL_TOL, atol=MODEL_TOL)
 
 
 def test_bridge_rejects_missing_extra_and_misshaped_leaves(smoke):

@@ -275,8 +275,10 @@ def test_kv_gb_attention_branch_and_engine_refuses_attention():
     """A port ModelConfig with the reference's qwen2-0.5b fields prices its
     KV cache as the reference does. The engine builds a qwen2-0.5b class
     (smoke executes, full prices), a mamba class priced on qwen and a MoE
-    class (executed, or pricing a mamba one); it still refuses a frontend
-    class."""
+    class (executed, or pricing a mamba one). A vision-frontend class
+    (executed, or pricing a mamba one) builds too, and on the reference's
+    scenario (bridged) runs as the reference engine does, every slot; the
+    executed class's prompts are tokens only, as the reference feeds them."""
     cfg_j = jget("qwen2-0.5b", "full")
     cfg_t = ModelConfig(**dataclasses.asdict(cfg_j))
     assert cfg_t.has_attention and cfg_t == get_arch("qwen2-0.5b", "full")
@@ -298,10 +300,23 @@ def test_kv_gb_attention_branch_and_engine_refuses_attention():
         eng = te.FleetEngine(fc, [rc], omega, pue, r[:1], device=CPU)
         assert leaf in eng.params[rc.name]["blocks"]
     vision = dataclasses.replace(get_arch("qwen2-0.5b", "smoke"), frontend="vision")
-    for rc in (te.RequestClass("vlm", cfg=vision),
-               te.RequestClass("vlm", cfg=smoke, energy_cfg=vision)):
-        with pytest.raises(NotImplementedError, match="slice 7b"):
-            te.FleetEngine(fc, [rc], omega, pue, r[:1], device=CPU)
+    vision_j = dataclasses.replace(jget("qwen2-0.5b", "smoke"), frontend="vision")
+    jfc = je.FleetConfig(n_pods=4, horizon_slots=T)
+    for (rc, rc_ref), leaf, execute in (
+            ((te.RequestClass("vlm", cfg=vision), je.RequestClass("vlm", cfg=vision_j)),
+             "frontend_proj", True),
+            ((te.RequestClass("vlm", cfg=smoke, energy_cfg=vision),
+              je.RequestClass("vlm", cfg=jget(ARCH, "smoke"), energy_cfg=vision_j)),
+             "w_x", False)):
+        assert rc.energy_per_job_j() == rc_ref.energy_per_job_j()
+        assert rc.kv_gb() == rc_ref.kv_gb() > 0.0
+        jeng = je.FleetEngine(jfc, [rc_ref], omega, pue, r[:1])
+        eng = te.FleetEngine(fc, [rc], omega, pue, r[:1], device=CPU,
+                             scenario=serve_scenario_from_numpy(_np_scenario(jeng.scenario), CPU))
+        assert leaf in eng.params["vlm"] or leaf in eng.params["vlm"]["blocks"]
+        jout, tout = jeng.run(execute_real=execute), eng.run(execute_real=execute)
+        assert _compare(eng, tout, jout) == T
+        assert tout["exec_jobs"] == jout["exec_jobs"] and (tout["exec_jobs"] > 0) == execute
 
 
 def test_fleet_config_cycling_and_errors():
