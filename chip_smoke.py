@@ -207,7 +207,35 @@ Phases, each printing one line or more; any failure exits non-zero:
              with REPRO_BENCH_RUNS=100: exit 0, a CSV line with positive µs
              per call from every ported bench, the three SKIPPED lines, the
              record labelled torch_full.
-19. results — one JSON line of per-kernel numbers, then the device line.
+19. train — training on the card (``repro_torch.train``, slice 8a): (a) the
+             ``ssd_scan`` backward chain (``csrc/ssd_scan_bwd.cu``, four
+             kernels behind one ``ssd_scan_bwd_launch``) against
+             ``ssd_scan_bwd_phases_ref`` (its G and R workspaces too) and
+             against autograd through the sequential ``ssd_scan_ref`` at the
+             smoke shape, a multi-chunk one, a ragged S and hymba's heads,
+             each with a nonzero gradient of the final state: every
+             gradient within SSD_BWD_TOL of its max, bitwise-repeatable
+             launches, the wrapper's ``SsdScanFn`` bitwise the direct calls;
+             device time at mamba2-2.7b's training microbatch (2 x 2048) and
+             hymba's 4 x 2048 beside the forward chain, the plain version
+             and the bound, each kernel's time; (b) full-width, full-depth
+             mamba2-2.7b (random fp32 weights) trained through
+             ``make_train_step``: 4 x 2048 tokens per step from the token
+             stream, two microbatches, full remat, the launcher's AdamW; a
+             warm-up step and three timed ones, each with exactly 256
+             forward and 128 backward chain launches, finite loss and grad
+             norm > 0; layer 0's real SSD operands and upstream gradient
+             through the backward chain against the plain version; step
+             wall, tokens/s, device busy share, the chains' share of step
+             device time, the optimizer alone, peak memory; (c) full-width
+             qwen2-0.5b the same way: no kernel launched, finite loss; step
+             wall, peak memory, attention's share of step device time; (d)
+             ``python -m repro_torch.examples.train_lm`` (its claim through
+             the failure at 150) and the smoke launcher with a failure at
+             25 as subprocesses, each exiting 0 after one restart; the same
+             smoke run in process with and without the failure: final
+             params bitwise equal, or within TRAIN_REPLAY_RTOL.
+20. results — one JSON line of per-kernel numbers, then the device line.
 
 Numbers are measured on whatever card runs this; the bound uses the H100
 SXM's published peaks (3.35 TB/s, 67 TFLOP/s fp32) at its 700 W limit.
@@ -424,6 +452,52 @@ ENTRY_BENCHES = {"fig5": "fig5", "fig6": "fig6", "sim_bench": "sim_",
                  "serve_bench": "torch_serve_"}
 ENTRY_SKIPPED = ("kernel_bench", "shard_bench", "roofline")
 ENTRY_RECORD = "build/bench_torch.json"
+#: Phase 19, training. (a) The ssd_scan backward chain against its plain
+#: versions, (B, S, H, P, N, chunk): the smoke model's shape (unit-normal
+#: inputs), then with the model's input ranges a multi-chunk one, a ragged
+#: S = 300 (padded to 512) and hymba-1.5b's heads and state; each with a
+#: nonzero gradient of the final state.
+SSD_BWD_SHAPES = [(2, 64, 8, 32, 16, 32), (2, 512, 80, 64, 128, 256), (2, 300, 80, 64, 128, 256),
+                  (2, 512, 50, 64, 16, 256)]
+#: Each gradient (dx, ddt, da, dB, dC) within SSD_BWD_TOL of its largest
+#: |value|, against ssd_scan_bwd_phases_ref (the same algorithm: only fp32
+#: summation orders differ) and against autograd through the sequential
+#: ssd_scan_ref (an independent formulation: per-step decays against
+#: exponents of cumsum differences). SSD_TEST_TOL's 3e-4 is the forward's;
+#: the CPU check of the plain chunked backward against fp64 autograd through
+#: the recurrence gave at most 9e-6 of the max (da: a sum over every step
+#: of a product of reverse cumsums), so 3e-4 leaves 30x room for the card's
+#: other summation orders and is kept.
+SSD_BWD_TOL = 3e-4
+#: The chain's kernels, in launch order (``ssd_bwd_<phase>_kernel``).
+SSD_BWD_PHASES = ("chunk_dstate", "dstate_pass", "chunk_bwd", "chunk_dbc")
+#: Timed: mamba2-2.7b's training microbatch (2 x 2048, phase 19 (b)) and
+#: hymba-1.5b's 4 x 2048 prefill shape, with CUDA-graph (reps, replays).
+SSD_BWD_TIMED = {(2, 2048, 80, 64, 128, 256): ("train", 3, 4),
+                 (4, 2048, 50, 64, 16, 256): ("hybrid", 3, 4)}
+#: (b) and (c): full-width training through make_train_step, the
+#: launcher's AdamW (lr 3e-3, no warm-up at these few steps): 4 x 2048
+#: tokens per step from the synthetic token stream (seed 0), two
+#: microbatches, full remat; one warm-up step, then TRAIN_TIMED_STEPS.
+#: mamba2-2.7b at full depth (64 layers: 64 x 2 x 2 = 256 forward chains
+#: and 64 x 2 = 128 backward chains per step), then the launcher's default
+#: arch, qwen2-0.5b (no kernel on its path).
+TRAIN_ARCHS = (MAMBA_ARCH, "qwen2-0.5b")
+TRAIN_BATCH = (4, 2048)
+TRAIN_MICROBATCHES = 2
+TRAIN_REMAT = "full"
+TRAIN_TIMED_STEPS = 3
+#: (d) the entry points: the example (its claim through the failure at
+#: 150) and the smoke launcher with a failure, as subprocesses; then the
+#: same smoke run in process with and without the failure. Where the two
+#: final params differ (the tied embedding's backward, an index_put with
+#: accumulation, sums in an order that may change between runs on CUDA),
+#: each leaf's largest difference is held to TRAIN_REPLAY_RTOL of the
+#: leaf's largest value.
+TRAIN_SMOKE_ARGS = ("--arch", MAMBA_ARCH, "--variant", "smoke", "--steps", "40", "--batch", "8",
+                    "--seq", "128", "--ckpt-every", "10")
+TRAIN_SMOKE_FAIL_AT = 25
+TRAIN_REPLAY_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -525,9 +599,10 @@ def rel_err(got, want) -> float:
 def kernel_counters():
     """Every kernel's launch counter, by name (what a main path reads)."""
     from repro_torch.kernels.gmsa_score.kernel import gmsa_score_cuda
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_cuda, ssd_scan_cuda
 
-    return {"gmsa_score": gmsa_score_cuda, "ssd_scan": ssd_scan_cuda}
+    return {"gmsa_score": gmsa_score_cuda, "ssd_scan": ssd_scan_cuda,
+            "ssd_scan_bwd": ssd_scan_bwd_cuda}
 
 
 def reset_counts() -> None:
@@ -597,7 +672,8 @@ def ptxas_usage(text: str) -> list[str]:
     for line in text.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
             mangled = m.group(1)
-            short = re.search(r"\d+((?:ssd_scan|gmsa)\w*?_kernel)(?:IL([bi])(\d+)E)?", mangled)
+            short = re.search(r"\d+((?:ssd_scan|ssd_bwd|gmsa)\w*?_kernel)(?:IL([bi])(\d+)E)?",
+                              mangled)
             name = short.group(1) if short else mangled
             if short and short.group(2):
                 arg = short.group(3)
@@ -1155,6 +1231,438 @@ def phase_ssd_kernel(dev):
     main.update(long_run)
     main.update(timed)
     return main
+
+
+def ssd_bwd_bound_ms(b: int, s: int, h: int, p: int, n: int, q: int) -> tuple[float, str]:
+    """Least time for one ssd_scan backward call (fp32): its inputs (x, dt,
+    a, B, C, dy, dh_final and the forward's cum, CBᵀ and entering states)
+    read once and dx, ddt, da, dB, dC written once; the work the gradient
+    needs — the four (P, N) products per (b, h, step) (D_c, G_c B_s, the
+    state terms of dB and dC, h_inᵀ dy once per head serving dC and ∂cum),
+    the causal halves of (L ⊙ CB)ᵀ dy and of dy xᵀ per head, R C and R B
+    once per (b, chunk), and h_inᵀ dy against C_t — against the H100's
+    memory rate and fp32 rate."""
+    full, rem = divmod(s, q)
+    pairs = full * q * (q + 1) // 2 + rem * (rem + 1) // 2
+    nc = -(-s // q)
+    nbytes = (4 * (3 * b * s * h * p + 2 * b * s * h + 2 * h + 4 * b * s * n + b * h * p * n
+                   + b * nc * q * q + b * nc * h * p * n) + 8 * b * h * s)
+    flops = 8 * b * s * h * p * n + 4 * pairs * b * h * p + 4 * pairs * b * n + 2 * b * s * h * n
+    return bound_ms(nbytes, flops)
+
+
+def ssd_bwd_inputs(gen, shape, dev, model_like: bool):
+    """A padded backward problem as SsdScanFn sees it: the operands padded
+    to a chunk multiple with dt = 0 steps (as the wrapper pads), an
+    upstream dy that is zero on the padded steps and a nonzero dh_final."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, h, p, n, q = shape
+    x, dt, a, bm, cm = ssd_inputs(gen, b, s, h, p, n, torch.float32, dev, model_like)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev)
+    dhf = torch.randn((b, h, p, n), generator=gen, device=dev)
+    pad = (-s) % q
+    ops = (F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), a,
+           F.pad(bm, (0, 0, 0, pad)), F.pad(cm, (0, 0, 0, pad)))
+    return ops, F.pad(dy, (0, 0, 0, 0, 0, pad)), dhf
+
+
+def phase_ssd_bwd(dev) -> dict:
+    """Phase 19 (a): the backward chain against ssd_scan_bwd_phases_ref (on
+    the chain's own forward workspaces; G and R too) and against autograd
+    through the sequential ssd_scan_ref, at every SSD_BWD_SHAPES shape;
+    bitwise-repeatable launches; the wrapper's autograd path (SsdScanFn)
+    bitwise the direct calls; then device times at SSD_BWD_TIMED beside
+    the forward chain, the plain version and the bound, each kernel's time
+    from the profiler."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.kernel import (
+        _ssd_scan_bwd_cuda_phases,
+        _ssd_scan_cuda_phases,
+        ssd_scan_bwd_cuda,
+        ssd_scan_cuda,
+    )
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_phases_ref, ssd_scan_ref
+
+    names = ("dx", "ddt", "da", "dB", "dC")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    worst, out = {"plain": 0.0, "autograd": 0.0}, {}
+    for shape in list(SSD_BWD_SHAPES) + list(SSD_BWD_TIMED):
+        b, s, h, p, n, q = shape
+        timed = shape in SSD_BWD_TIMED
+        ops, dy, dhf = ssd_bwd_inputs(gen, shape, dev, model_like=shape != SSD_BWD_SHAPES[0])
+        _, _, cum, g, h_in = _ssd_scan_cuda_phases(*ops, q)
+        got = _ssd_scan_bwd_cuda_phases(*ops, dy, dhf, cum, g, h_in, q)
+        again = _ssd_scan_bwd_cuda_phases(*ops, dy, dhf, cum, g, h_in, q)
+        torch.cuda.synchronize()
+        tag = f"B={b} S={s} H={h} P={p} N={n} chunk={q}"
+        if not all(torch.equal(u, v) for u, v in zip(got[:5], again[:5])):
+            fail(f"ssd_scan backward launches differ bitwise at {tag}")
+        del again
+        if timed:
+            t_b = device_time_ms(lambda: ssd_scan_bwd_cuda(*ops, dy, dhf, cum, g, h_in, q),
+                                 reps=SSD_BWD_TIMED[shape][1], iters=SSD_BWD_TIMED[shape][2])
+            t_f = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=SSD_BWD_TIMED[shape][1],
+                                 iters=SSD_BWD_TIMED[shape][2])
+            phase, total = phase_times(lambda: ssd_scan_bwd_cuda(*ops, dy, dhf, cum, g, h_in, q), 3,
+                                       {ph: f"ssd_bwd_{ph}_kernel" for ph in SSD_BWD_PHASES})
+            _, events = device_profile(lambda: ssd_scan_bwd_phases_ref(*ops, dy, dhf, cum, g, h_in, q))
+            t_p = sum(us for _, us, _ in events) / 1e3
+            bound, bound_by = ssd_bwd_bound_ms(b, s, h, p, n, q)
+            want = ssd_scan_bwd_phases_ref(*ops, dy, dhf, cum, g, h_in, q)
+            err = max(rel_err_max(u, v) for u, v in zip(got[:5], want[:5]))
+            abs_err = max(float((u - v).abs().max()) for u, v in zip(got[:5], want[:5]))
+            key = SSD_BWD_TIMED[shape][0]
+            log(f"[train] ssd_scan backward {tag}: device: backward chain {t_b:.3f} ms, forward "
+                f"chain {t_f:.3f} ms, plain phase version {t_p:.3f} ms (profiler device sum), "
+                f"bound {bound:.3f} ms ({bound_by}; chain at {100 * bound / t_b:.1f}% of it); "
+                f"vs plain max err {err:.3e} of the max; mean per launch by kernel: "
+                + ", ".join(f"{ph} " + ("not measured" if ms is None else f"{ms:.4f} ms")
+                            for ph, ms in phase.items()) + f"; total {total:.4f} ms")
+            if err > SSD_BWD_TOL:
+                fail(f"ssd_scan backward off its plain version at {tag}: {err:.3e}")
+            out[key] = {"ms": t_b, "fwd_ms": t_f, "plain_ms": t_p, "bound_ms": bound,
+                        "bound_by": bound_by, "phase_ms": phase, "max_abs_err": abs_err,
+                        "max_rel_err": err}
+            del want, got, ops, dy, dhf, cum, g, h_in
+            torch.cuda.empty_cache()
+            continue
+        want = ssd_scan_bwd_phases_ref(*ops, dy, dhf, cum, g, h_in, q)
+        tri = torch.ones(q, q, dtype=torch.bool, device=dev).tril()
+        errs = {nm: rel_err_max(u[:, :s] if u.dim() > 1 else u, v[:, :s] if v.dim() > 1 else v)
+                for nm, u, v in zip(names, got[:5], want[:5])}
+        errs["G"] = rel_err_max(got[5], want[5])
+        errs["R"] = rel_err_max(got[6][..., tri], want[6][..., tri])
+        # Autograd through the sequential recurrence, on the unpadded operands.
+        leaves = [t[:, :s].clone().requires_grad_() if t.dim() > 1 else t.clone().requires_grad_()
+                  for t in ops]
+        y_r, h_r = ssd_scan_ref(*leaves)
+        torch.autograd.backward([y_r, h_r], [dy[:, :s], dhf])
+        auto = {nm: rel_err_max(u[:, :s] if u.dim() > 1 else u, t.grad)
+                for nm, u, t in zip(names, got[:5], leaves)}
+        # The wrapper under autograd: SsdScanFn with the same launches.
+        wl = [t.detach().clone().requires_grad_() for t in leaves]
+        y_w, h_w = ssd_scan(*wl, chunk=q)
+        torch.autograd.backward([y_w, h_w], [dy[:, :s], dhf])
+        torch.cuda.synchronize()
+        same = all(torch.equal(u[:, :s] if u.dim() > 1 else u, t.grad)
+                   for u, t in zip(got[:5], wl))
+        log(f"[train] ssd_scan backward {tag}: max err of the max vs ssd_scan_bwd_phases_ref "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + "; vs autograd through ssd_scan_ref " + ", ".join(f"{k} {v:.2e}" for k, v in auto.items())
+            + f" (tol {SSD_BWD_TOL:g}); bitwise repeatable; the wrapper's SsdScanFn bitwise "
+            f"the direct calls: {same}")
+        if max(errs.values()) > SSD_BWD_TOL or max(auto.values()) > SSD_BWD_TOL or not same:
+            fail(f"ssd_scan backward at {tag}: plain {errs}, autograd {auto}, wrapper same {same}")
+        worst["plain"] = max(worst["plain"], *errs.values())
+        worst["autograd"] = max(worst["autograd"], *auto.values())
+        del got, want, leaves, wl, y_r, h_r, y_w, h_w, ops, dy, dhf, cum, g, h_in
+        torch.cuda.empty_cache()
+    out["max_rel_err_plain"], out["max_rel_err_autograd"] = worst["plain"], worst["autograd"]
+    return out
+
+
+def train_step_record(arch: str, variant: str, dev, batch, layers=None) -> dict:
+    """Phase 19 (b) / (c): ``arch`` at ``variant`` (``layers``: a depth cut,
+    None for full depth) with random fp32 weights from a seeded generator,
+    trained through make_train_step on TRAIN_BATCH-shaped steps from the
+    synthetic token stream: one warm-up step, then TRAIN_TIMED_STEPS timed
+    ones, the launch counters set to 0 before each step and read after it.
+    Records the walls, tokens/s, peak memory, one profiled step's busy share
+    and its kernels by name, the optimizer alone; for an SSM model the
+    warm-up step's layer-0 backward call (its real operands and upstream
+    gradient) is kept for the caller's gate."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.kernels.ssd_scan.ops as ssd_ops
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import token_batch
+    from repro_torch.models.lm import count_params, init_params
+    from repro_torch.traces.tokens import SyntheticTokenStream, TokenPipelineConfig, lm_inputs
+    from repro_torch.train import AdamWConfig, TrainStepConfig, adamw_init, adamw_update
+    from repro_torch.train import make_train_step
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = get_arch(arch, variant)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    b, s = batch
+    steps = 1 + TRAIN_TIMED_STEPS
+    ocfg = AdamWConfig(lr=3e-3, total_steps=steps, warmup_steps=min(20, steps // 5))
+    tcfg = TrainStepConfig(microbatches=TRAIN_MICROBATCHES, remat=TRAIN_REMAT, optimizer=ocfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.float32, dev)
+    opt = adamw_init(params)
+    step, init_efb = make_train_step(cfg, tcfg, device=dev)
+    efb = init_efb(params)
+    pipe = SyntheticTokenStream(TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=s + 1,
+                                                    global_batch=b, seed=0))
+    batches = [token_batch(lm_inputs(pipe.batch(i)), dev) for i in range(steps + 1)]
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    rec = {"params": count_params(cfg), "layers": cfg.num_layers, "setup_s": setup,
+           "walls": [], "counts": [], "losses": [], "grad_norms": []}
+    kept = {}
+    real_bwd = ssd_ops.ssd_scan_bwd_cuda
+
+    def keep_layer0(*args):
+        # Backward runs the layers last to first: call L is microbatch 1's
+        # layer 0.
+        kept["calls"] = kept.get("calls", 0) + 1
+        if kept["calls"] == cfg.num_layers:
+            kept["args"] = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+        return real_bwd(*args)
+
+    for i in range(steps):
+        if i == 0 and cfg.has_ssm:
+            ssd_ops.ssd_scan_bwd_cuda = keep_layer0
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            params, opt, met, efb = step(params, opt, batches[i], efb)
+            torch.cuda.synchronize()
+        finally:
+            ssd_ops.ssd_scan_bwd_cuda = real_bwd
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        rec["counts"].append(counts)
+        rec["losses"].append(float(met["loss"]))
+        rec["grad_norms"].append(float(met["grad_norm"]))
+        if i:
+            rec["walls"].append(wall)
+        else:
+            rec["warmup_s"] = wall
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["wall_s"] = statistics.median(rec["walls"])
+    rec["tokens_per_s"] = b * s / rec["wall_s"]
+    wall, events = device_profile(lambda: step(params, opt, batches[steps], efb))
+    dev_us = sum(us for _, us, _ in events)
+    chain = lambda pred: sum(us for k, us, _ in events if pred(k)) / dev_us if dev_us else None
+    rec.update(profiled_wall_s=wall, device_busy_ms=dev_us / 1e3,
+               busy_share=dev_us / 1e6 / wall if dev_us else None,
+               fwd_share=chain(is_ssd_kernel), bwd_share=chain(lambda k: "ssd_bwd_" in k),
+               top=[(k[:48], us / 1e3, c) for k, us, c in events[:6]])
+    # The backward chain's kernels in the step, mean device ms per launch.
+    rec["bwd_phase_ms"] = {}
+    for ph in SSD_BWD_PHASES:
+        hits = [(us, c) for k, us, c in events if f"ssd_bwd_{ph}_kernel" in k]
+        count = sum(c for _, c in hits)
+        rec["bwd_phase_ms"][ph] = sum(us for us, _ in hits) / count / 1e3 if count else None
+    # The optimizer alone, on zero gradients (in place, as in the step).
+    opt_walls = []
+    for _ in range(3):
+        grads = tree_map(torch.zeros_like, params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adamw_update(ocfg, params, grads, opt)
+        torch.cuda.synchronize()
+        opt_walls.append(time.perf_counter() - t0)
+        del grads
+    rec["optimizer_s"] = statistics.median(opt_walls)
+    rec["layer0"] = kept.get("args")
+    del params, opt, efb, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def attention_train_ms(cfg, b: int, s: int, dev) -> tuple[float, float]:
+    """Device time (CUDA events) of one layer's blockwise attention at a
+    training microbatch's shape: (forward alone, forward + backward)."""
+    import torch
+
+    from repro_torch.models.attention import attend_blockwise
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, pos = attention_inputs(gen, b, s, cfg.num_heads, cfg.num_kv_heads,
+                                    cfg.resolved_head_dim, dev)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    dout = torch.randn(q.shape, generator=gen, device=dev)
+
+    def timed(fn, iters=3):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    fwd = lambda: attend_blockwise(q, k, v, pos, pos, causal=cfg.causal, window=cfg.sliding_window)
+    t_f = timed(lambda: fwd().detach())
+    t_fb = timed(lambda: torch.autograd.grad(fwd(), (q, k, v), dout))
+    return t_f, t_fb
+
+
+def phase_train(dev, smi, variant: str = "full", batch=TRAIN_BATCH, smoke_steps=None,
+                device_args=(), example_steps=None) -> dict:
+    """Phase 19 (b)-(d); (a) is phase_ssd_bwd. ``variant="smoke"`` with a
+    small ``batch``, ``device_args=("--device", "cpu")`` and small step
+    counts rehearse it on the CPU."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    import repro_torch.launch.train as launch_train
+
+    out = {}
+    # (b) mamba2-2.7b, (c) qwen2-0.5b.
+    for arch in TRAIN_ARCHS:
+        rec = train_step_record(arch, variant, dev, batch)
+        L = rec["layers"]
+        want = ({"ssd_scan": 2 * TRAIN_MICROBATCHES * L, "ssd_scan_bwd": TRAIN_MICROBATCHES * L}
+                if arch == MAMBA_ARCH else {"ssd_scan": 0, "ssd_scan_bwd": 0})
+        want["gmsa_score"] = 0
+        log(f"[train] {smi} | {arch} ({variant}, {rec['params']:,} params, {L} layers, random "
+            f"fp32 weights), {batch[0]} x {batch[1]} tokens per step, {TRAIN_MICROBATCHES} "
+            f"microbatches, remat {TRAIN_REMAT}: set-up {rec['setup_s']:.1f} s, warm-up step "
+            f"{rec['warmup_s']:.2f} s; timed steps {', '.join(f'{w:.3f}' for w in rec['walls'])} s, "
+            f"median {rec['wall_s']:.3f} s, {rec['tokens_per_s']:.0f} tokens/s; launches per "
+            f"step {rec['counts']}; loss {[round(x, 4) for x in rec['losses']]}, grad norm "
+            f"{[round(x, 4) for x in rec['grad_norms']]}; peak device memory "
+            f"{rec['peak_gib']:.2f} GiB")
+        busy = ("not measured" if rec["busy_share"] is None else
+                f"{rec['device_busy_ms']:.1f} ms of {rec['profiled_wall_s'] * 1e3:.1f} ms "
+                f"({100 * rec['busy_share']:.1f}%)")
+        log(f"[train] {arch}: one profiled step: device busy {busy}; ssd_scan forward chains "
+            f"{100 * (rec['fwd_share'] or 0):.1f}% and backward chains "
+            f"{100 * (rec['bwd_share'] or 0):.1f}% of step device time (backward kernels, mean "
+            f"per launch: " + ", ".join(f"{ph} " + ("none" if ms is None else f"{ms:.4f} ms")
+                                        for ph, ms in rec["bwd_phase_ms"].items())
+            + f"); the optimizer alone "
+            f"{rec['optimizer_s'] * 1e3:.1f} ms; top kernels: "
+            + ", ".join(f"{k} {ms:.1f} ms x{c}" for k, ms, c in rec["top"]))
+        if any(c != want for c in rec["counts"]):
+            fail(f"train {arch}: launches per step {rec['counts']}, expected {want}")
+        if not all(math.isfinite(x) for x in rec["losses"]) or not all(
+                math.isfinite(g) and g > 0 for g in rec["grad_norms"]):
+            fail(f"train {arch}: loss {rec['losses']}, grad norm {rec['grad_norms']}")
+        if arch == MAMBA_ARCH:
+            args = rec.pop("layer0")
+            got = ssd_scan_bwd_cuda(*args)
+            ref = ssd_scan_bwd_ref(*args)
+            torch.cuda.synchronize()
+            errs = {nm: rel_err_max(u, v) for nm, u, v in zip(("dx", "ddt", "da", "dB", "dC"),
+                                                             got, ref)}
+            rec["layer0_err"] = max(errs.values())
+            rec["layer0_abs_err"] = max(float((u - v).abs().max()) for u, v in zip(got, ref))
+            log(f"[train] {arch}: layer 0's real SSD operands and upstream gradient "
+                f"(x {tuple(args[0].shape)}): backward chain vs ssd_scan_bwd_ref, max err of the "
+                "max " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (tol {SSD_BWD_TOL:g})")
+            if rec["layer0_err"] > SSD_BWD_TOL:
+                fail(f"train {arch}: layer 0's backward off the plain version: {errs}")
+            del args, got, ref
+        else:
+            rec.pop("layer0")
+            from repro_torch.configs import get_arch
+
+            cfg = get_arch(arch, variant)
+            t_f, t_fb = attention_train_ms(cfg, batch[0] // TRAIN_MICROBATCHES, batch[1], dev)
+            per_step = TRAIN_MICROBATCHES * cfg.num_layers * (t_f + t_fb)
+            rec["attn_share"] = per_step / rec["device_busy_ms"] if rec["device_busy_ms"] else None
+            log(f"[train] {arch}: blockwise attention per layer and microbatch: forward "
+                f"{t_f:.3f} ms, forward + backward {t_fb:.3f} ms; x {TRAIN_MICROBATCHES} x "
+                f"{cfg.num_layers} layers (forward, then remat's recompute and the backward) = "
+                f"{per_step:.1f} ms of the profiled step's {rec['device_busy_ms']:.1f} ms device "
+                f"time ({100 * (rec['attn_share'] or 0):.1f}%)")
+        out[arch] = rec
+        torch.cuda.empty_cache()
+
+    # (d) the entry points as subprocesses, at once.
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    ckpt = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    smoke = list(TRAIN_SMOKE_ARGS)
+    if smoke_steps:
+        smoke[smoke.index("--steps") + 1] = str(smoke_steps)
+    cmds = {
+        "examples.train_lm": ["-m", "repro_torch.examples.train_lm", *device_args]
+        + (["--steps", str(example_steps)] if example_steps else []),
+        "launch.train": ["-m", "repro_torch.launch.train", *smoke, "--ckpt-dir", str(ckpt),
+                         "--fail-at", str(TRAIN_SMOKE_FAIL_AT), *device_args],
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        t0 = time.perf_counter()
+        try:
+            for name, cmd in cmds.items():
+                with open(Path(tmp) / f"{name}.log", "w") as sink:
+                    procs[name] = subprocess.Popen([sys.executable, *cmd], stdout=sink,
+                                                   stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+            for name, proc in procs.items():
+                rc = proc.wait(timeout=600)
+                text = (Path(tmp) / f"{name}.log").read_text()
+                log(f"[train] python -m repro_torch.{name}: exit {rc}, done "
+                    f"{time.perf_counter() - t0:.1f} s after both started")
+                for line in text.splitlines()[-8:]:
+                    log(f"[train] {name} | {line}")
+                if rc != 0:
+                    fail(f"train: {name} exited {rc} (its claim, or an error)")
+                if "restarts=1" not in text:
+                    fail(f"train: {name} did not restart once from its checkpoint")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    out["entry_s"] = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # The same smoke run in process, with and without the failure.
+    finals = {}
+    for tag, extra in (("clean", []), ("failed", ["--fail-at", str(TRAIN_SMOKE_FAIL_AT)])):
+        d = ROOT / "build" / f"ckpt_smoke_{tag}"
+        shutil.rmtree(d, ignore_errors=True)
+        state, _ = launch_train.run([*smoke, "--ckpt-dir", str(d), "--log-every", "1000",
+                                     *extra, *device_args])
+        finals[tag] = state["params"]
+        shutil.rmtree(d, ignore_errors=True)
+    from repro_torch.train.optimizer import leaves
+
+    diffs = {}
+    for name, a, b in zip(_leaf_names(finals["clean"]), leaves(finals["clean"]),
+                          leaves(finals["failed"])):
+        if not torch.equal(a, b):
+            diffs[name] = (float((a - b).abs().max()), float(b.abs().max()))
+    worst = max((d / max(m, 1e-30) for d, m in diffs.values()), default=0.0)
+    out["replay_bitwise"], out["replay_rel_diff"] = not diffs, worst
+    log(f"[train] in process: the smoke run through the failure at {TRAIN_SMOKE_FAIL_AT} "
+        f"and the uninterrupted run: final params bitwise equal: {not diffs}"
+        + ("" if not diffs else
+           f"; differing leaves (largest |diff|, largest |value|): {diffs}; the tied "
+           f"embedding's backward (index_put with accumulation) sums in a run-dependent order "
+           f"on CUDA; worst {worst:.3e} relative (tol {TRAIN_REPLAY_RTOL:g})"))
+    if worst > TRAIN_REPLAY_RTOL:
+        fail(f"train: the restarted run's params differ by {worst:.3e} relative: {diffs}")
+    return out
+
+
+def _leaf_names(tree, prefix="") -> list[str]:
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def rel_err_max(got, want) -> float:
+    """max |got - want| / max |want|, in fp32 (a gradient's error relative to
+    its largest value); inf where either holds a NaN, so that no gate
+    passes on one."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+    return err if err == err else math.inf
 
 
 def phase_mamba2(dev, smi):
@@ -2678,7 +3186,7 @@ def serve_model(arch: str, cfg, params, batch, dev, smi) -> dict:
     want_ssd = cfg.num_layers if cfg.has_ssm else 0
     if not (finite and pos == [s + gen_len] * b):
         fail(f"moe_hybrid: {arch}: finite {finite}, pos {pos}")
-    if counts != {"gmsa_score": 0, "ssd_scan": want_ssd}:
+    if counts != {"gmsa_score": 0, "ssd_scan": want_ssd, "ssd_scan_bwd": 0}:
         fail(f"moe_hybrid: {arch}: launch counts {counts}, expected {want_ssd} ssd_scan")
     rec = {"counts": counts, "prefill_ms_first": t_pre * 1e3, "decode_ms_first": t_dec * 1e3}
 
@@ -2889,7 +3397,7 @@ def serve_execution(archs, variant: str, dev, smi, phase: str) -> dict:
         f"{xout['exec_seconds']:.2f} s = {per_job:.3f} s per job; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not (xout["exec_jobs"] == n_jobs > 0 and ok["batches"] == batches_run
-            and x_counts == {"gmsa_score": x["slots"], "ssd_scan": want_ssd}
+            and x_counts == {"gmsa_score": x["slots"], "ssd_scan": want_ssd, "ssd_scan_bwd": 0}
             and xout["exec_seconds"] > 0.0
             and bool(ok["finite"]) and bool(ok["vocab"])):
         fail(f"{phase}: serving execution gates for {list(archs)}: exec_jobs "
@@ -3271,6 +3779,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_entry_points(dev, smi)
     log(f"[entry] phase 18 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ssd_bwd = phase_ssd_bwd(dev)
+    train = phase_train(dev, smi)
+    log(f"[train] phase 19 took {time.perf_counter() - t0:.1f} s")
 
     entry = {
         "name": "gmsa_score",
@@ -3357,9 +3869,41 @@ def main() -> int:
         "plain_ms_hybrid": ssd["plain_ms_hybrid"],
         "bound_ms_hybrid": ssd["bound_ms_hybrid"],
         "bound_by_hybrid": ssd["bound_by_hybrid"],
+        "launches_train": train[MAMBA_ARCH]["counts"][1]["ssd_scan"],
+        "launches_train_dense": train["qwen2-0.5b"]["counts"][1]["ssd_scan"],
+    }
+    mamba = train[MAMBA_ARCH]
+    bwd_entry = {
+        "name": "ssd_scan_bwd",
+        "route": "cuda",
+        "source": str(SOURCES["ssd_scan_bwd"].relative_to(ROOT)),
+        # No TPU backward: the gradient of the forward kernel's function.
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:29",
+        "launches": mamba["counts"][1]["ssd_scan_bwd"],
+        "max_abs_err": ssd_bwd["train"]["max_abs_err"],
+        "ms": ssd_bwd["train"]["ms"],
+        "plain_ms": ssd_bwd["train"]["plain_ms"],
+        "bound_ms": ssd_bwd["train"]["bound_ms"],
+        "bound_by": ssd_bwd["train"]["bound_by"],
+        "library_ms": None,   # no single PyTorch call computes the SSD scan's gradient
+        "fwd_ms": ssd_bwd["train"]["fwd_ms"],
+        "phase_ms": ssd_bwd["train"]["phase_ms"],
+        "phase_ms_in_step": mamba["bwd_phase_ms"],
+        "max_rel_err_plain": ssd_bwd["max_rel_err_plain"],
+        "max_rel_err_autograd": ssd_bwd["max_rel_err_autograd"],
+        "layer0_rel_err": mamba["layer0_err"],
+        "launches_train_dense": train["qwen2-0.5b"]["counts"][1]["ssd_scan_bwd"],
+        "ms_hybrid": ssd_bwd["hybrid"]["ms"],
+        "fwd_ms_hybrid": ssd_bwd["hybrid"]["fwd_ms"],
+        "plain_ms_hybrid": ssd_bwd["hybrid"]["plain_ms"],
+        "bound_ms_hybrid": ssd_bwd["hybrid"]["bound_ms"],
+        "bound_by_hybrid": ssd_bwd["hybrid"]["bound_by"],
+        "phase_ms_hybrid": ssd_bwd["hybrid"]["phase_ms"],
+        "train_step_s": mamba["wall_s"],
+        "train_tokens_per_s": mamba["tokens_per_s"],
     }
     log(f"[device] {smi}")
-    print(json.dumps({"kernels": [entry, ssd_entry]}))
+    print(json.dumps({"kernels": [entry, ssd_entry, bwd_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

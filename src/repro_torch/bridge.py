@@ -15,7 +15,9 @@
 * A model's parameter pytree (``repro.models.lm.init_params``, leaves
   through ``np.asarray``) and its decode cache (a KV ring, an SSM state, or
   both) become the port's dicts of tensors, checked leaf for leaf against
-  the port's specs.
+  the port's specs; so do an AdamW state (m and v under the params'
+  names, and the step) and a training batch (tokens, labels, loss_mask,
+  prefix_embeds), so that a JAX training state carries over whole.
 
 Random streams do not carry across (counter-based threefry on one side,
 torch generators on the other), so end-to-end parity runs both engines on
@@ -182,6 +184,43 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> dict:
         name: _leaf(f"blocks/{name}", tree["blocks"][name], (cfg.num_layers,) + shape, dev)
         for name, (shape, _, _) in lspecs.items()
     }
+    return out
+
+
+def opt_state_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> dict:
+    """A JAX ``adamw_init`` / ``adamw_update`` state (numpy leaves: m and v
+    shaped as the params, step an int scalar) -> the port's state on
+    ``device`` (``None``: CUDA): m and v checked as
+    :func:`lm_params_from_numpy` checks params, step int32."""
+    _check_names("opt_state", tree, ["m", "v", "step"])
+    dev = resolve_device(device)
+    step = np.asarray(tree["step"])
+    if step.shape != ():
+        raise ValueError(f"opt_state step has shape {step.shape}, expected a scalar")
+    return {"m": lm_params_from_numpy(tree["m"], cfg, dev),
+            "v": lm_params_from_numpy(tree["v"], cfg, dev),
+            "step": torch.tensor(int(step), dtype=torch.int32, device=dev)}
+
+
+_BATCH_DTYPES = {"tokens": torch.int64, "labels": torch.int64, "loss_mask": torch.float32}
+
+
+def batch_from_numpy(batch: Mapping, device=None) -> dict:
+    """A training batch (numpy: tokens and labels int, loss_mask float,
+    optional prefix_embeds) -> tensors on ``device`` (``None``: CUDA):
+    token ids and labels int64 (the port's index type), loss_mask fp32,
+    prefix_embeds in its own dtype (bf16 too). Other keys raise."""
+    dev = resolve_device(device)
+    extra = sorted(set(batch) - set(_BATCH_DTYPES) - {"prefix_embeds"})
+    if extra:
+        raise ValueError(f"batch: unexpected keys {extra}")
+    out = {}
+    for name, x in batch.items():
+        if not isinstance(x, np.ndarray):
+            raise TypeError(f"batch[{name!r}] is {type(x).__name__}, not a numpy array; "
+                            "convert with np.asarray first")
+        t = _leaf(name, x, x.shape, dev)
+        out[name] = t.to(_BATCH_DTYPES[name]) if name in _BATCH_DTYPES else t
     return out
 
 

@@ -1,13 +1,33 @@
-"""repro_torch.checkpoint — the control plane's elastic shrink on site loss.
+"""repro_torch.checkpoint — atomic checkpoints, restart orchestration and
+the control plane's elastic shrink on site loss.
 
-* :mod:`repro_torch.checkpoint.fault` — ``drop_site`` (host-side, removes
-  the dead site) and ``drop_site_mask`` (static-shape, masks it), the
-  semantics the placement controller's recovery epochs run on.
-
-The checkpoint manager and ``run_with_restarts`` of the JAX package's
-``repro.checkpoint`` come with a later slice of the port.
+* :mod:`repro_torch.checkpoint.checkpoint` — ``save_tree`` /
+  ``restore_tree`` (the JAX package's layout and manifest) and
+  ``CheckpointManager`` (retention, asynchronous saves from an explicit
+  host copy);
+* :mod:`repro_torch.checkpoint.fault` — ``SimulatedFailure``,
+  ``FailureInjector`` (a schedule pure in (seed, step)),
+  ``run_with_restarts`` (replay from the latest checkpoint), and
+  ``drop_site`` / ``drop_site_mask``, the semantics the placement
+  controller's recovery epochs run on.
 """
 
-from repro_torch.checkpoint.fault import drop_site, drop_site_mask
+from repro_torch.checkpoint.checkpoint import CheckpointManager, restore_tree, save_tree
+from repro_torch.checkpoint.fault import (
+    FailureInjector,
+    SimulatedFailure,
+    drop_site,
+    drop_site_mask,
+    run_with_restarts,
+)
 
-__all__ = ["drop_site", "drop_site_mask"]
+__all__ = [
+    "CheckpointManager",
+    "save_tree",
+    "restore_tree",
+    "SimulatedFailure",
+    "FailureInjector",
+    "run_with_restarts",
+    "drop_site",
+    "drop_site_mask",
+]

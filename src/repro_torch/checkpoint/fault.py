@@ -1,16 +1,128 @@
-"""Elastic shrink of the GDA control plane when a site is lost.
+"""Fault tolerance: failure injection, restart orchestration, elastic
+shrink — the port of ``repro.checkpoint.fault``.
 
-``drop_site`` removes the dead site (a shape change, host-side);
-``drop_site_mask`` zeroes it under an ``alive`` mask so the placement
-controller can run it inside its slot loop with N fixed. Both take optional
-leading run dimensions on the per-run state (q, data_dist), written with
-negative axes; masks are shared or carry the same leading dims.
+* checkpoint/restart: :func:`run_with_restarts` drives a step function,
+  checkpointing on the manager's schedule and replaying from the last
+  checkpoint after a (simulated or real) failure. The token stream is
+  seeded by step (:mod:`repro_torch.traces.tokens`), so replayed batches
+  are identical and a restarted run is bitwise the uninterrupted one
+  (tests/test_torch_checkpoint.py).
+* elastic shrink: ``drop_site`` removes the dead site (a shape change,
+  host-side); ``drop_site_mask`` zeroes it under an ``alive`` mask so the
+  placement controller can run it inside its slot loop with N fixed. Both
+  take optional leading run dimensions on the per-run state (q,
+  data_dist), written with negative axes; masks are shared or carry the
+  same leading dims.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
+import numpy as np
 import torch
 from torch import Tensor
+
+from repro_torch.checkpoint.checkpoint import CheckpointManager
+
+
+class SimulatedFailure(RuntimeError):
+    """Raised by FailureInjector to model a node/pod loss."""
+
+
+@dataclasses.dataclass
+class FailureInjector:
+    """Fail at given steps, or by a seeded coin per step.
+
+    The schedule is a pure function of the config: :meth:`fails_at` draws
+    the ``probability`` path's coin from numpy's generator seeded by
+    ``(seed, step)`` alone (the JAX package's draw, so both packages see
+    one schedule). ``_fired`` records the failures this run has already
+    survived (a transient failure does not recur when the step is
+    replayed); :func:`run_with_restarts` keeps it in checkpoint metadata so
+    a restarted process does not see them again either."""
+
+    fail_at_steps: tuple[int, ...] = ()
+    probability: float = 0.0
+    seed: int = 0
+    _fired: set = dataclasses.field(default_factory=set)
+
+    def fails_at(self, step: int) -> bool:
+        """Pure schedule membership: does the config fail at ``step``?"""
+        if step in self.fail_at_steps:
+            return True
+        if self.probability > 0:
+            rng = np.random.default_rng((self.seed, step))
+            return bool(rng.random() < self.probability)
+        return False
+
+    def maybe_fail(self, step: int):
+        if step not in self._fired and self.fails_at(step):
+            self._fired.add(step)
+            raise SimulatedFailure(f"injected failure at step {step}")
+
+    def fired_steps(self) -> list[int]:
+        """JSON-serializable record of already-experienced failures."""
+        return sorted(self._fired)
+
+    def mark_fired(self, steps) -> None:
+        """Restore the experienced-failure record (from checkpoint meta)."""
+        self._fired.update(int(s) for s in steps)
+
+
+def run_with_restarts(
+    init_state: Callable[[], dict],
+    step_fn: Callable[[dict, int], dict],
+    manager: CheckpointManager,
+    total_steps: int,
+    injector: FailureInjector | None = None,
+    max_restarts: int = 10,
+) -> tuple[dict, dict]:
+    """Drive ``step_fn(state, step) -> state`` with checkpoint/restart.
+
+    ``state`` is a nested dict of tensors. Checkpoints are written with
+    ``save_async`` on the manager's schedule; a :class:`SimulatedFailure`
+    restores the latest one (or restarts cold) and replays. Returns
+    (final_state, stats) with the counts of restarts, replayed steps and
+    checkpoints."""
+    stats = {"restarts": 0, "replayed_steps": 0, "checkpoints": 0}
+    state = init_state()
+    start = 0
+    if manager.latest_step() is not None:
+        state, meta, start = manager.restore(state)
+        # A restarted process sees the failure schedule of the one it
+        # replaced: failures survived before the checkpoint do not recur.
+        if injector is not None:
+            injector.mark_fired(meta.get("fired_steps", ()))
+    step = start
+    while step < total_steps:
+        try:
+            if injector is not None:
+                injector.maybe_fail(step)
+            state = step_fn(state, step)
+            step += 1
+            if manager.should_save(step):
+                meta = {"step": step}
+                if injector is not None:
+                    meta["fired_steps"] = injector.fired_steps()
+                manager.save_async(step, state, meta)
+                stats["checkpoints"] += 1
+        except SimulatedFailure:
+            stats["restarts"] += 1
+            if stats["restarts"] > max_restarts:
+                raise
+            manager.wait()   # join any in-flight write before listing
+            latest = manager.latest_step()
+            if latest is None:
+                stats["replayed_steps"] += step   # cold restart: all lost
+                state, step = init_state(), 0
+            else:
+                state, _, ckpt_step = manager.restore(state)
+                stats["replayed_steps"] += step - ckpt_step
+                step = ckpt_step
+    manager.wait()
+    return state, stats
 
 
 def drop_site(q: Tensor, r: Tensor, data_dist: Tensor, dead: int):

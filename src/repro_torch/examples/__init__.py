@@ -9,7 +9,10 @@ prints (``runs=None``: the reference's Monte-Carlo counts):
 * ``staged_jobs`` — stage-aware against stage-oblivious dispatch, then the
   placement controller reshaping the map stage's locality;
 * ``adaptive_placement`` — two-timescale placement, then a site lost at noon;
-* ``serve_geo`` — GMSA-dispatched serving with real model execution.
+* ``serve_geo`` — GMSA-dispatched serving with real model execution;
+* ``train_lm`` — training through a failure and a restart from the last
+  checkpoint (``main(device=None, steps=None)`` returns the first and last
+  mean losses).
 
 The paper's evaluation is ``repro_torch.benchmarks.paper_repro``.
 """

@@ -33,6 +33,7 @@ BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "torch_kernels"
 SOURCES = {
     "gmsa_score": _KERNELS_DIR / "gmsa_score" / "csrc" / "gmsa_score.cu",
     "ssd_scan": _KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan.cu",
+    "ssd_scan_bwd": _KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan_bwd.cu",
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

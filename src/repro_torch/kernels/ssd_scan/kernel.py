@@ -1,4 +1,5 @@
-"""ctypes binding of the CUDA ``ssd_scan`` chain (``csrc/ssd_scan.cu``).
+"""ctypes bindings of the CUDA ``ssd_scan`` chains: the forward
+(``csrc/ssd_scan.cu``) and its gradient (``csrc/ssd_scan_bwd.cu``).
 
 The library is built by ``nvcc`` at first use (:mod:`repro_torch.kernels._build`).
 One call of ``ssd_scan_launch`` launches the chain's five kernels in order on
@@ -9,6 +10,12 @@ CBᵀ per chunk and the per-chunk states); they are freed after the call.
 Sizes go over as 64-bit integers and every offset inside the kernels is
 64-bit: at the ``prefill_32k`` shape (B = 32, S = 32768, H = 80, P = 64) x
 has 5.4e9 elements.
+
+One call of ``ssd_scan_bwd_launch`` launches the backward chain's four
+kernels in order — chunk_dstate (with R), dstate_pass, chunk_bwd,
+chunk_dbc — and counts as one launch of ``ssd_scan_bwd_cuda``. It reads the
+forward's three workspaces, so its caller keeps them from the forward
+(:class:`~repro_torch.kernels.ssd_scan.ops.SsdScanFn`).
 """
 
 from __future__ import annotations
@@ -116,3 +123,91 @@ def ssd_scan_cuda(
 
 
 ssd_scan_cuda.launches = 0
+
+
+@functools.cache
+def _bwd_launcher():
+    fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_launch
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [ptr] * 18 + [i64] * 6 + [ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ssd_scan_bwd_cuda_phases(
+    x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor, c_mat: Tensor, dy: Tensor,
+    dh_final: Tensor, cum: Tensor, g: Tensor, h_in: Tensor, chunk: int,
+) -> tuple[Tensor, ...]:
+    """:func:`ssd_scan_bwd_cuda` returning the chain's workspaces too, in the
+    layouts of :func:`~repro_torch.kernels.ssd_scan.ref.ssd_scan_bwd_phases_ref`:
+    (dx, ddt, da, dB, dC, G (B,S/Q,H,P,N), R (B,S/Q,Q,Q), valid on and below
+    the diagonal). Counts one launch."""
+    ops = (x, dt, a, b_mat, c_mat, dy, dh_final, h_in, g)
+    if any(t.device.type != "cuda" for t in ops + (cum,)):
+        raise TypeError("ssd_scan_bwd_cuda takes CUDA tensors only")
+    if len({t.device for t in ops + (cum,)}) != 1:
+        raise ValueError("ssd_scan_bwd_cuda operands must share one device")
+    if any(t.dtype != torch.float32 for t in ops) or cum.dtype != torch.float64:
+        raise NotImplementedError(
+            "the ssd_scan backward takes fp32 operands and gradients (and the fp64 cum "
+            f"workspace), got {[t.dtype for t in ops]}, cum {cum.dtype}")
+    if not all(t.is_contiguous() for t in ops + (cum,)):
+        raise ValueError("ssd_scan_bwd_cuda operands must be contiguous")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, S, H, P), got {tuple(x.shape)}")
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    if not 1 <= chunk <= MAX_CHUNK or s % chunk:
+        raise ValueError(f"chunk {chunk} must be in [1, {MAX_CHUNK}] and divide S={s}")
+    nc = s // chunk
+    want = {"dt": (bsz, s, h), "a": (h,), "b": (bsz, s, n), "c": (bsz, s, n),
+            "dy": (bsz, s, h, p), "dh_final": (bsz, h, p, n), "cum": (bsz, h, s),
+            "g": (bsz, nc, chunk, chunk), "h_in": (bsz, nc, h, p, n)}
+    got = dict(zip(want, (dt, a, b_mat, c_mat, dy, dh_final, cum, g, h_in)))
+    bad = {k: tuple(v.shape) for k, v in got.items() if tuple(v.shape) != want[k]}
+    if bad:
+        raise ValueError(f"shape mismatch against x {tuple(x.shape)}, N={n}: {bad}")
+    if p > MAX_P or n > MAX_N or bsz * nc * h > _MAX_BLOCKS:
+        raise ValueError(f"P={p}, N={n} outside the kernels' limits (P <= {MAX_P}, "
+                         f"N <= {MAX_N}) or too many blocks")
+    dev, f32 = x.device, torch.float32
+    dx, ddt, db, dc = (torch.empty_like(t) for t in (x, dt, b_mat, c_mat))
+    da = torch.empty((h,), device=dev, dtype=f32)
+    gstates = torch.empty((bsz, nc, h, p, n), device=dev, dtype=f32)
+    r = torch.empty((bsz, nc, chunk, chunk), device=dev, dtype=f32)
+    da_part = torch.empty((bsz, nc, h), device=dev, dtype=f32)
+    if bsz and s and h and p and n:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _bwd_launcher()(
+                x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+                dy.data_ptr(), dh_final.data_ptr(), cum.data_ptr(), g.data_ptr(),
+                h_in.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
+                dc.data_ptr(), gstates.data_ptr(), r.data_ptr(), da_part.data_ptr(),
+                bsz, s, h, p, n, chunk, stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA error {rc}")
+        ssd_scan_bwd_cuda.launches += 1
+    else:
+        for t in (dx, ddt, da, db, dc):
+            t.zero_()
+    return dx, ddt, da, db, dc, gstates, r
+
+
+def ssd_scan_bwd_cuda(
+    x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor, c_mat: Tensor, dy: Tensor,
+    dh_final: Tensor, cum: Tensor, g: Tensor, h_in: Tensor, chunk: int,
+) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Launch the backward chain: the gradient of :func:`ssd_scan_cuda` at
+    (x, dt, a, b_mat, c_mat) given dy (B,S,H,P) and dh_final (B,H,P,N),
+    from the forward's workspaces (cum, G, h_in of
+    :func:`_ssd_scan_cuda_phases`). Every operand fp32 (cum fp64),
+    contiguous, on one CUDA device, S a multiple of ``chunk``. Returns (dx,
+    ddt, da, dB, dC), fp32. Increments ``ssd_scan_bwd_cuda.launches`` once
+    per call: one launch is one call of the four-kernel chain."""
+    return _ssd_scan_bwd_cuda_phases(x, dt, a, b_mat, c_mat, dy, dh_final, cum, g, h_in,
+                                     chunk)[:5]
+
+
+ssd_scan_bwd_cuda.launches = 0

@@ -6,6 +6,13 @@ less ``interpret=``. S is padded to a chunk multiple with dt = 0 steps
 cast to fp32. CUDA tensors go to the hand-written kernel — which launches
 or raises; there is no fallback — and CPU tensors to the plain sequential
 version.
+
+Under autograd (grad enabled and an operand requiring grad) the call goes
+through :class:`SsdScanFn`: on CUDA the forward chain, keeping its three
+workspaces, and the hand-written backward chain; on the CPU their plain
+phase-by-phase versions. The padding stays outside the Function, so the
+gradients of padded steps are dropped by ``F.pad``'s backward. Without
+grad the paths above are unchanged.
 """
 
 from __future__ import annotations
@@ -14,8 +21,48 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from torch.autograd.function import once_differentiable
+
+from repro_torch.kernels.ssd_scan.kernel import (
+    _ssd_scan_cuda_phases,
+    ssd_scan_bwd_cuda,
+    ssd_scan_cuda,
+)
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref, ssd_scan_phases_ref, ssd_scan_ref
+
+
+class SsdScanFn(torch.autograd.Function):
+    """The SSD scan with its gradient: (x, dt, a, b_mat, c_mat, chunk) ->
+    (y, h_final), S a multiple of ``chunk``, x / b_mat / c_mat fp32.
+
+    CUDA: the forward chain (one ``ssd_scan_cuda`` launch, its workspaces
+    cum, G, h_in saved) and the backward chain (one ``ssd_scan_bwd_cuda``
+    launch). CPU: ``ssd_scan_phases_ref`` and ``ssd_scan_bwd_ref``, the same
+    algorithms in plain PyTorch. A ``None`` gradient of y or h_final is
+    zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, chunk):
+        if x.is_cuda:
+            y, h_final, cum, g, h_in = _ssd_scan_cuda_phases(x, dt, a, b_mat, c_mat, chunk)
+        else:
+            y, h_final, cum, g, h_in = ssd_scan_phases_ref(x, dt, a, b_mat, c_mat, chunk)
+        ctx.save_for_backward(x, dt, a, b_mat, c_mat, cum, g, h_in)
+        ctx.chunk = chunk
+        return y, h_final
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dh_final):
+        x, dt, a, b_mat, c_mat, cum, g, h_in = ctx.saved_tensors
+        bsz, _, h, p = x.shape
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dh_final is None:
+            dh_final = x.new_zeros((bsz, h, p, b_mat.shape[-1]))
+        bwd = ssd_scan_bwd_cuda if x.is_cuda else ssd_scan_bwd_ref
+        dx, ddt, da, db, dc = bwd(x, dt, a, b_mat, c_mat, dy, dh_final.contiguous(), cum, g,
+                                  h_in, ctx.chunk)
+        return dx, ddt, da, db, dc, None
 
 
 def ssd_scan(
@@ -44,7 +91,14 @@ def ssd_scan(
         dt = F.pad(dt, (0, 0, 0, pad))
         b_mat = F.pad(b_mat, (0, 0, 0, pad))
         c_mat = F.pad(c_mat, (0, 0, 0, pad))
-    if x.is_cuda:
+    ops = (x, dt, a, b_mat, c_mat)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        if any(t.dtype != torch.float32 for t in (x, b_mat, c_mat)):
+            raise NotImplementedError(
+                "ssd_scan's gradient takes fp32 x, b_mat, c_mat (the training path), got "
+                f"{x.dtype}, {b_mat.dtype}, {c_mat.dtype}")
+        y, h_final = SsdScanFn.apply(*(t.contiguous() for t in ops), chunk)
+    elif x.is_cuda:
         y, h_final = ssd_scan_cuda(
             x.contiguous(), dt.contiguous(), a.contiguous(), b_mat.contiguous(),
             c_mat.contiguous(), chunk,

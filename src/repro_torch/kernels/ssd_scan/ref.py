@@ -14,7 +14,15 @@ against an independent formulation. It serves CPU tensors, the CPU tests and
 :func:`ssd_scan_phases_ref` is the CUDA chain's own algorithm, phase by
 phase, returning its workspaces in the chain's layouts, so that a fault on
 the card shows in the first phase whose workspace differs. The main path
-never calls it.
+calls it only on the CPU under autograd, where it is the forward of
+:class:`~repro_torch.kernels.ssd_scan.ops.SsdScanFn` (it keeps the
+workspaces the backward reads).
+
+:func:`ssd_scan_bwd_phases_ref` is the CUDA backward chain's algorithm
+(``csrc/ssd_scan_bwd.cu``), phase by phase: the gradient of
+:func:`ssd_scan_phases_ref` from the forward's workspaces. It serves CPU
+tensors under autograd and ``chip_smoke.py``'s comparisons on the card;
+:func:`ssd_scan_bwd_ref` returns its five gradients.
 """
 
 from __future__ import annotations
@@ -111,3 +119,102 @@ def ssd_scan_phases_ref(
     y = y.reshape(bsz, nc * q, h, p)[:, :s].to(x.dtype)
     cum = cum.permute(0, 3, 1, 2).reshape(bsz, h, nc * q)
     return y, hcur, cum, g, h_in
+
+
+def ssd_scan_bwd_phases_ref(
+    x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor, c_mat: Tensor,
+    dy: Tensor,        # (B, S, H, P)  upstream gradient of y
+    dh_final: Tensor,  # (B, H, P, N)  upstream gradient of the final state
+    cum: Tensor, g: Tensor, h_in: Tensor,   # the forward's workspaces (G read on and below the diagonal)
+    chunk: int,
+) -> tuple[Tensor, ...]:
+    """The backward chain's phases in plain PyTorch, S a multiple of
+    ``chunk`` (the wrapper pads before the forward). With nc = S / Q,
+    per (b, h) and chunk c, ``cum`` local to the chunk, A_c = cum_Q,
+    L_ts = exp(cum_t - cum_s) for t >= s, CB_ts = C_t·B_s, M_ts = dy_t·x_s
+    and G_c the gradient of the state leaving chunk c:
+
+    - chunk_dstate: D_c = Σ_t exp(cum_t) dy_t ⊗ C_t, and R_ts = Σ_h dt_s
+      L_ts M_ts (t >= s), once per (b, chunk) for all heads;
+    - dstate_pass: G_{nc-1} = dh_final, G_{c-1} = exp(A_c) G_c + D_c;
+    - chunk_bwd, per head: dx_s = dt_s [Σ_{t>=s} L_ts CB_ts dy_t +
+      exp(A_c - cum_s) G_c B_s]; the direct ddt_s = Σ_t L_ts CB_ts M_ts +
+      exp(A_c - cum_s) x_s·(G_c B_s); ∂cum from W_ts = L_ts CB_ts dt_s M_ts
+      (+ on t, − on s), the inter-chunk term exp(cum_t) dy_t·(h_in C_t),
+      V_s = exp(A_c - cum_s) dt_s x_s·(G_c B_s) (− on s, + on Q) and
+      exp(A_c) <G_c, h_in> on Q; the reverse cumsum of ∂cum adds a·(…) to
+      ddt and Σ dt·(…) to da;
+    - chunk_dbc: dB_s = Σ_t R_ts C_t + Σ_h dt_s exp(A_c - cum_s) G_cᵀ x_s,
+      dC_t = Σ_s R_ts B_s + Σ_h exp(cum_t) h_inᵀ dy_t; da summed over (b, c).
+
+    Returns (dx (B,S,H,P), ddt (B,S,H), da (H,), dB, dC (B,S,N)), all fp32,
+    then the workspaces G (B, nc, H, P, N) and R (B, nc, Q, Q) (zero above
+    the diagonal). Every exponent is an fp64 difference of cum values
+    rounded once to fp32, as in the forward."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    q = chunk
+    if s % q:
+        raise ValueError(f"S={s} is not a multiple of chunk {q}: the wrapper pads first")
+    nc = s // q
+    f32 = torch.float32
+    xc = x.reshape(bsz, nc, q, h, p).to(f32)
+    dyc = dy.reshape(bsz, nc, q, h, p).to(f32)
+    dtc = dt.reshape(bsz, nc, q, h).to(f32)
+    bc = b_mat.reshape(bsz, nc, q, n).to(f32)
+    cc = c_mat.reshape(bsz, nc, q, n).to(f32)
+    cumc = cum.reshape(bsz, h, nc, q).permute(0, 2, 3, 1)             # (B,NC,Q,H) fp64
+    last = cumc[:, :, -1, :]                                           # (B,NC,H)
+    tri = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    # The forward chain leaves G above the diagonal unspecified (possibly
+    # inf or NaN): select, never multiply by a mask.
+    g = torch.where(tri, g, 0.0)
+    e_in = torch.exp(cumc.to(f32))                                     # exp(cum_t)
+    e_out = torch.exp((last[:, :, None, :] - cumc).to(f32))            # exp(A_c - cum_s)
+
+    # Phase 1, chunk_dstate: D_c per head, and R once per (b, chunk).
+    dstate = torch.einsum("bcth,bcthp,bctn->bchpn", e_in, dyc, cc)
+    seg = cumc[:, :, :, None, :] - cumc[:, :, None, :, :]             # (B,NC,Q,Q,H) [t, s]
+    seg = seg.masked_fill(~tri[None, None, :, :, None], float("-inf"))
+    lmat = torch.exp(seg.to(f32))
+    mmat = torch.einsum("bcthp,bcshp->bctsh", dyc, xc)
+    r = torch.einsum("bctsh,bcsh->bcts", lmat * mmat, dtc)
+    # Phase 2, dstate_pass: the gradient of the state leaving each chunk.
+    decay = torch.exp(last.to(f32))
+    gcur = dh_final.to(f32)
+    gs = []
+    for c in reversed(range(nc)):
+        gs.append(gcur)
+        gcur = decay[:, c, :, None, None] * gcur + dstate[:, c]
+    gst = torch.stack(gs[::-1], dim=1)                                 # (B,NC,H,P,N)
+    # Phase 3, chunk_bwd: dx, ddt and the da partials, per head.
+    wt = g[..., None] * lmat                                           # L ⊙ CB, [t, s]
+    inter = torch.einsum("bcsn,bchpn->bcshp", bc, gst)                 # G_c B_s
+    dx = dtc[..., None] * (torch.einsum("bctsh,bcthp->bcshp", wt, dyc) + e_out[..., None] * inter)
+    p1 = wt * mmat
+    col = p1.sum(dim=2)                                                # Σ_t, (B,NC,Q,H) on s
+    row = torch.einsum("bctsh,bcsh->bcth", p1, dtc)                    # Σ_s W_ts
+    xi = (xc * inter).sum(-1)
+    v = e_out * dtc * xi
+    yi = torch.einsum("bctn,bchpn->bcthp", cc, h_in)                   # h_in C_t
+    dcum = row - dtc * col - v + e_in * (dyc * yi).sum(-1)
+    dcum[:, :, -1, :] += decay * (gst * h_in).sum((-1, -2)) + v.sum(2)
+    rev = dcum.flip(2).cumsum(2).flip(2)
+    ddt = col + e_out * xi + a.to(f32) * rev
+    da = (dtc * rev).sum(2).sum((0, 1))
+    # Phase 4, chunk_dbc: dB and dC, summed over heads.
+    db = torch.einsum("bcts,bctn->bcsn", r, cc) + torch.einsum(
+        "bcsh,bcshp,bchpn->bcsn", dtc * e_out, xc, gst)
+    dc = torch.einsum("bcts,bcsn->bctn", r, bc) + torch.einsum(
+        "bcth,bcthp,bchpn->bctn", e_in, dyc, h_in)
+    return (dx.reshape(bsz, s, h, p), ddt.reshape(bsz, s, h), da, db.reshape(bsz, s, n),
+            dc.reshape(bsz, s, n), gst, r)
+
+
+def ssd_scan_bwd_ref(
+    x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor, c_mat: Tensor, dy: Tensor,
+    dh_final: Tensor, cum: Tensor, g: Tensor, h_in: Tensor, chunk: int,
+) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """(dx, ddt, da, dB, dC) of :func:`ssd_scan_bwd_phases_ref`."""
+    return ssd_scan_bwd_phases_ref(x, dt, a, b_mat, c_mat, dy, dh_final, cum, g, h_in,
+                                   chunk)[:5]

@@ -1,1 +1,1 @@
-"""repro_torch.launch — command-line entry points (the serving launcher)."""
+"""repro_torch.launch — command-line entry points (the serving and training launchers)."""

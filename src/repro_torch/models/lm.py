@@ -29,6 +29,13 @@ The decode cache holds, per attention layer, a KV ring of ``sc`` slots
 (slot ``j`` holds the position ``p`` with ``p % sc == j``), and per SSM
 layer the recurrent state and the conv tail; ``pos`` (int32) counts the
 positions done, a prefix's included.
+
+Training: :func:`loss_fn` (masked next-token CE, z-loss, the router's aux)
+over :func:`forward` with ``remat``, each layer the function
+:func:`make_block_fn` builds, wrapped in ``torch.utils.checkpoint`` as the
+policy says. Under autograd the SSD scan's gradient is the kernel's own
+backward (``SsdScanFn``); the layers' parameter views are ``unbind``-ed
+once per forward, so each stacked leaf's gradient is stacked once.
 """
 
 from __future__ import annotations
@@ -340,6 +347,16 @@ def _layer(params: Params, i: int) -> Params:
     return {name: leaf[i] for name, leaf in params["blocks"].items()}
 
 
+def _layers(params: Params, n: int) -> list[Params]:
+    """The n layers' parameter views, each stacked leaf ``unbind``-ed once:
+    under autograd the backward stacks the layers' gradients once per leaf,
+    where indexing ``leaf[i]`` per layer would add a full (L, ...) zero
+    tensor into the leaf's gradient for every layer (O(L²) in memory
+    traffic)."""
+    views = {name: leaf.unbind(0) for name, leaf in params["blocks"].items()}
+    return [{name: v[i] for name, v in views.items()} for i in range(n)]
+
+
 def _logits(params: Params, cfg: ModelConfig, h: Tensor) -> Tensor:
     h = _norm(h, params["final_norm"], params.get("final_norm_bias"), cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -356,8 +373,13 @@ def _embed(params: Params, cfg: ModelConfig, tokens: Tensor | None,
     stub embeddings projected and RMS-normed in front of them (vision) or
     in their place (audio: ``tokens`` is None). The stubs are cast to the
     params' dtype before the projection. Without a frontend,
-    ``prefix_embeds`` is ignored."""
-    h = None if tokens is None else params["embed"][tokens]
+    ``prefix_embeds`` is ignored. The lookup is ``F.embedding`` (the same
+    gather as ``embed[tokens]``) because its backward sums each row's
+    gradients in a fixed order; indexing's backward (``index_put_`` with
+    accumulation) does not on the CPU, where two identical runs gave two
+    embedding gradients. So a training run, and a restarted one, repeat
+    bitwise."""
+    h = None if tokens is None else F.embedding(tokens, params["embed"])
     if cfg.frontend and prefix_embeds is not None:
         pre = prefix_embeds.to(params["final_norm"].dtype) @ params["frontend_proj"]
         pre = rms_norm(pre, params["frontend_norm"], cfg.norm_eps)
@@ -367,24 +389,20 @@ def _embed(params: Params, cfg: ModelConfig, tokens: Tensor | None,
     return h
 
 
-def _trunk(params: Params, cfg: ModelConfig, tokens: Tensor | None,
-           prefix_embeds: Tensor | None, attn_impl: str, collect_cache: bool, cache_dtype,
-           cache_len: int | None):
-    """Embed (a frontend's prefix included) and every layer: (final hidden
-    state (B,S,D), the layers' summed router aux (fp32 scalar, 0 without
-    experts), cache or None)."""
-    h = _embed(params, cfg, tokens, prefix_embeds)
-    s = h.shape[1]
-    positions = torch.arange(s, device=h.device)
-    sin = cos = None
-    if cfg.has_attention:
-        sin, cos = rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta)
-        sc = cache_len_for(cfg, cache_len or s)
-    caches: dict[str, list[Tensor]] = {}
-    auxes: list[Tensor] = []
-    attn_out = ssm_out = None
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+def make_block_fn(cfg: ModelConfig, sin: Tensor | None, cos: Tensor | None, attn_impl: str,
+                  positions: Tensor, collect_cache: bool = False, cache_dtype=torch.bfloat16,
+                  cache_slots: int | None = None):
+    """One layer as a function ``block(h, lp) -> (h', aux, cache)``, the
+    counterpart of the JAX package's scan body (``make_block_fn``): the
+    mixer (attention, SSM or both), its residual, then the FFN's. ``aux``
+    is the router's loss (fp32 scalar) or None without experts; ``cache``
+    this layer's decode-cache leaves (the K/V ring of ``cache_slots``
+    slots, the SSM state and conv tail) when ``collect_cache``, else an
+    empty dict."""
+
+    def block(h: Tensor, lp: Params):
+        attn_out = ssm_out = None
+        cache: dict[str, Tensor] = {}
         # A non-hybrid config with both still runs its SSM layer, for its
         # cache leaves (_mix takes attention).
         if cfg.has_attention:
@@ -395,16 +413,75 @@ def _trunk(params: Params, cfg: ModelConfig, tokens: Tensor | None,
             h = h + _mix(lp, cfg, attn_out, ssm_out)
         if collect_cache:
             if cfg.has_attention:
-                caches.setdefault("k", []).append(_ring_gather(k, sc).to(cache_dtype))
-                caches.setdefault("v", []).append(_ring_gather(v, sc).to(cache_dtype))
+                cache["k"] = _ring_gather(k, cache_slots).to(cache_dtype)
+                cache["v"] = _ring_gather(v, cache_slots).to(cache_dtype)
             if cfg.has_ssm:
-                caches.setdefault("ssm_state", []).append(state)
-                caches.setdefault("conv_state", []).append(conv_tail.to(cache_dtype))
+                cache["ssm_state"] = state
+                cache["conv_state"] = conv_tail.to(cache_dtype)
+        aux = None
         if cfg.d_ff > 0 or cfg.is_moe:
             mlp_out, aux = _mlp_block(lp, h, cfg)
             h = h + mlp_out
-            if aux is not None:
-                auxes.append(aux)
+        return h, aux, cache
+
+    return block
+
+
+#: The JAX package's remat policies -> what the port saves per layer:
+#: "none" keeps every activation; "full" (the JAX package's
+#: nothing_saveable) and "full_recompute" keep only the layer's input and
+#: recompute the layer in the backward; "dots" (dots_saveable) keeps the
+#: outputs of the matrix products and recomputes the rest.
+REMAT_POLICIES = ("none", "dots", "full", "full_recompute")
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(block, remat: str):
+    """``block`` wrapped in ``torch.utils.checkpoint`` as ``remat`` says."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat must be one of {REMAT_POLICIES}, got {remat!r}")
+    if remat == "none":
+        return block
+    if remat == "dots":
+        context = lambda: create_selective_checkpoint_contexts(_save_dots)
+        return lambda h, lp: checkpoint(block, h, lp, use_reentrant=False, context_fn=context)
+    return lambda h, lp: checkpoint(block, h, lp, use_reentrant=False)
+
+
+def _trunk(params: Params, cfg: ModelConfig, tokens: Tensor | None,
+           prefix_embeds: Tensor | None, attn_impl: str, collect_cache: bool, cache_dtype,
+           cache_len: int | None, remat: str = "none"):
+    """Embed (a frontend's prefix included) and every layer: (final hidden
+    state (B,S,D), the layers' summed router aux (fp32 scalar, 0 without
+    experts), cache or None)."""
+    if collect_cache and remat != "none":
+        raise ValueError(f"collect_cache takes remat='none', got {remat!r}")
+    h = _embed(params, cfg, tokens, prefix_embeds)
+    s = h.shape[1]
+    positions = torch.arange(s, device=h.device)
+    sin = cos = sc = None
+    if cfg.has_attention:
+        sin, cos = rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        sc = cache_len_for(cfg, cache_len or s)
+    block = _remat(make_block_fn(cfg, sin, cos, attn_impl, positions, collect_cache,
+                                 cache_dtype, sc), remat)
+    caches: dict[str, list[Tensor]] = {}
+    auxes: list[Tensor] = []
+    for lp in _layers(params, cfg.num_layers):
+        h, aux, cache = block(h, lp)
+        if aux is not None:
+            auxes.append(aux)
+        for name, leaf in cache.items():
+            caches.setdefault(name, []).append(leaf)
     aux = (torch.stack(auxes).sum() if auxes
            else torch.zeros((), dtype=torch.float32, device=h.device))
     if not collect_cache:
@@ -423,8 +500,9 @@ def forward(
     collect_cache: bool = False,
     cache_dtype=torch.bfloat16,
     cache_len: int | None = None,
+    remat: str = "none",
 ) -> tuple[Tensor, Tensor] | tuple[Tensor, Tensor, Params]:
-    """Full-sequence forward. Returns (logits fp32 (B,S,Vp), aux_loss) — plus
+    """Full-sequence forward (train / prefill). Returns (logits fp32 (B,S,Vp), aux_loss) — plus
     the assembled decode cache when ``collect_cache`` (prefill). aux_loss
     sums the MoE layers' router losses (each the mean over rows of the
     Switch loss); models without experts give 0. ``attn_impl``:
@@ -434,9 +512,13 @@ def forward(
     (vision patches, audio frames), the frontend stub. A vision model puts
     them in front of the token embeddings; for the audio encoder they are
     the input (``tokens`` may be None). S counts both.
+
+    ``remat``: one of :data:`REMAT_POLICIES`, each layer through
+    ``torch.utils.checkpoint`` (non-reentrant) as the JAX package's
+    ``jax.checkpoint`` policies; ``collect_cache`` takes ``"none"`` only.
     """
     h, aux, cache = _trunk(params, cfg, tokens, prefix_embeds, attn_impl, collect_cache,
-                           cache_dtype, cache_len)
+                           cache_dtype, cache_len, remat)
     logits = _logits(params, cfg, h)
     if collect_cache:
         return logits, aux, cache
@@ -463,6 +545,41 @@ def prefill_step(
     h, _, cache = _trunk(params, cfg, tokens, prefix_embeds, attn_impl, True, cache_dtype,
                          cache_len)
     return _logits(params, cfg, h[:, -1:]), cache
+
+
+def loss_fn(
+    params: Params,
+    cfg: ModelConfig,
+    batch: dict[str, Tensor],
+    attn_impl: str = "blockwise",
+    remat: str = "none",
+    aux_coef: float = 0.01,
+    z_coef: float = 1e-4,
+) -> tuple[Tensor, dict[str, Tensor]]:
+    """Masked next-token cross-entropy + router aux + z-loss, as the JAX
+    package's ``loss_fn``: padded vocab columns set to -1e30 before the
+    logsumexp, a vision prefix's positions sliced off the logits, z-loss
+    ``z_coef · Σ(logz · mask)² / denom``. Returns (total, {"ce", "z_loss",
+    "aux"}), fp32 scalars. ``batch``: tokens (int64; absent for audio),
+    labels, loss_mask, optional prefix_embeds."""
+    logits, aux = forward(params, cfg, batch.get("tokens"),
+                          prefix_embeds=batch.get("prefix_embeds"), attn_impl=attn_impl,
+                          remat=remat)
+    labels = batch["labels"]
+    mask = batch["loss_mask"].float()
+    if cfg.frontend == "vision" and batch.get("prefix_embeds") is not None:
+        logits = logits[:, batch["prefix_embeds"].shape[1]:, :]
+    vp = logits.shape[-1]
+    col_ok = torch.arange(vp, device=logits.device) < cfg.vocab_size
+    logits = torch.where(col_ok, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ce = (logz - gold) * mask
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    ce_mean = ce.sum() / denom
+    z_loss = z_coef * ((logz * mask) ** 2).sum() / denom
+    total = ce_mean + z_loss + aux_coef * aux
+    return total, {"ce": ce_mean, "z_loss": z_loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

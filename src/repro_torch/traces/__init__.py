@@ -1,1 +1,1 @@
-"""repro_torch.traces — arrival, price, PUE, bandwidth and dataset traces."""
+"""repro_torch.traces — arrival, price, PUE, bandwidth, dataset and stage traces, and the token stream (``tokens``)."""

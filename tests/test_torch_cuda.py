@@ -28,8 +28,18 @@ from repro_torch.jobs import (
 )
 from repro_torch.kernels.gmsa_score import gmsa_score, gmsa_score_phases_ref, gmsa_score_ref
 from repro_torch.kernels.gmsa_score.kernel import _gmsa_score_cuda_phases, gmsa_score_cuda
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_phases_ref, ssd_scan_ref
-from repro_torch.kernels.ssd_scan.kernel import _ssd_scan_cuda_phases, ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import (
+    ssd_scan,
+    ssd_scan_bwd_phases_ref,
+    ssd_scan_phases_ref,
+    ssd_scan_ref,
+)
+from repro_torch.kernels.ssd_scan.kernel import (
+    _ssd_scan_bwd_cuda_phases,
+    _ssd_scan_cuda_phases,
+    ssd_scan_bwd_cuda,
+    ssd_scan_cuda,
+)
 from repro_torch.models import lm
 from repro_torch.serve.step import make_local_exec
 from repro_torch.benchmarks import serve_bench
@@ -753,3 +763,107 @@ def test_moe_and_hybrid_engine_launches_gmsa_score_once_per_slot(cuda):
     want = sum(min(int(round(c)), eng.fcfg.exec_cap) for c in out["completed"].reshape(-1))
     assert out["exec_jobs"] == want > 0 and len(batches["deepseek-moe-16b"]) > 0
     serve_bench.check_conservation(out)
+
+
+# ---------------------------------------------------------------------------
+# Training: the ssd_scan backward chain, the train step
+# ---------------------------------------------------------------------------
+
+#: Gradients within 3e-4 of each one's largest |value| (chip_smoke.py's
+#: SSD_BWD_TOL: fp32 summation orders; the forward's tolerance).
+BWD_TOL = 3e-4
+
+
+def _rel_max(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def test_ssd_scan_has_a_gradient_on_cuda(cuda):
+    """The wrapper under autograd on CUDA tensors: y has a grad_fn (the
+    silent-gradient fault: the bare chain's y had none), every operand gets
+    a gradient, and they match autograd through the sequential form."""
+    ops = _ssd_inputs(23, 2, 100, 3, 64, 128, torch.float32, cuda)
+    leaves = [t.clone().requires_grad_() for t in ops]
+    before = (ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches)
+    y, hf = ssd_scan(*leaves, chunk=32)
+    assert y.grad_fn is not None and type(hf.grad_fn).__name__ == "SsdScanFnBackward"
+    dy = torch.randn(y.shape, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    y.backward(dy)
+    assert (ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    ref = [t.clone().requires_grad_() for t in ops]
+    ssd_scan_ref(*ref)[0].backward(dy)
+    for name, t, r in zip(("x", "dt", "a", "B", "C"), leaves, ref):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all()), name
+        assert float(t.grad.abs().max()) > 0.0, name
+        assert _rel_max(t.grad, r.grad) <= BWD_TOL, name
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 64, 8, 32, 16, 32), (2, 512, 80, 64, 128, 256),
+                                             (1, 192, 3, 64, 16, 64), (2, 130, 4, 20, 40, 65)])
+def test_ssd_scan_backward_chain_matches_plain_and_repeats_bitwise(cuda, b, s, h, p, n, chunk):
+    s_pad = -(-s // chunk) * chunk
+    x, dt, a, bm, cm = _ssd_inputs(s + n, b, s_pad, h, p, n, torch.float32, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dy = torch.randn((b, s_pad, h, p), generator=gen, device=cuda)
+    dhf = torch.randn((b, h, p, n), generator=gen, device=cuda)
+    _, _, cum, g, h_in = _ssd_scan_cuda_phases(x, dt, a, bm, cm, chunk)
+    before = ssd_scan_bwd_cuda.launches
+    got = _ssd_scan_bwd_cuda_phases(x, dt, a, bm, cm, dy, dhf, cum, g, h_in, chunk)
+    again = _ssd_scan_bwd_cuda_phases(x, dt, a, bm, cm, dy, dhf, cum, g, h_in, chunk)
+    assert ssd_scan_bwd_cuda.launches == before + 2
+    want = ssd_scan_bwd_phases_ref(x, dt, a, bm, cm, dy, dhf, cum, g, h_in, chunk)
+    torch.cuda.synchronize()
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=cuda).tril()
+    names = ("dx", "ddt", "da", "dB", "dC", "G", "R")
+    for name, u, v, w in zip(names, got, again, want):
+        if name == "R":
+            u, v, w = u[..., tri], v[..., tri], w[..., tri]
+        assert torch.equal(u, v), name
+        assert _rel_max(u, w) <= BWD_TOL, name
+
+
+def test_ssd_scan_backward_rejects_what_it_cannot_run(cuda):
+    x, dt, a, bm, cm = _ssd_inputs(3, 1, 64, 2, 16, 16, torch.float32, cuda)
+    _, _, cum, g, h_in = _ssd_scan_cuda_phases(x, dt, a, bm, cm, 32)
+    dy, dhf = torch.ones_like(x), torch.ones((1, 2, 16, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="fp32"):
+        ssd_scan_bwd_cuda(x.bfloat16(), dt, a, bm, cm, dy, dhf, cum, g, h_in, 32)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy, dhf[:, :1], cum, g, h_in, 32)
+    bf16 = [x.bfloat16(), dt.clone(), a.clone(), bm.bfloat16(), cm.bfloat16()]
+    with pytest.raises(NotImplementedError, match="fp32"):
+        ssd_scan(*(t.requires_grad_() for t in bf16), chunk=32)
+
+
+def test_mamba2_smoke_train_step_on_the_card_matches_the_cpu(cuda):
+    """One train step (2 microbatches, full remat) on the card and on the
+    CPU from the same weights and batch: loss, ce and grad norm within
+    2e-4 (tests/test_models.py's model tolerance), the updated params
+    within 2e-4 of their scale; the chain launched twice forward (the
+    forward and remat's recompute) and once backward per layer and
+    microbatch."""
+    from repro_torch.launch.train import token_batch
+    from repro_torch.traces.tokens import SyntheticTokenStream, TokenPipelineConfig, lm_inputs
+    from repro_torch.train import AdamWConfig, TrainStepConfig, adamw_init, make_train_step
+
+    cfg = get_arch("mamba2-2.7b", "smoke")
+    tcfg = TrainStepConfig(microbatches=2, remat="full", optimizer=AdamWConfig(lr=3e-3))
+    raw = lm_inputs(SyntheticTokenStream(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=65, global_batch=4, seed=0)).batch(0))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        p = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev))
+             for k, v in p.items()}
+        step, init_efb = make_train_step(cfg, tcfg, device=dev)
+        before = (ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches)
+        p, st, met, _ = step(p, adamw_init(p), token_batch(raw, dev), init_efb(p))
+        launched = (ssd_scan_cuda.launches - before[0], ssd_scan_bwd_cuda.launches - before[1])
+        out[str(dev)] = (p, met, launched)
+    (p_c, met_c, l_c), (p_g, met_g, l_g) = out["cpu"], out[str(cuda)]
+    assert l_c == (0, 0) and l_g == (2 * 2 * cfg.num_layers, 2 * cfg.num_layers)
+    for k in ("loss", "ce", "grad_norm"):
+        np.testing.assert_allclose(float(met_g[k]), float(met_c[k]), rtol=2e-4, err_msg=k)
+    for name in p_c["blocks"]:
+        got, want = p_g["blocks"][name].cpu(), p_c["blocks"][name]
+        assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max()), name

@@ -1,0 +1,196 @@
+"""The gradient of the port's ``ssd_scan`` on the CPU.
+
+``ssd_scan_bwd_ref`` (the CUDA backward chain's algorithm phase by phase)
+from ``ssd_scan_phases_ref``'s workspaces, against autograd through the
+port's sequential ``ssd_scan_ref`` and against ``jax.vjp`` of the JAX
+package's sequential ``repro.kernels.ssd_scan.ref.ssd_scan_ref``; the
+wrapper under autograd (``SsdScanFn``); the paths without grad unchanged.
+The CUDA chain itself is held against these on the card
+(tests/test_torch_cuda.py, chip_smoke.py phase 19). Inputs come from
+seeded numpy.
+
+Tolerance: BWD_TOL = 3e-4 of each gradient's largest |value| (the
+forward's fp32 tolerance, tests/test_kernels.py): the chunked backward
+forms exponents of cumsum differences where the oracles multiply per-step
+decays, and sums in other orders; a fp64 check of the algorithm gave at
+most 9e-6.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ssd_scan_ref
+from repro_torch.kernels.ssd_scan import (
+    ssd_scan,
+    ssd_scan_bwd_phases_ref,
+    ssd_scan_bwd_ref,
+    ssd_scan_phases_ref,
+    ssd_scan_ref,
+)
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_cuda, ssd_scan_cuda
+
+torch.set_float32_matmul_precision("highest")
+
+BWD_TOL = 3e-4
+NAMES = ("dx", "ddt", "da", "dB", "dC")
+#: (B, S, H, P, N, chunk, model-range inputs): a ragged S (100 on chunk 32:
+#: four chunks, the last padded), several chunks at N = 128 and N = 16 with
+#: small H, one chunk, and unit-normal inputs.
+SHAPES = [(2, 100, 3, 8, 16, 32, True), (1, 192, 2, 16, 128, 64, True),
+          (2, 96, 2, 16, 16, 24, True), (1, 40, 3, 8, 32, 64, True),
+          (2, 64, 2, 8, 16, 16, False)]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test on one intra-op thread: the smoke models' steps are tiny,
+    and under a parallel test run several processes' thread pools on the
+    same cores make many small steps a hundred times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(seed, b, s, h, p, n, model_like):
+    """x, dt, a, B, C and the upstream dy, dh_final: the model's ranges (dt
+    log-uniform in [1e-3, 0.1], A in [-16, -1], silu'd x, B, C) or
+    unit-normal ones."""
+    rng = np.random.default_rng(seed)
+    silu = lambda v: v / (1.0 + np.exp(-v))
+    rn = lambda *shape: rng.standard_normal(shape)
+    if model_like:
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), (b, s, h)))
+        a = -rng.uniform(1.0, 16.0, h)
+        x, bm, cm = silu(rn(b, s, h, p)), silu(rn(b, s, n)), silu(rn(b, s, n))
+    else:
+        x, dt, a = rn(b, s, h, p), np.logaddexp(0.0, rn(b, s, h)), -np.exp(rn(h))
+        bm, cm = rn(b, s, n), rn(b, s, n)
+    f = lambda v: np.asarray(v, np.float32)
+    return [f(v) for v in (x, dt, a, bm, cm)], f(rn(b, s, h, p)), f(rn(b, h, p, n))
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max() / np.abs(want).max())
+
+
+def _padded_bwd(ops, dy, dhf, q):
+    """ssd_scan_bwd_ref on the operands padded to a chunk multiple as the
+    wrapper pads them, gradients sliced back."""
+    s = ops[0].shape[1]
+    pad = (-s) % q
+    t = [torch.from_numpy(v) for v in ops]
+    padw = lambda v: torch.nn.functional.pad(v, (0, 0) * (v.dim() - 2) + (0, pad))
+    t = [padw(v) if v.dim() > 1 else v for v in t]
+    dyp = padw(torch.from_numpy(dy))
+    _, _, cum, g, h_in = ssd_scan_phases_ref(*t, q)
+    grads = ssd_scan_bwd_ref(*t, dyp, torch.from_numpy(dhf), cum, g, h_in, q)
+    return [u[:, :s] if u.dim() > 1 else u for u in grads]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_bwd_ref_matches_autograd_of_the_sequential_form(shape):
+    b, s, h, p, n, q, model_like = shape
+    ops, dy, dhf = _inputs(sum(shape[:6]), b, s, h, p, n, model_like)
+    got = _padded_bwd(ops, dy, dhf, q)
+    leaves = [torch.from_numpy(v).requires_grad_() for v in ops]
+    y, hf = ssd_scan_ref(*leaves)
+    torch.autograd.backward([y, hf], [torch.from_numpy(dy), torch.from_numpy(dhf)])
+    for name, g, t in zip(NAMES, got, leaves):
+        assert _rel(g.numpy(), t.grad.numpy()) <= BWD_TOL, (name, shape)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:3], ids=str)
+def test_bwd_ref_matches_jax_vjp_of_the_reference(shape):
+    b, s, h, p, n, q, model_like = shape
+    ops, dy, dhf = _inputs(sum(shape[:6]) + 1, b, s, h, p, n, model_like)
+    got = _padded_bwd(ops, dy, dhf, q)
+    _, vjp = jax.vjp(jax_ssd_scan_ref, *(jnp.asarray(v) for v in ops))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dhf)))
+    for name, g, w in zip(NAMES, got, want):
+        assert _rel(g.numpy(), np.asarray(w)) <= BWD_TOL, (name, shape)
+
+
+def test_bwd_phases_ref_workspaces():
+    """G is dh_final in the last chunk; R is zero above the diagonal and its
+    diagonal is Σ_h dt_t dy_t·x_t; CBᵀ above the diagonal is never read."""
+    b, s, h, p, n, q = 1, 96, 2, 8, 16, 32
+    ops, dy, dhf = _inputs(5, b, s, h, p, n, True)
+    t = [torch.from_numpy(v) for v in ops]
+    _, _, cum, g, h_in = ssd_scan_phases_ref(*t, q)
+    out = ssd_scan_bwd_phases_ref(*t, torch.from_numpy(dy), torch.from_numpy(dhf), cum, g, h_in, q)
+    gst, r = out[5], out[6]
+    assert gst.shape == (b, s // q, h, p, n) and r.shape == (b, s // q, q, q)
+    assert torch.equal(gst[:, -1], torch.from_numpy(dhf))
+    assert torch.equal(r.triu(1), torch.zeros_like(r))
+    # R's diagonal: Σ_h dt_t dy_t·x_t (L_tt = 1).
+    xt, dyt = torch.from_numpy(ops[0]), torch.from_numpy(dy)
+    diag = (torch.from_numpy(ops[1]) * (xt * dyt).sum(-1)).sum(-1).reshape(b, s // q, q)
+    torch.testing.assert_close(torch.diagonal(r, dim1=-2, dim2=-1), diag, rtol=1e-5, atol=1e-6)
+    # G above the diagonal is never read (the forward chain leaves it
+    # unspecified): NaN there changes nothing.
+    g_nan = g.masked_fill(~torch.ones(q, q, dtype=torch.bool).tril(), float("nan"))
+    again = ssd_scan_bwd_phases_ref(*t, torch.from_numpy(dy), torch.from_numpy(dhf), cum, g_nan,
+                                    h_in, q)
+    assert all(torch.equal(u, v) for u, v in zip(out, again))
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_scan_bwd_phases_ref(*(v[:, :95] if v.dim() > 1 else v for v in t),
+                                torch.from_numpy(dy)[:, :95], torch.from_numpy(dhf), cum, g,
+                                h_in, q)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2], ids=str)
+def test_wrapper_under_grad_goes_through_ssd_scan_fn(shape):
+    b, s, h, p, n, q, model_like = shape
+    ops, dy, dhf = _inputs(7, b, s, h, p, n, model_like)
+    leaves = [torch.from_numpy(v).requires_grad_() for v in ops]
+    y, hf = ssd_scan(*leaves, chunk=q)
+    assert type(hf.grad_fn).__name__ == "SsdScanFnBackward"
+    assert y.shape == (b, s, h, p) and hf.shape == (b, h, p, n)
+    torch.autograd.backward([y, hf], [torch.from_numpy(dy), torch.from_numpy(dhf)])
+    ref = [torch.from_numpy(v).requires_grad_() for v in ops]
+    y_r, h_r = ssd_scan_ref(*ref)
+    torch.autograd.backward([y_r, h_r], [torch.from_numpy(dy), torch.from_numpy(dhf)])
+    assert _rel(y.detach().numpy(), y_r.detach().numpy()) <= BWD_TOL
+    for name, t, r in zip(NAMES, leaves, ref):
+        assert _rel(t.grad.numpy(), r.grad.numpy()) <= BWD_TOL, name
+    # Only y's gradient (h_final unused): dh_final is taken as zeros.
+    only = [torch.from_numpy(v).requires_grad_() for v in ops]
+    y2, _ = ssd_scan(*only, chunk=q)
+    y2.backward(torch.from_numpy(dy))
+    ref2 = [torch.from_numpy(v).requires_grad_() for v in ops]
+    ssd_scan_ref(*ref2)[0].backward(torch.from_numpy(dy))
+    for name, t, r in zip(NAMES, only, ref2):
+        assert _rel(t.grad.numpy(), r.grad.numpy()) <= BWD_TOL, name
+
+
+def test_paths_without_grad_are_unchanged():
+    ops, _, _ = _inputs(3, 2, 70, 3, 8, 16, False)
+    t = [torch.from_numpy(v) for v in ops]
+    y_r, h_r = ssd_scan_ref(*t)
+    y, hf = ssd_scan(*t, chunk=32)
+    assert torch.equal(y, y_r) and torch.equal(hf, h_r)
+    assert y.grad_fn is None
+    with torch.no_grad():
+        y2, h2 = ssd_scan(*(v.clone().requires_grad_() for v in t), chunk=32)
+    assert torch.equal(y2, y_r) and torch.equal(h2, h_r)
+
+
+def test_gradient_refuses_bf16_and_the_chain_refuses_cpu_tensors():
+    ops, dy, dhf = _inputs(4, 1, 32, 2, 8, 16, True)
+    t = [torch.from_numpy(v) for v in ops]
+    bf = [v.to(torch.bfloat16) if i in (0, 3, 4) else v for i, v in enumerate(t)]
+    with pytest.raises(NotImplementedError, match="fp32"):
+        ssd_scan(*(v.requires_grad_() if v.dtype == torch.float32 else v for v in bf), chunk=16)
+    with torch.no_grad():   # bf16 without grad: the forward as before
+        ssd_scan(*bf, chunk=16)
+    _, _, cum, g, h_in = ssd_scan_phases_ref(*t, 16)
+    before = (ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches)
+    with pytest.raises(TypeError, match="CUDA tensors only"):
+        ssd_scan_bwd_cuda(*t, torch.from_numpy(dy), torch.from_numpy(dhf), cum, g, h_in, 16)
+    ssd_scan(*(v.clone().requires_grad_() for v in t), chunk=16)[0].sum().backward()
+    assert (ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches) == before
