@@ -7,7 +7,10 @@ Phases, each printing one line or more; any failure exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile every kernel from ``src/repro_torch/kernels/*/csrc``
-             with nvcc (all sources at once) into ``build/torch_kernels/``.
+             with nvcc (all sources at once) into ``build/torch_kernels/``;
+             ptxas's registers, spills and shared memory per kernel, and the
+             backward chain's tensor-core (HMMA) instructions per kernel
+             from ``cuobjdump -sass`` where the toolkit has it.
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the test shapes and each main path's (fleet, fleet V-sweep,
              the serving engine's one-run (K, N) = (8, 256)):
@@ -208,9 +211,9 @@ Phases, each printing one line or more; any failure exits non-zero:
              per call from every ported bench, the three SKIPPED lines, the
              record labelled torch_full.
 19. train — training on the card (``repro_torch.train``, slice 8a): (a) the
-             ``ssd_scan`` backward chain (``csrc/ssd_scan_bwd.cu``, four
+             ``ssd_scan`` backward chain (``csrc/ssd_scan_bwd.cu``, five
              kernels behind one ``ssd_scan_bwd_launch``) against
-             ``ssd_scan_bwd_phases_ref`` (its G and R workspaces too) and
+             ``ssd_scan_bwd_phases_ref`` (every workspace too) and
              against autograd through the sequential ``ssd_scan_ref`` at the
              smoke shape, a multi-chunk one, a ragged S and hymba's heads,
              each with a nonzero gradient of the final state: every
@@ -218,7 +221,8 @@ Phases, each printing one line or more; any failure exits non-zero:
              launches, the wrapper's ``SsdScanFn`` bitwise the direct calls;
              device time at mamba2-2.7b's training microbatch (2 x 2048) and
              hymba's 4 x 2048 beside the forward chain, the plain version
-             and the bound, each kernel's time; (b) full-width, full-depth
+             and the fp32 and 3xTF32 bounds, each kernel's time alone (CUDA
+             events) beside its own bounds; (b) full-width, full-depth
              mamba2-2.7b (random fp32 weights) trained through
              ``make_train_step``: 4 x 2048 tokens per step from the token
              stream, two microbatches, full remat, the launcher's AdamW; a
@@ -256,6 +260,9 @@ ROOT = Path(__file__).resolve().parent
 
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12
+#: Dense TF32 on the H100 SXM tensor cores (peak rate), for the
+#: 3xTF32 bound of the SSD backward chain (three TF32 products per fp32 one).
+H100_TF32_FLOPS = 495e12
 
 #: (R runs or None, K, N, r per run): the test shape set, the fleet
 #: main-path shape, the largest kernel-bench shape, the fleet V-sweep's (7 V
@@ -470,9 +477,14 @@ SSD_BWD_SHAPES = [(2, 64, 8, 32, 16, 32), (2, 512, 80, 64, 128, 256), (2, 300, 8
 #: other summation orders and is kept.
 SSD_BWD_TOL = 3e-4
 #: The chain's kernels, in launch order (``ssd_bwd_<phase>_kernel``).
-SSD_BWD_PHASES = ("chunk_dstate", "dstate_pass", "chunk_bwd", "chunk_dbc")
+SSD_BWD_PHASES = ("chunk_dstate", "dstate_pass", "chunk_bwd", "chunk_dbc", "dbc_sum")
+#: The chain's outputs and workspaces, as _ssd_scan_bwd_cuda_phases and
+#: ssd_scan_bwd_phases_ref return them.
+SSD_BWD_OUTPUTS = ("dx", "ddt", "da", "dB", "dC", "G", "R", "scale_out", "scale_in", "part",
+                   "da_part")
 #: Timed: mamba2-2.7b's training microbatch (2 x 2048, phase 19 (b)) and
-#: hymba-1.5b's 4 x 2048 prefill shape, with CUDA-graph (reps, replays).
+#: hymba-1.5b's 4 x 2048 prefill shape, with CUDA-graph (reps, replays) for
+#: the chain and for each of its kernels alone.
 SSD_BWD_TIMED = {(2, 2048, 80, 64, 128, 256): ("train", 3, 4),
                  (4, 2048, 50, 64, 16, 256): ("hybrid", 3, 4)}
 #: (b) and (c): full-width training through make_train_step, the
@@ -661,26 +673,34 @@ def phase_device():
     return smi
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel function's short name from its mangled one (with ``<bf16>``
+    for the bf16 instantiation, ``<true>`` or ``<2>`` for a bool or int
+    template argument)."""
+    import re
+
+    short = re.search(r"\d+((?:ssd_scan|ssd_bwd|gmsa)\w*?_kernel)(I((?:L[bi]\d+E)+)E)?", mangled)
+    name = short.group(1) if short else mangled
+    if short and short.group(2):
+        args = re.findall(r"L([bi])(\d+)E", short.group(3))
+        name += "<" + ", ".join(("false", "true")[int(v)] if t == "b" else v for t, v in args) + ">"
+    return name + ("<bf16>" if "bfloat16" in mangled else "")
+
+
 def ptxas_usage(text: str) -> list[str]:
     """One line per kernel function from an ``nvcc -Xptxas -v`` log: its
-    name (with ``<bf16>`` for the bf16 instantiation, ``<true>`` or ``<2>``
-    for a bool or int template argument), registers, spill stores and
-    loads, shared memory."""
+    name (``kernel_name``), registers, stack frame, spill stores and loads,
+    shared memory."""
     import re
 
     rows = []
     for line in text.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
-            mangled = m.group(1)
-            short = re.search(r"\d+((?:ssd_scan|ssd_bwd|gmsa)\w*?_kernel)(?:IL([bi])(\d+)E)?",
-                              mangled)
-            name = short.group(1) if short else mangled
-            if short and short.group(2):
-                arg = short.group(3)
-                name += f"<{('false', 'true')[int(arg)] if short.group(2) == 'b' else arg}>"
-            rows.append({"name": name + ("<bf16>" if "bfloat16" in mangled else "")})
-        elif rows and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            rows[-1]["spills"] = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
+            rows.append({"name": kernel_name(m.group(1))})
+        elif rows and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            rows[-1]["spills"] = (f"stack frame {m.group(1)} B, spill stores {m.group(2)} B, "
+                                  f"spill loads {m.group(3)} B")
         elif rows and (m := re.search(r"Used (\d+) registers", line)):
             smem = re.search(r"(\d+) bytes smem", line)
             rows[-1]["regs"] = f"{m.group(1)} registers"
@@ -689,7 +709,37 @@ def ptxas_usage(text: str) -> list[str]:
             for r in rows]
 
 
-def phase_build():
+def sass_mma_counts(lib: Path, prefix: str) -> dict[str, dict[str, int]] | None:
+    """Per kernel function of ``lib`` whose short name starts with
+    ``prefix``: its tensor-core (HMMA) instructions in the SASS that
+    ``cuobjdump -sass`` prints, counted by opcode (``{}`` for none). None
+    where the toolkit has no cuobjdump or it fails."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = kernel_name(m.group(1))
+            name = name if name.startswith(prefix) else None
+            if name:
+                counts[name] = {}
+        elif name and (m := re.search(r"\b(HMMA\.\S+)", line)):
+            counts[name][m.group(1)] = counts[name].get(m.group(1), 0) + 1
+    return counts
+
+
+def phase_build() -> dict[str, dict[str, int]] | None:
+    """Builds every kernel, logs ptxas's registers, spills and shared memory
+    per kernel function, then the backward chain's HMMA counts (None: not
+    measured)."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -699,6 +749,13 @@ def phase_build():
         for usage in ptxas_usage(text):
             log(f"[build] {name}: ptxas {usage}")
     log(f"[build] {len(logs)} kernel(s) built in {secs:.2f} s -> {_build.BUILD_DIR}")
+    mma = sass_mma_counts(_build.library_path("ssd_scan_bwd"), "ssd_bwd_")
+    if mma is None:
+        log("[build] ssd_scan_bwd: tensor-core instructions not measured (no cuobjdump)")
+    for fn, ops in (mma or {}).items():
+        log(f"[build] ssd_scan_bwd: sass {fn}: {sum(ops.values())} HMMA"
+            + "".join(f", {op} x{c}" for op, c in sorted(ops.items())))
+    return mma
 
 
 def phase_times(fn, calls: int, kernels: dict[str, str]) -> tuple[dict[str, float | None], float]:
@@ -1233,22 +1290,65 @@ def phase_ssd_kernel(dev):
     return main
 
 
-def ssd_bwd_bound_ms(b: int, s: int, h: int, p: int, n: int, q: int) -> tuple[float, str]:
-    """Least time for one ssd_scan backward call (fp32): its inputs (x, dt,
-    a, B, C, dy, dh_final and the forward's cum, CBᵀ and entering states)
-    read once and dx, ddt, da, dB, dC written once; the work the gradient
-    needs — the four (P, N) products per (b, h, step) (D_c, G_c B_s, the
-    state terms of dB and dC, h_inᵀ dy once per head serving dC and ∂cum),
-    the causal halves of (L ⊙ CB)ᵀ dy and of dy xᵀ per head, R C and R B
-    once per (b, chunk), and h_inᵀ dy against C_t — against the H100's
-    memory rate and fp32 rate."""
+def tc_bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+    """bound_ms with the fp32 products as 3xTF32 on the tensor cores: three
+    TF32 products per fp32 one at the H100's dense TF32 rate, the same
+    bytes."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 3 * flops / H100_TF32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_bwd_work(b: int, s: int, h: int, p: int, n: int, q: int) -> tuple[int, int]:
+    """Bytes and fp32 operations of one ssd_scan backward call: its inputs
+    (x, dt, a, B, C, dy, dh_final and the forward's cum, CBᵀ and entering
+    states) read once and dx, ddt, da, dB, dC written once; the work the
+    gradient needs — the four (P, N) products per (b, h, step) (D_c, G_c
+    B_s, the state terms of dB and dC, h_inᵀ dy once per head serving dC and
+    ∂cum), the causal halves of (L ⊙ CB)ᵀ dy and of dy xᵀ per head, R C and
+    R B once per (b, chunk), and h_inᵀ dy against C_t."""
     full, rem = divmod(s, q)
     pairs = full * q * (q + 1) // 2 + rem * (rem + 1) // 2
     nc = -(-s // q)
     nbytes = (4 * (3 * b * s * h * p + 2 * b * s * h + 2 * h + 4 * b * s * n + b * h * p * n
                    + b * nc * q * q + b * nc * h * p * n) + 8 * b * h * s)
     flops = 8 * b * s * h * p * n + 4 * pairs * b * h * p + 4 * pairs * b * n + 2 * b * s * h * n
-    return bound_ms(nbytes, flops)
+    return nbytes, flops
+
+
+def ssd_bwd_bound_ms(b: int, s: int, h: int, p: int, n: int, q: int) -> tuple[float, str]:
+    """Least time for one ssd_scan backward call (fp32): ssd_bwd_work
+    against the H100's memory rate and fp32 rate."""
+    return bound_ms(*ssd_bwd_work(b, s, h, p, n, q))
+
+
+def ssd_bwd_phase_work(b: int, s: int, h: int, p: int, n: int, q: int) -> dict[str, tuple[int, int]]:
+    """Bytes and fp32 operations of each kernel of the backward chain alone,
+    each of its inputs read once and outputs written once (S a multiple of
+    Q): chunk_dstate reads dy, C, x, dt, cum and writes D_c and R, forming
+    D_c and the causal half of dy xᵀ per head; dstate_pass reads D_c,
+    dh_final and A_c and writes G_c; chunk_bwd reads x, dy, dt, a, B, C, cum,
+    CBᵀ, h_in and G_c and writes dx, ddt, the da partials and the two scales,
+    forming dy xᵀ and (L ⊙ CB)ᵀ dy on the causal half, G_c B_s and h_inᵀ C_t
+    per head; chunk_dbc reads x, dy, the scales, G_c, h_in, R, B and C and
+    writes the partials, forming the heads' state terms and R C, R B;
+    dbc_sum reads the partials and the da partials and writes dB, dC, da."""
+    from repro_torch.kernels.ssd_scan.ref import DBC_HEAD_GROUP
+
+    nc = s // q
+    pairs = nc * q * (q + 1) // 2
+    slots = 1 + -(-h // DBC_HEAD_GROUP)
+    bshp, bsh, bsn, st = b * s * h * p, b * s * h, b * s * n, b * nc * h * p * n
+    bshpn, causal = b * s * h * p * n, 2 * pairs * b * h * p
+    return {
+        "chunk_dstate": (4 * (2 * bshp + bsn + bsh + st + b * nc * q * q) + 8 * b * h * s,
+                         2 * bshpn + causal),
+        "dstate_pass": (4 * (2 * st + b * h * p * n) + 8 * b * h * nc, 2 * st),
+        "chunk_bwd": (4 * (3 * bshp + 4 * bsh + h + 2 * bsn + b * nc * q * q + 2 * st
+                           + b * nc * h) + 8 * b * h * s, 2 * causal + 4 * bshpn),
+        "chunk_dbc": (4 * (2 * bshp + 2 * bsh + 2 * st + b * nc * q * q + 2 * bsn
+                           + 2 * slots * bsn), 4 * bshpn + 4 * pairs * b * n),
+        "dbc_sum": (4 * (2 * slots * bsn + b * nc * h + 2 * bsn + h), 2 * slots * bsn),
+    }
 
 
 def ssd_bwd_inputs(gen, shape, dev, model_like: bool):
@@ -1270,15 +1370,16 @@ def ssd_bwd_inputs(gen, shape, dev, model_like: bool):
 
 def phase_ssd_bwd(dev) -> dict:
     """Phase 19 (a): the backward chain against ssd_scan_bwd_phases_ref (on
-    the chain's own forward workspaces; G and R too) and against autograd
-    through the sequential ssd_scan_ref, at every SSD_BWD_SHAPES shape;
-    bitwise-repeatable launches; the wrapper's autograd path (SsdScanFn)
-    bitwise the direct calls; then device times at SSD_BWD_TIMED beside
-    the forward chain, the plain version and the bound, each kernel's time
-    from the profiler."""
+    the chain's own forward workspaces; every workspace too) and against
+    autograd through the sequential ssd_scan_ref, at every SSD_BWD_SHAPES
+    shape; bitwise-repeatable launches; the wrapper's autograd path
+    (SsdScanFn) bitwise the direct calls; then device times at
+    SSD_BWD_TIMED beside the forward chain, the plain version and both
+    bounds, and each kernel's time alone (CUDA events) beside its own."""
     import torch
 
     from repro_torch.kernels.ssd_scan.kernel import (
+        _ssd_scan_bwd_cuda_phase,
         _ssd_scan_bwd_cuda_phases,
         _ssd_scan_cuda_phases,
         ssd_scan_bwd_cuda,
@@ -1287,7 +1388,7 @@ def phase_ssd_bwd(dev) -> dict:
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_phases_ref, ssd_scan_ref
 
-    names = ("dx", "ddt", "da", "dB", "dC")
+    names = SSD_BWD_OUTPUTS[:5]
     gen = torch.Generator(device=dev).manual_seed(19)
     worst, out = {"plain": 0.0, "autograd": 0.0}, {}
     for shape in list(SSD_BWD_SHAPES) + list(SSD_BWD_TIMED):
@@ -1299,43 +1400,61 @@ def phase_ssd_bwd(dev) -> dict:
         again = _ssd_scan_bwd_cuda_phases(*ops, dy, dhf, cum, g, h_in, q)
         torch.cuda.synchronize()
         tag = f"B={b} S={s} H={h} P={p} N={n} chunk={q}"
-        if not all(torch.equal(u, v) for u, v in zip(got[:5], again[:5])):
+        tri = torch.ones(q, q, dtype=torch.bool, device=dev).tril()
+        valid = lambda nm, u: u[..., tri] if nm == "R" else u   # R above the diagonal: unspecified
+        if not all(torch.equal(valid(nm, u), valid(nm, v))
+                   for nm, u, v in zip(SSD_BWD_OUTPUTS, got, again)):
             fail(f"ssd_scan backward launches differ bitwise at {tag}")
         del again
         if timed:
+            reps, iters = SSD_BWD_TIMED[shape][1:]
             t_b = device_time_ms(lambda: ssd_scan_bwd_cuda(*ops, dy, dhf, cum, g, h_in, q),
-                                 reps=SSD_BWD_TIMED[shape][1], iters=SSD_BWD_TIMED[shape][2])
-            t_f = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=SSD_BWD_TIMED[shape][1],
-                                 iters=SSD_BWD_TIMED[shape][2])
-            phase, total = phase_times(lambda: ssd_scan_bwd_cuda(*ops, dy, dhf, cum, g, h_in, q), 3,
-                                       {ph: f"ssd_bwd_{ph}_kernel" for ph in SSD_BWD_PHASES})
+                                 reps=reps, iters=iters)
+            t_f = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=reps, iters=iters)
+            # Each kernel alone on a copy of the filled workspaces (the phase
+            # launches overwrite them; ``got`` is compared below).
+            ws = tuple(t.clone() for t in got)
+            phase = {ph: device_time_ms(
+                lambda ph=ph: _ssd_scan_bwd_cuda_phase(ph, *ops, dy, dhf, cum, g, h_in, q, ws),
+                reps=reps, iters=iters) for ph in SSD_BWD_PHASES}
+            del ws
             _, events = device_profile(lambda: ssd_scan_bwd_phases_ref(*ops, dy, dhf, cum, g, h_in, q))
             t_p = sum(us for _, us, _ in events) / 1e3
-            bound, bound_by = ssd_bwd_bound_ms(b, s, h, p, n, q)
+            work = ssd_bwd_work(b, s, h, p, n, q)
+            bound, bound_by = bound_ms(*work)
+            tc_bound, tc_by = tc_bound_ms(*work)
+            phase_work = ssd_bwd_phase_work(b, s, h, p, n, q)
+            phase_bound = {ph: bound_ms(*w)[0] for ph, w in phase_work.items()}
+            phase_tc_bound = {ph: tc_bound_ms(*w)[0] for ph, w in phase_work.items()}
             want = ssd_scan_bwd_phases_ref(*ops, dy, dhf, cum, g, h_in, q)
             err = max(rel_err_max(u, v) for u, v in zip(got[:5], want[:5]))
             abs_err = max(float((u - v).abs().max()) for u, v in zip(got[:5], want[:5]))
             key = SSD_BWD_TIMED[shape][0]
             log(f"[train] ssd_scan backward {tag}: device: backward chain {t_b:.3f} ms, forward "
                 f"chain {t_f:.3f} ms, plain phase version {t_p:.3f} ms (profiler device sum), "
-                f"bound {bound:.3f} ms ({bound_by}; chain at {100 * bound / t_b:.1f}% of it); "
-                f"vs plain max err {err:.3e} of the max; mean per launch by kernel: "
-                + ", ".join(f"{ph} " + ("not measured" if ms is None else f"{ms:.4f} ms")
-                            for ph, ms in phase.items()) + f"; total {total:.4f} ms")
+                f"bound {bound:.3f} ms (fp32 rate, {bound_by}; chain at "
+                f"{100 * bound / t_b:.1f}% of it), 3xTF32 bound {tc_bound:.3f} ms ({tc_by}; "
+                f"{100 * tc_bound / t_b:.1f}%); vs plain max err {err:.3e} of the max")
+            log(f"[train] ssd_scan backward {tag}: each kernel alone (CUDA events, on filled "
+                "workspaces): " + ", ".join(
+                    f"{ph} {ms:.4f} ms (bound {phase_bound[ph]:.4f} fp32 / "
+                    f"{phase_tc_bound[ph]:.4f} 3xTF32)" for ph, ms in phase.items())
+                + f"; sum {sum(phase.values()):.4f} ms")
             if err > SSD_BWD_TOL:
                 fail(f"ssd_scan backward off its plain version at {tag}: {err:.3e}")
             out[key] = {"ms": t_b, "fwd_ms": t_f, "plain_ms": t_p, "bound_ms": bound,
-                        "bound_by": bound_by, "phase_ms": phase, "max_abs_err": abs_err,
+                        "bound_by": bound_by, "bound_ms_tc": tc_bound, "bound_by_tc": tc_by,
+                        "phase_ms": phase, "phase_bound_ms": phase_bound,
+                        "phase_bound_ms_tc": phase_tc_bound, "max_abs_err": abs_err,
                         "max_rel_err": err}
             del want, got, ops, dy, dhf, cum, g, h_in
             torch.cuda.empty_cache()
             continue
         want = ssd_scan_bwd_phases_ref(*ops, dy, dhf, cum, g, h_in, q)
-        tri = torch.ones(q, q, dtype=torch.bool, device=dev).tril()
         errs = {nm: rel_err_max(u[:, :s] if u.dim() > 1 else u, v[:, :s] if v.dim() > 1 else v)
                 for nm, u, v in zip(names, got[:5], want[:5])}
-        errs["G"] = rel_err_max(got[5], want[5])
-        errs["R"] = rel_err_max(got[6][..., tri], want[6][..., tri])
+        errs.update({nm: rel_err_max(valid(nm, u), valid(nm, v))
+                     for nm, u, v in zip(SSD_BWD_OUTPUTS[5:], got[5:], want[5:])})
         # Autograd through the sequential recurrence, on the unpadded operands.
         leaves = [t[:, :s].clone().requires_grad_() if t.dim() > 1 else t.clone().requires_grad_()
                   for t in ops]
@@ -3758,7 +3877,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     smi = phase_device()
-    phase_build()
+    mma = phase_build()
     main_shape = phase_kernels(dev)
     mism, lock_rel = phase_lockstep(dev)
     launches, _ = phase_end_to_end(dev)
@@ -3887,8 +4006,13 @@ def main() -> int:
         "bound_by": ssd_bwd["train"]["bound_by"],
         "library_ms": None,   # no single PyTorch call computes the SSD scan's gradient
         "fwd_ms": ssd_bwd["train"]["fwd_ms"],
+        "bound_ms_tc": ssd_bwd["train"]["bound_ms_tc"],
+        "bound_by_tc": ssd_bwd["train"]["bound_by_tc"],
         "phase_ms": ssd_bwd["train"]["phase_ms"],
+        "phase_bound_ms": ssd_bwd["train"]["phase_bound_ms"],
+        "phase_bound_ms_tc": ssd_bwd["train"]["phase_bound_ms_tc"],
         "phase_ms_in_step": mamba["bwd_phase_ms"],
+        "hmma": mma,
         "max_rel_err_plain": ssd_bwd["max_rel_err_plain"],
         "max_rel_err_autograd": ssd_bwd["max_rel_err_autograd"],
         "layer0_rel_err": mamba["layer0_err"],
@@ -3898,7 +4022,10 @@ def main() -> int:
         "plain_ms_hybrid": ssd_bwd["hybrid"]["plain_ms"],
         "bound_ms_hybrid": ssd_bwd["hybrid"]["bound_ms"],
         "bound_by_hybrid": ssd_bwd["hybrid"]["bound_by"],
+        "bound_ms_tc_hybrid": ssd_bwd["hybrid"]["bound_ms_tc"],
         "phase_ms_hybrid": ssd_bwd["hybrid"]["phase_ms"],
+        "phase_bound_ms_hybrid": ssd_bwd["hybrid"]["phase_bound_ms"],
+        "phase_bound_ms_tc_hybrid": ssd_bwd["hybrid"]["phase_bound_ms_tc"],
         "train_step_s": mamba["wall_s"],
         "train_tokens_per_s": mamba["tokens_per_s"],
     }

@@ -1,5 +1,5 @@
 // ssd_scan_bwd — the gradient of the Mamba-2 chunked SSD forward
-// (ssd_scan.cu) for NVIDIA Hopper (sm_90a), as a chain of four kernels.
+// (ssd_scan.cu) for NVIDIA Hopper (sm_90a), as a chain of five kernels.
 //
 // The Pallas TPU kernel src/repro/kernels/ssd_scan/kernel.py:_kernel has no
 // backward: the JAX package trains through ssd_chunked
@@ -36,40 +36,79 @@
 //   2. dstate_pass  per (b, h, slice of P·N): walks the chunks backwards and
 //                   turns gstates[c] in place from D_c into G_c.
 //   3. chunk_bwd    per (b, chunk, h), one block for the whole chunk: dx,
-//                   ddt, and the chunk's da partial into da_part (B, nc, H).
-//                   ∂cum and the direct ddt build up in shared memory in a
-//                   fixed order; one thread takes the reverse cumsum.
-//   4. chunk_dbc    per (b, chunk, 64-row tile, 64-column slice of N, dB or
-//                   dC): the R term (depth <= Q) and the heads' state terms
-//                   as one product of depth H·P; one more block sums da_part
-//                   over (b, chunk) per head, in order.
+//                   ddt, the chunk's da partial into da_part (B, nc, H), and
+//                   the per-(b, step, head) scales scale_out = dt_s exp(A_c -
+//                   cum_s) and scale_in = exp(cum_t) (B, S, H) that chunk_dbc
+//                   reads.
+//   4. chunk_dbc    per (b, chunk, dB or dC, 64-row tile, slot, column tile
+//                   of 16, 32 or 64 as N needs): slot 0 the R term (depth <=
+//                   Q), slot 1 + g the state terms of the heads [16g, 16g +
+//                   16) (depth 16·P), each into its own partial of part (B,
+//                   nc, 2, 1 + ceil(H / 16), Q, N).
+//   5. dbc_sum      per output element: dB, dC = the partials summed over
+//                   the slots in order; one more block sums da_part over
+//                   (b, chunk) per head, in order.
 //
 // What bounds it on this card: operations. At mamba2-2.7b's training
 // microbatch (B = 2, S = 2048, H = 80, P = 64, N = 128, Q = 256, fp32) the
-// gradient needs ≈ 32.6 GFLOP (≈ 0.49 ms on the fp32 CUDA cores; the count
-// is chip_smoke.py's ssd_bwd_bound_ms) against 0.32 GB of HBM traffic
-// (0.09 ms). The chain executes ≈ 47.3 GFLOP: chunk_dstate 5.4 (D) + 6.7
-// (R: M formed again per head, summed over heads), chunk_bwd 24.2 (M, the
-// (L ⊙ CB)ᵀ dy tiles, G_c B_s and h_in C_t per head), chunk_dbc 11.1 (the
-// heads' state terms at depth H·P and the R terms). All of it on the fp32
-// CUDA cores, as the forward; tensor cores, TMA and wgmma are later work.
+// gradient needs ≈ 32.6 GFLOP (≈ 0.49 ms on the fp32 CUDA cores, ≈ 0.20 ms as
+// 3xTF32 on the tensor cores; chip_smoke.py's ssd_bwd_work under bound_ms
+// and tc_bound_ms) against 0.32 GB of HBM traffic (0.09 ms). The chain
+// executes ≈ 47.3 GFLOP of fp32 products: chunk_dstate 5.4 (D) + 6.7 (R: M
+// formed again per head, summed over heads) on the fp32 CUDA cores (the
+// forward's 8x4 register tile, mm_tile); chunk_bwd 24.2 (M, the (L ⊙ CB)ᵀ dy
+// tiles, G_c B_s and h_in C_t per head) and chunk_dbc 11.1 (the heads' state
+// terms at depth H·P and the R terms) on the tensor cores, three TF32
+// products each (≈ 106 TF32 GFLOP).
+//
+// What held chunk_bwd and chunk_dbc back, and what they do about it:
+//   * every product ran on the fp32 CUDA cores: they run on mma.sync
+//     m16n8k8 TF32 as 3xTF32 (mma_step). Each fp32 operand v is split into
+//     big, v rounded to TF32 to nearest (ties away, as cvt.rna.tf32), and
+//     small = v - big, and a tile takes big·small + small·big + big·big: the
+//     dropped small·small and small's truncation to TF32 by the tensor core
+//     leave ≈ 2^-21 of each product, fp32's order. The split happens as a
+//     fragment is loaded, three instructions (an integer add of half a TF32
+//     ulp, a mask, a subtraction): operands arrive by cp.async, which copies
+//     bytes, so no register pass stores them split;
+//   * their global reads were latency-bound, a few 4-byte loads in flight
+//     per thread behind two barriers a slab, each costing some twenty
+//     integer instructions: operands now move by cp.async in 16-byte chunks
+//     (4-byte ones where P, N or Q is no multiple of 4 or a base is not
+//     16-byte aligned) into rings of stages ahead of the products
+//     (mma_tile), or as whole tiles that stay in shared memory
+//     (load_tile, mma_resident), and no register holds a load in flight;
+//   * chunk_dbc ran 129 blocks of depth H·P and redid dt·exp(A - cum) per
+//     element in two N slices: the depth is split over groups of 16 heads
+//     (1536 blocks at mamba2's shape, 1280 at hymba's), summed in a fixed
+//     order by dbc_sum (no atomics); the scales come from chunk_bwd's
+//     workspaces through a per-block table, one multiply per element as a
+//     row scale of each 8-deep step (each head padded to 16 steps of k); its
+//     column tile is 16 or 32 wide where N is (hymba's N = 16);
+//   * chunk_bwd formed L ⊙ CB twice per tile pair, re-read dy_t for the dx
+//     product and summed rows and columns one thread each: per tile pair
+//     one batch of copies brings dy_t and CB (and, first in its column,
+//     x_s); L ⊙ CB is formed once in place of CB, and M = dy_t x_sᵀ and the
+//     dx product read all three in shared memory; the row and column sums
+//     run in every thread's registers, then across lanes by butterfly
+//     shuffles and across warps through shared memory, in a fixed order.
+//     The state term's rings take dy_t's and W's place so that x_s stays
+//     for x_s·(G_c B_s); the inter-chunk term is yiᵀ = h_in C_tᵀ with h_in
+//     resident, dy_t read at the accumulator's positions before the
+//     product. The Q-long arrays are sized by the launch's Q in dynamic
+//     shared memory (61 KB at Q = 256: three blocks an SM).
 
 // Design points:
-//   * every product is one 64x64 output tile per 128-thread block with an
-//     8x4 register tile per thread (the forward's layout); both operands
-//     pass through shared memory k-major in slabs of 32, each element
-//     produced by a functor that applies the masks and the exponents on
-//     the way in, so that one routine serves every product;
-//   * chunk_bwd owns a whole (b, chunk, h): the row and column sums of its
-//     64x64 tiles (∂cum on t and on s, the direct ddt) go through a shared
-//     staging tile and are summed by one thread per row or column in index
-//     order, so no two blocks write one value and no atomics are needed:
-//     launches repeat bitwise;
+//   * no two blocks write one value and no atomics are used: chunk_bwd owns
+//     a whole (b, chunk, h), chunk_dbc's partials have one writer each and
+//     dbc_sum adds them in slot order, so launches repeat bitwise;
 //   * the causal mask is applied before exp, every exponent is an fp64
 //     difference of cum values rounded once to fp32, as in the forward;
-//   * shared memory is static and under 48 KB (chunk_bwd: 41.5 KB at Q =
-//     1024), so no opt-in attribute is set and a launch may be captured in
-//     a CUDA graph;
+//   * chunk_bwd opts in to more than 48 KB of dynamic shared memory (Q up to
+//     1024) once per device, in ssd_scan_bwd_init, which the wrapper calls
+//     before the first launch on a device. The attribute belongs to the
+//     function, not to a launch, so a launch is captured in a CUDA graph as
+//     any other;
 //   * every global offset is 64-bit.
 // Limits: as the forward's: P <= 64, N <= 128, Q <= 1024, every grid under
 // 2^31 blocks; the launcher refuses others.
@@ -81,16 +120,29 @@
 
 namespace {
 
-constexpr int kT = 64;          // output tile rows and columns
-constexpr int kK = 32;          // depth of one shared slab
-constexpr int kLd = kT + 4;     // row stride of a k-major slab (16-byte rows)
-constexpr int kSt = kT + 1;     // row stride of the staging tile
-constexpr int kThreads = 128;   // 8 x 16 threads, 8x4 outputs each
+constexpr int kT = 64;          // output tile rows (and chunk_dstate's columns)
+constexpr int kK = 32;          // chunk_dstate: depth of one shared slab
+constexpr int kLd = kT + 4;     // chunk_dstate: row stride of a k-major slab (16-byte rows)
+constexpr int kThreads = 128;   // chunk_dstate: 8 x 16 threads, 8x4 outputs each; else 2 x 2 warps
 constexpr int kMaxP = 64;
 constexpr int kMaxN = 128;
 constexpr int kMaxQ = 1024;
 constexpr int kPassThreads = 256;
 constexpr int kPassPer = 4;
+constexpr int kMK = 16;         // the tensor-core routine: depth of one shared slab
+constexpr int kLdM = kMK + 4;   // row stride of an m-major plane: fragment loads hit 32 banks
+constexpr int kPlane = kT * kLdM;   // words per plane, >= kMK * (kT + 8) for a k-major one
+constexpr int kWLd = kT + 8;    // row stride of chunk_bwd's (L ⊙ CB) tile
+constexpr int kLdT = kT + 4;    // row stride of chunk_bwd's dy_t and x_s tiles
+constexpr int kLdH = 2 * kT + 4;   // row stride of chunk_bwd's h_in tile (N <= 128)
+constexpr int kTilesWords = 2 * kT * kLdT;   // chunk_bwd's dy_t and x_s tiles
+constexpr int kBwdStages = 2;   // chunk_bwd: mma_tile's ring stages
+constexpr int kDbcStages = 4;   // chunk_dbc: mma_tile's ring stages
+constexpr int kHeadGroup = 16;  // chunk_dbc: heads per state-term partial
+constexpr int kSumThreads = 256;
+static_assert(kPlane >= kMK * (kT + 8), "a k-major plane fits");
+static_assert(kBwdStages * kPlane <= kT * kLdT && kBwdStages * kPlane <= kT * kWLd &&
+              kT * kLdH <= kTilesWords, "chunk_bwd's rings and h_in fit its tiles");
 
 // This thread's 8x4 register tile: rows 8*ty .. 8*ty+7, columns 4*tx ..
 // 4*tx+3. A warp covers 4 ty x 8 tx.
@@ -100,19 +152,20 @@ __device__ __forceinline__ void tile_coords(int& ty, int& tx) {
   ty = (warp >> 1) * 4 + (lane >> 3);
 }
 
-// acc[i][j] += Σ_{k < depth} fa(8ty + i, k) · fb(k, 4tx + j). fa(m, k) and
-// fb(k, n) give the operands' elements (0 outside their range); each
-// slab of kK steps is stored k-major in as / bs. kAk (kBk) says that the
-// left (right) operand's source runs along k in memory: consecutive threads
-// then take consecutive k, otherwise consecutive m (n), so global reads
-// are coalesced either way. A slab's elements are all read into registers
-// before any is stored: the shared stores go through generic pointers,
-// which the compiler cannot tell from the global reads, so interleaved
-// stores would serialise the reads (one memory round trip each). The
-// first slab's elements are read before the first barrier: fa and fb may
-// read shared memory only where a barrier has passed since it was written.
-// A barrier precedes every store into as / bs, so the caller may read the
-// slabs (or what aliases them) right before the call; it ends without one.
+// acc[i][j] += Σ_{k < depth} fa(8ty + i, k) · fb(k, 4tx + j) on the fp32
+// CUDA cores (chunk_dstate). fa(m, k) and fb(k, n) give the operands'
+// elements (0 outside their range); each slab of kK steps is stored k-major
+// in as / bs. kAk (kBk) says that the left (right) operand's source runs
+// along k in memory: consecutive threads then take consecutive k, otherwise
+// consecutive m (n), so global reads are coalesced either way. A slab's
+// elements are all read into registers before any is stored: the shared
+// stores go through generic pointers, which the compiler cannot tell from
+// the global reads, so interleaved stores would serialise the reads (one
+// memory round trip each). The first slab's elements are read before the
+// first barrier: fa and fb may read shared memory only where a barrier has
+// passed since it was written. A barrier precedes every store into as / bs,
+// so the caller may read the slabs (or what aliases them) right before the
+// call; it ends without one.
 template <bool kAk, bool kBk, typename FA, typename FB>
 __device__ __forceinline__ void mm_tile(float (&acc)[8][4], float* __restrict__ as,
                                         float* __restrict__ bs, int depth, FA fa, FB fb) {
@@ -185,6 +238,309 @@ __device__ __forceinline__ void store_tile(float* out, int64_t ld, const float (
       if (c < cols) out[(int64_t)r * ld + c] = acc[i][j];
     }
   }
+}
+
+// ---- The tensor-core routine (chunk_bwd, chunk_dbc) ----------------------
+//
+// A block's output tile is 64 rows x 16·NI columns; its four warps are 2 x 2,
+// each owning 32 rows x 8·NI columns as 2 x NI mma tiles of 16 x 8. A
+// thread's accumulator acc[mi][ni][e] is element e of the m16n8 tile (mi,
+// ni): frag_rc gives its row and column.
+
+// d += a · b on one m16n8k8 tile, TF32 operands, fp32 accumulation.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The block-tile row r and column c of accumulator element e of mma tile
+// (mi, ni): the one map every epilogue uses.
+template <int NI>
+__device__ __forceinline__ void frag_rc(int mi, int ni, int e, int& r, int& c) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  r = (warp >> 1) * 32 + mi * 16 + (lane >> 2) + 8 * (e >> 1);
+  c = (warp & 1) * 8 * NI + ni * 8 + 2 * (lane & 3) + (e & 1);
+}
+
+// f(mi, ni, e, r, c) for every accumulator element of this thread, (r, c)
+// its row and column (frag_rc).
+template <int NI, typename F>
+__device__ __forceinline__ void each_frag(F f) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int r, c;
+        frag_rc<NI>(mi, ni, e, r, c);
+        f(mi, ni, e, r, c);
+      }
+}
+
+template <int NI>
+__device__ __forceinline__ void zero(float (&acc)[2][NI][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+}
+
+// Where element (m, k) of a slab of `rows` rows lies in its plane: m-major
+// (rows kLdM apart) when the source runs along k, else k-major (rows of
+// rows + 8). Either way a fragment load's 32 lanes hit 32 banks, and the
+// stores, consecutive along the source, at most two to a bank.
+template <bool kAlongK, int kRows>
+__device__ __forceinline__ int plane_at(int m, int k) {
+  return kAlongK ? m * kLdM + k : k * (kRows + 8) + m;
+}
+
+// Asynchronous copy of kW floats (4 or 16 bytes) from global to shared
+// memory (cp.async), and its group bookkeeping.
+template <int kW>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (kW == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// v = big + small as the tensor core reads TF32 operands, dropping the low 13
+// bits of each: big is v rounded to TF32 to nearest, ties away from zero
+// (half a TF32 ulp added to the magnitude bits, as cvt.rna.tf32 rounds),
+// small = v - big, which the tensor core truncates to TF32. Three
+// instructions where two cvt.rna.tf32 took about nine; no inf or NaN reaches
+// a product here.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(v) + 0x1000u;
+  small = __float_as_uint(v - __uint_as_float(big & 0xffffe000u));
+}
+
+// mma_tile's operand maps: no row scale; no source (a resident A).
+struct NoScale {
+  __device__ float operator()(int, int) const { return 1.f; }
+};
+struct NoSource {
+  __device__ const float* operator()(int, int) const { return nullptr; }
+};
+
+// Zero-fills kW floats of shared memory (where a copy has no source).
+template <int kW>
+__device__ __forceinline__ void zero_chunk(float* dst) {
+  if constexpr (kW == 4) *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  else *dst = 0.f;
+}
+
+// One 8-deep step of k of the block's 64 x 16·NI product, both operands in
+// shared memory, the step at A's depth ka and B's kb: A(m, k) at A[m * lda +
+// k] (kAk) or A[k * lda + m], B(k, n) at B[n * ldb + k] (kBk) or B[k * ldb +
+// n]. Each fragment element is split
+// into big = rna_tf32(v) and small = rna_tf32(v - big) as it is loaded, A's
+// rows scaled by xa(m, kabs) first (kabs the step's depth in the whole
+// product), and a tile takes big·small + small·big + big·big. With the row
+// strides used here (20, 68, 72, 132, 16·NI + 8) no two lanes of a
+// fragment load hit one bank, but for a k-major B at stride 68 (two).
+template <bool kAk, bool kBk, int NI, typename XA>
+__device__ __forceinline__ void mma_step(float (&acc)[2][NI][4], const float* __restrict__ A,
+                                         int lda, int ka, const float* __restrict__ B, int ldb,
+                                         int kb, XA xa, int kabs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int wr = (warp >> 1) * 32, wc = (warp & 1) * 8 * NI;
+  auto a_at = [&](int m, int kk) { return kAk ? A[m * lda + kk] : A[kk * lda + m]; };
+  auto b_at = [&](int kk, int n) { return kBk ? B[n * ldb + kk] : B[kk * ldb + n]; };
+  uint32_t bb[NI][2], bs[NI][2];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) {
+    const int n = wc + ni * 8 + g;
+    split_tf32(b_at(kb + q, n), bb[ni][0], bs[ni][0]);
+    split_tf32(b_at(kb + q + 4, n), bb[ni][1], bs[ni][1]);
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int m = wr + mi * 16 + g;
+    const float s0 = xa(m, kabs), s8 = xa(m + 8, kabs);
+    uint32_t ab[4], as[4];
+    split_tf32(s0 * a_at(m, ka + q), ab[0], as[0]);
+    split_tf32(s8 * a_at(m + 8, ka + q), ab[1], as[1]);
+    split_tf32(s0 * a_at(m, ka + q + 4), ab[2], as[2]);
+    split_tf32(s8 * a_at(m + 8, ka + q + 4), ab[3], as[3]);
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      mma_tf32(acc[mi][ni], ab, bs[ni][0], bs[ni][1]);
+      mma_tf32(acc[mi][ni], as, bb[ni][0], bb[ni][1]);
+      mma_tf32(acc[mi][ni], ab, bb[ni][0], bb[ni][1]);
+    }
+  }
+}
+
+// acc += A · B over a depth (a multiple of 8) of operands already in shared
+// memory (layouts as mma_step's). No barrier: the caller makes them ready.
+template <bool kAk, bool kBk, int NI>
+__device__ __forceinline__ void mma_resident(float (&acc)[2][NI][4], const float* A, int lda,
+                                             const float* B, int ldb, int depth) {
+  for (int k = 0; k < depth; k += 8)
+    mma_step<kAk, kBk, NI>(acc, A, lda, k, B, ldb, k, NoScale(), k);
+}
+
+// This thread's share of a rows x cols tile copied by cp.async into dst
+// (rows ld apart) in chunks of kW floats along the columns (cols a multiple
+// of kW); src(r, c) gives the chunk's address, nullptr for zeros. The
+// caller commits and waits.
+template <int kW, typename F>
+__device__ __forceinline__ void load_tile(float* dst, int ld, int rows, int cols, F src) {
+  const int per_row = cols / kW;
+  for (int c = threadIdx.x; c < rows * per_row; c += kThreads) {
+    const int r = c / per_row, col = c % per_row * kW;
+    const float* from = src(r, col);
+    if (from) cp_async<kW>(dst + r * ld + col, from);
+    else zero_chunk<kW>(dst + r * ld + col);
+  }
+}
+
+// acc += Σ_{k < depth} A(m, k) · B(k, n) over the block's 64 x 16·NI tile
+// in 3xTF32, A's rows scaled by xa(m, k), uniform over each 8-deep step of
+// k (NoScale() where there is none).
+//
+// Operands come from global memory in chunks of kW floats along the
+// dimension their source runs along (kAk / kBk: along k; else along m / n):
+// sa(m, k) (sb(k, n)) gives the address of the chunk that starts at the
+// element, nullptr where the chunk is zero; consecutive threads take
+// consecutive chunks, so the copies are coalesced. With kARes, A is no copy
+// but resident in shared memory at a_res over the whole depth (rows lda
+// apart, layout as mma_step's). depth is a multiple of kW.
+//
+// The copies run by cp.async into rings of kS planes for A (ring_a) and for
+// B (ring_b), kS - 1 slabs ahead of the products, so no register holds a
+// load in flight. A plane holds its slab as it is in memory: m-major (rows
+// kLdM apart) when the source runs along k, else k-major (rows of
+// 64 + 8 or 16·NI + 8), so neither the chunk stores nor the fragment loads
+// hit a bank twice. A barrier precedes the first read of the planes and of
+// a_res, so the caller may write a_res right before the call; the call ends
+// with a barrier, so the caller may write it right after.
+template <int kS, int kW, bool kAk, bool kBk, bool kARes, int NI, typename SA, typename SB,
+          typename XA>
+__device__ __forceinline__ void mma_tile(float (&acc)[2][NI][4], float* __restrict__ ring_a,
+                                         float* __restrict__ ring_b, int depth, SA sa, SB sb,
+                                         XA xa, const float* __restrict__ a_res = nullptr,
+                                         int lda = 0) {
+  constexpr int kTN = 16 * NI;
+  constexpr int kChunksA = kARes ? 0 : kT * kMK / kW;
+  constexpr int kChunksB = kTN * kMK / kW;
+  constexpr int kLdA = kAk ? kLdM : kT + 8, kLdB = kBk ? kLdM : kTN + 8;
+  const int nslabs = (depth + kMK - 1) / kMK;
+  // This thread's chunks of slab t into stage t % kS, one group.
+  auto issue = [&](int t) {
+    if (t < nslabs) {
+      float* const a_st = ring_a + (t % kS) * kPlane;
+      float* const b_st = ring_b + (t % kS) * kPlane;
+      const int k0 = t * kMK;
+#pragma unroll
+      for (int i = 0; i < (kChunksA + kThreads - 1) / kThreads; ++i) {
+        const int c = threadIdx.x + i * kThreads;
+        constexpr int kPerLine = kAk ? kMK / kW : kT / kW;
+        const int k = kAk ? c % kPerLine * kW : c / kPerLine;
+        const int m = kAk ? c / kPerLine : c % kPerLine * kW;
+        if (c < kChunksA) {
+          float* dst = a_st + plane_at<kAk, kT>(m, k);
+          const float* src = k0 + k < depth ? sa(m, k0 + k) : nullptr;
+          if (src) cp_async<kW>(dst, src);
+          else zero_chunk<kW>(dst);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < (kChunksB + kThreads - 1) / kThreads; ++i) {
+        const int c = threadIdx.x + i * kThreads;
+        constexpr int kPerLine = kBk ? kMK / kW : kTN / kW;
+        const int k = kBk ? c % kPerLine * kW : c / kPerLine;
+        const int n = kBk ? c / kPerLine : c % kPerLine * kW;
+        if (c < kChunksB) {
+          float* dst = b_st + plane_at<kBk, kTN>(n, k);
+          const float* src = k0 + k < depth ? sb(k0 + k, n) : nullptr;
+          if (src) cp_async<kW>(dst, src);
+          else zero_chunk<kW>(dst);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < kS - 1; ++t) issue(t);
+  for (int t = 0; t < nslabs; ++t) {
+    cp_async_wait<kS - 2>();   // this thread's chunks of slab t have landed
+    __syncthreads();           // everyone's have, and slab t - 1's stage is free
+    issue(t + kS - 1);
+    const int k0 = t * kMK;
+#pragma unroll
+    for (int kk = 0; kk < kMK; kk += 8) {
+      if constexpr (kARes)
+        mma_step<kAk, kBk, NI>(acc, a_res, lda, k0 + kk, ring_b + (t % kS) * kPlane, kLdB, kk,
+                               xa, k0 + kk);
+      else
+        mma_step<kAk, kBk, NI>(acc, ring_a + (t % kS) * kPlane, kLdA, kk,
+                               ring_b + (t % kS) * kPlane, kLdB, kk, xa, k0 + kk);
+    }
+  }
+  cp_async_wait<0>();          // only empty groups remain
+  __syncthreads();
+}
+
+// Per row of the block tile, the sum of f(mi, ni, e) over this warp's 8·NI
+// columns, into red[(warp & 1) * kT + row]: each thread's own columns in
+// order, then the row's four lanes by butterfly. Per column, col_partials
+// sums this warp's 32 rows into red[(warp >> 1) * 16·NI + column]. The
+// order is fixed, so launches repeat bitwise. Every thread of the block
+// calls them.
+template <int NI, typename F>
+__device__ __forceinline__ void row_partials(F f, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float s = 0.f;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        s += f(mi, ni, 2 * hf);
+        s += f(mi, ni, 2 * hf + 1);
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if ((lane & 3) == 0) red[(warp & 1) * kT + (warp >> 1) * 32 + mi * 16 + 8 * hf + (lane >> 2)] = s;
+    }
+}
+
+template <int NI, typename F>
+__device__ __forceinline__ void col_partials(F f, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      float s = f(0, ni, b);
+      s += f(0, ni, 2 + b);
+      s += f(1, ni, b);
+      s += f(1, ni, 2 + b);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if ((lane >> 2) == 0) red[(warp >> 1) * 16 * NI + (warp & 1) * 8 * NI + ni * 8 + 2 * lane + b] = s;
+    }
 }
 
 // Phase 1. Blocks [0, nd): (((b * nc + c) * H + h) * nslices + slice) with
@@ -287,37 +643,69 @@ ssd_bwd_dstate_pass_kernel(float* __restrict__ gstates, const float* __restrict_
   }
 }
 
-// Phase 3. Block (b * nc + c) * H + h.
-__global__ void __launch_bounds__(kThreads)
+// Phase 3's dynamic shared memory: the dy_t and x_s tiles (or mma_tile's
+// rings, or the h_in tile), the (L ⊙ CB) tile (or a ring), the row and
+// column partials, then cum (fp64) and six fp32 arrays of length Q.
+constexpr size_t bwd_smem_bytes(int Q) {
+  return sizeof(float) * (kTilesWords + kT * kWLd + 4 * kT) +
+         (size_t)Q * (sizeof(double) + 6 * sizeof(float));
+}
+
+// Phase 4's dynamic shared memory: mma_tile's ring, then the block's scales.
+constexpr size_t dbc_smem_bytes() {
+  return sizeof(float) * (2 * kDbcStages * kPlane + kT * kHeadGroup);
+}
+
+// Phase 3. Block (b * nc + c) * H + h; operands copied in chunks of kW
+// floats. Per tile pair (s tile js, t tile it >= js) the dy_t tile, the CB
+// tile and (first pair of js) the x_s tile arrive in one batch of copies and
+// stay in shared memory; (L ⊙ CB) is formed in place of CB, and M = dy_t
+// x_sᵀ and dx += (L ⊙ CB)ᵀ dy_t read them there.
+template <int kW>
+__global__ void __launch_bounds__(kThreads, 3)
 ssd_bwd_chunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                          const float* __restrict__ a, const float* __restrict__ bm,
                          const float* __restrict__ cm, const float* __restrict__ dy,
                          const double* __restrict__ cum, const float* __restrict__ g,
                          const float* __restrict__ h_in, const float* __restrict__ gstates,
                          float* __restrict__ dx, float* __restrict__ ddt,
-                         float* __restrict__ da_part, int64_t S, int H, int P, int N, int Q) {
-  __shared__ __align__(16) float slab[2 * kK * kLd];   // as | bs, or the staging tile
-  __shared__ double cums[kMaxQ];
-  __shared__ float dts[kMaxQ];
-  __shared__ float dcum[kMaxQ];   // ∂cum, then its reverse cumsum
-  __shared__ float ddir[kMaxQ];   // the direct ddt
-  __shared__ float vs[kMaxQ];     // V_s, summed onto ∂cum_Q at the end
-  __shared__ float red[kThreads];
-  float* as = slab;
-  float* bs = slab + kK * kLd;
-  float* stage = slab;            // 64 x kSt <= 2 * kK * kLd floats
+                         float* __restrict__ da_part, float* __restrict__ scale_out,
+                         float* __restrict__ scale_in, int64_t S, int H, int P, int N, int Q) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // tiles: dy_t and x_s (rows kLdT apart); the state-term product's rings take
+  // dy_t's and (L ⊙ CB)'s place, and h_in (rows kLdH apart) the tiles' in the
+  // inter-chunk products.
+  float* tiles = reinterpret_cast<float*>(smem);
+  float* dyt = tiles;
+  float* xs = tiles + kT * kLdT;
+  float* wt = tiles + kTilesWords;   // CB, then (L ⊙ CB)[t][s], rows kWLd apart
+  float* red = wt + kT * kWLd;       // row, then column partials
+  double* cums = reinterpret_cast<double*>(red + 4 * kT);
+  float* dts = reinterpret_cast<float*>(cums + Q);
+  float* eo = dts + Q;            // exp(A - cum_s)
+  float* ei = eo + Q;             // exp(cum_t)
+  float* dcum = ei + Q;           // ∂cum, then its reverse cumsum
+  float* ddir = dcum + Q;         // the direct ddt
+  float* vs = ddir + Q;           // V_s, summed onto ∂cum_Q at the end
   const int h = (int)(blockIdx.x % H);
   const int64_t bc = blockIdx.x / H, nc = S / Q, b = bc / nc;
   const int64_t row0 = bc * Q, HP = (int64_t)H * P, PN = (int64_t)P * N;
   const double* cu = cum + (b * H + h) * S + (bc - b * nc) * Q;
+  const double last = cu[Q - 1];
   for (int u = threadIdx.x; u < Q; u += kThreads) {
-    cums[u] = cu[u];
-    dts[u] = dt[(row0 + u) * H + h];
+    const double c = cu[u];
+    const float d = dt[(row0 + u) * H + h];
+    const float e_out = expf((float)(last - c)), e_in = expf((float)c);
+    cums[u] = c;
+    dts[u] = d;
+    eo[u] = e_out;
+    ei[u] = e_in;
+    scale_out[(row0 + u) * H + h] = d * e_out;
+    scale_in[(row0 + u) * H + h] = e_in;
     dcum[u] = 0.f;
     ddir[u] = 0.f;
     vs[u] = 0.f;
   }
-  const double last = cu[Q - 1];
   const float* xb = x + row0 * HP + (int64_t)h * P;       // step s at xb + s * HP
   const float* dyb = dy + row0 * HP + (int64_t)h * P;
   const float* brow = bm + row0 * N;                      // step s at brow + s * N
@@ -326,122 +714,129 @@ ssd_bwd_chunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   const float* gc = gstates + (bc * H + h) * PN;          // G_c[p][n] at gc + p * N + n
   const float* hb = h_in + (bc * H + h) * PN;
   const int ntiles = (Q + kT - 1) / kT;
-  int ty, tx;
-  tile_coords(ty, tx);
   const int tid = threadIdx.x;
+  const int P8 = (P + 7) / 8 * 8, N16 = (N + kMK - 1) / kMK * kMK;
 
   for (int js = 0; js < ntiles; ++js) {
     const int s0 = js * kT;
-    float dxa[8][4];
+    float dxa[2][4][4];
     zero(dxa);
     for (int it = js; it < ntiles; ++it) {
       const int t0 = it * kT;
-      float m[8][4];
-      zero(m);
-      // M[t][s] = dy_t · x_s over P (rows t, columns s).
-      mm_tile<true, true>(m, as, bs, P,
-          [&](int i, int p) { return t0 + i < Q ? dyb[(int64_t)(t0 + i) * HP + p] : 0.f; },
-          [&](int p, int j) { return s0 + j < Q ? xb[(int64_t)(s0 + j) * HP + p] : 0.f; });
-      __syncthreads();   // the slabs are consumed: stage (L ⊙ CB ⊙ M)[t][s]
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int t = t0 + 8 * ty + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int s = s0 + 4 * tx + j;
-          float v = 0.f;
-          if (t < Q && s <= t) v = gb[(int64_t)t * Q + s] * expf((float)(cums[t] - cums[s])) * m[i][j];
-          stage[(8 * ty + i) * kSt + 4 * tx + j] = v;
-        }
+      // The pair's tiles, columns past P (past Q for CB) zero. The barrier
+      // at the end of the last pair (or mma_tile's) freed the buffers.
+      if (it == js)
+        load_tile<kW>(xs, kLdT, kT, kT, [&](int r, int c) {
+          return s0 + r < Q && c < P ? xb + (int64_t)(s0 + r) * HP + c : nullptr;
+        });
+      load_tile<kW>(dyt, kLdT, kT, kT, [&](int r, int c) {
+        return t0 + r < Q && c < P ? dyb + (int64_t)(t0 + r) * HP + c : nullptr;
+      });
+      load_tile<kW>(wt, kWLd, kT, kT, [&](int r, int c) {
+        return t0 + r < Q && s0 + c < Q ? gb + (int64_t)(t0 + r) * Q + s0 + c : nullptr;
+      });
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      // (L ⊙ CB)[t][s] in place, once for the pair; above the diagonal and
+      // past Q zero (selected: CB is unspecified there).
+      for (int e = tid; e < kT * kT; e += kThreads) {
+        const int i = e / kT, j = e % kT, t = t0 + i, s = s0 + j;
+        float* w = wt + i * kWLd + j;
+        *w = t < Q && s <= t ? *w * expf((float)(cums[t] - cums[s])) : 0.f;
       }
       __syncthreads();
-      // ∂cum_t += Σ_s dt_s P1[t][s]: one thread per row, columns in order.
-      if (tid < kT && t0 + tid < Q) {
-        float sum = 0.f;
-        for (int j = 0; j < kT && s0 + j < Q; ++j) sum = fmaf(dts[s0 + j], stage[tid * kSt + j], sum);
-        dcum[t0 + tid] += sum;
+      // M[t][s] = dy_t · x_s over P (rows t, columns s).
+      float m[2][4][4];
+      zero(m);
+      mma_resident<true, true, 4>(m, dyt, kLdT, xs, kLdT, P8);
+      // P1 = (L ⊙ CB) ⊙ M: ∂cum_t += Σ_s dt_s P1[t][s]; ddt_s += Σ_t P1[t][s],
+      // ∂cum_s -= dt_s Σ_t P1[t][s].
+      auto p1 = [&](int mi, int ni, int e) {
+        int r, c;
+        frag_rc<4>(mi, ni, e, r, c);
+        return wt[r * kWLd + c] * m[mi][ni][e];
+      };
+      row_partials<4>([&](int mi, int ni, int e) {
+        int r, c;
+        frag_rc<4>(mi, ni, e, r, c);
+        return (s0 + c < Q ? dts[s0 + c] : 0.f) * p1(mi, ni, e);
+      }, red);
+      col_partials<4>(p1, red + 2 * kT);
+      __syncthreads();
+      if (tid < kT) {   // the diagonal tile's row tid and column tid: one thread
+        const int t = t0 + tid, s = s0 + tid;
+        if (t < Q) dcum[t] += red[tid] + red[kT + tid];
+        if (s < Q) {
+          const float col = red[2 * kT + tid] + red[3 * kT + tid];
+          ddir[s] += col;
+          dcum[s] -= dts[s] * col;
+        }
       }
-      __syncthreads();   // the diagonal tile's rows and columns share dcum entries
-      // ddt_s += Σ_t P1[t][s]; ∂cum_s -= dt_s Σ_t P1[t][s]: one thread per column.
-      if (tid >= kT && s0 + tid - kT < Q) {
-        const int j = tid - kT;
-        float sum = 0.f;
-        for (int i = 0; i < kT; ++i) sum += stage[i * kSt + j];
-        ddir[s0 + j] += sum;
-        dcum[s0 + j] -= dts[s0 + j] * sum;
-      }
-      // dx[s][p] += Σ_t (L ⊙ CB)[t][s] dy_t[p] over this t tile (mm_tile's
-      // barrier orders the staging reads before its slab writes).
-      mm_tile<false, false>(dxa, as, bs, kT,
-          [&](int j, int i) {
-            const int t = t0 + i, s = s0 + j;
-            return t < Q && s <= t ? gb[(int64_t)t * Q + s] * expf((float)(cums[t] - cums[s])) : 0.f;
-          },
-          [&](int i, int p) { return t0 + i < Q && p < P ? dyb[(int64_t)(t0 + i) * HP + p] : 0.f; });
+      // dx[s][p] += Σ_t (L ⊙ CB)[t][s] dy_t[p] over this t tile (rows past Q
+      // zero in both).
+      mma_resident<false, false, 4>(dxa, wt, kWLd, dyt, kLdT, kT);
+      __syncthreads();   // the tiles and the partials are consumed
     }
-    // The state term: inter[s][p] = (G_c B_s)[p] over N.
-    float in[8][4];
+    // The state term: inter[s][p] = (G_c B_s)[p] over N, its rings in place of
+    // dy_t and (L ⊙ CB), so that x_s stays.
+    float in[2][4][4];
     zero(in);
-    mm_tile<true, true>(in, as, bs, N,
-        [&](int j, int n) { return s0 + j < Q ? brow[(int64_t)(s0 + j) * N + n] : 0.f; },
-        [&](int n, int p) { return p < P ? gc[(int64_t)p * N + n] : 0.f; });
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int s = s0 + 8 * ty + i;
-      const float e = s < Q ? expf((float)(last - cums[s])) : 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = 4 * tx + j;
-        const bool ok = s < Q && p < P;
-        stage[(8 * ty + i) * kSt + p] = ok ? xb[(int64_t)s * HP + p] * in[i][j] : 0.f;
-        if (ok) dx[(row0 + s) * HP + (int64_t)h * P + p] = dts[s] * fmaf(e, in[i][j], dxa[i][j]);
-      }
-    }
-    __syncthreads();
+    mma_tile<kBwdStages, kW, true, true, false, 4>(in, dyt, wt, N,
+        [&](int j, int n) { return s0 + j < Q ? brow + (int64_t)(s0 + j) * N + n : nullptr; },
+        [&](int n, int p) { return p < P ? gc + (int64_t)p * N + n : nullptr; }, NoScale());
+    each_frag<4>([&](int mi, int ni, int e, int r, int p) {
+      const int s = s0 + r;
+      if (s < Q && p < P)
+        dx[(row0 + s) * HP + (int64_t)h * P + p] = dts[s] * fmaf(eo[s], in[mi][ni][e], dxa[mi][ni][e]);
+    });
     // xi_s = x_s · (G_c B_s): the direct ddt gets exp(A - cum_s) xi_s, ∂cum_s
     // loses V_s = exp(A - cum_s) dt_s xi_s, which ∂cum_Q gets back below.
+    row_partials<4>([&](int mi, int ni, int e) {
+      int r, p;
+      frag_rc<4>(mi, ni, e, r, p);
+      return xs[r * kLdT + p] * in[mi][ni][e];
+    }, red);
+    __syncthreads();
     if (tid < kT && s0 + tid < Q) {
       const int s = s0 + tid;
-      float xi = 0.f;
-      for (int p = 0; p < P; ++p) xi += stage[tid * kSt + p];
-      const float e = expf((float)(last - cums[s]));
-      const float v = e * dts[s] * xi;
+      const float xi = red[tid] + red[kT + tid], e = eo[s], v = e * dts[s] * xi;
       ddir[s] = fmaf(e, xi, ddir[s]);
       dcum[s] -= v;
       vs[s] = v;
     }
   }
-  // The inter-chunk ∂cum term: exp(cum_t) dy_t · (h_in C_t), per t tile.
+  // The inter-chunk ∂cum term: exp(cum_t) dy_t · (h_in C_t), per t tile, as
+  // yiᵀ[p][t] = Σ_n h_in[p][n] C_t[n] with h_in resident in the tiles (zero
+  // up to mma_tile's last slab).
+  load_tile<kW>(tiles, kLdH, kT, N16, [&](int r, int c) {
+    return r < P && c < N ? hb + (int64_t)r * N + c : nullptr;
+  });
+  cp_async_commit();
+  cp_async_wait<0>();
   for (int it = 0; it < ntiles; ++it) {
     const int t0 = it * kT;
-    float yi[8][4];
+    float dyv[2][4][4];   // dy_t at this thread's accumulator positions, read first
+    each_frag<4>([&](int mi, int ni, int e, int p, int c) {
+      dyv[mi][ni][e] = t0 + c < Q && p < P ? dyb[(int64_t)(t0 + c) * HP + p] : 0.f;
+    });
+    float yi[2][4][4];
     zero(yi);
-    mm_tile<true, true>(yi, as, bs, N,
-        [&](int i, int n) { return t0 + i < Q ? crow[(int64_t)(t0 + i) * N + n] : 0.f; },
-        [&](int n, int p) { return p < P ? hb[(int64_t)p * N + n] : 0.f; });
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int t = t0 + 8 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = 4 * tx + j;
-        stage[(8 * ty + i) * kSt + p] =
-            t < Q && p < P ? dyb[(int64_t)t * HP + p] * yi[i][j] : 0.f;
-      }
-    }
+    mma_tile<kBwdStages, kW, true, true, true, 4>(yi, nullptr, wt, N, NoSource(),
+        [&](int n, int j) { return t0 + j < Q ? crow + (int64_t)(t0 + j) * N + n : nullptr; },
+        NoScale(), tiles, kLdH);
+    col_partials<4>([&](int mi, int ni, int e) { return dyv[mi][ni][e] * yi[mi][ni][e]; }, red);
     __syncthreads();
     if (tid < kT && t0 + tid < Q) {
-      float sum = 0.f;
-      for (int p = 0; p < P; ++p) sum += stage[tid * kSt + p];
-      dcum[t0 + tid] = fmaf(expf((float)cums[t0 + tid]), sum, dcum[t0 + tid]);
+      const int t = t0 + tid;
+      dcum[t] = fmaf(ei[t], red[tid] + red[kT + tid], dcum[t]);
     }
   }
   // ∂cum_Q += exp(A) <G_c, h_in> + Σ_s V_s. The dot: strided partial sums,
   // then a fixed tree; Σ_s V_s in index order.
   float part = 0.f;
   for (int64_t e = tid; e < PN; e += kThreads) part = fmaf(gc[e], hb[e], part);
+  __syncthreads();   // the last row partials are read
   red[tid] = part;
   __syncthreads();
   for (int off = kThreads / 2; off > 0; off >>= 1) {
@@ -469,96 +864,106 @@ ssd_bwd_chunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   for (int u = tid; u < Q; u += kThreads) ddt[(row0 + u) * H + h] = fmaf(ah, dcum[u], ddir[u]);
 }
 
-// Phase 4. Blocks [0, B * nc * ntiles * nslices * 2): ((((b * nc + c) *
-// ntiles + tile) * nslices + slice) * 2 + kind), kind 0 dB for the s tile,
-// kind 1 dC for the t tile; one last block sums da.
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_chunk_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                         const float* __restrict__ bm, const float* __restrict__ cm,
-                         const float* __restrict__ dy, const double* __restrict__ cum,
+// Phase 4. Block (((((b * nc + c) * 2 + kind) * nrows + tile) * nslots +
+// slot) * ncols + col), kind 0 dB for the s tile, kind 1 dC for the t tile,
+// columns in tiles of 16·NI: the slot's partial of the (tile, col) output
+// tile into part[b, c, kind, slot]; operands copied in chunks of kW floats.
+template <int NI, int kW>
+__global__ void __launch_bounds__(kThreads, kW == 4 ? 4 : 2)
+ssd_bwd_chunk_dbc_kernel(const float* __restrict__ x, const float* __restrict__ bm,
+                         const float* __restrict__ cm, const float* __restrict__ dy,
                          const float* __restrict__ h_in, const float* __restrict__ gstates,
-                         const float* __restrict__ r, const float* __restrict__ da_part,
-                         float* __restrict__ db, float* __restrict__ dc, float* __restrict__ da,
-                         int64_t B, int64_t S, int H, int P, int N, int Q, int64_t nblocks) {
-  __shared__ __align__(16) float as[kK * kLd];
-  __shared__ __align__(16) float bs[kK * kLd];
+                         const float* __restrict__ r, const float* __restrict__ scale_out,
+                         const float* __restrict__ scale_in, float* __restrict__ part,
+                         int64_t S, int H, int P, int N, int Q) {
+  constexpr int kTN = 16 * NI;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring_a = reinterpret_cast<float*>(smem);
+  float* ring_b = ring_a + kDbcStages * kPlane;
+  float* scs = ring_b + kDbcStages * kPlane;   // [row][head - h0]
   const int64_t nc = S / Q, HP = (int64_t)H * P, PN = (int64_t)P * N;
-  if (blockIdx.x >= nblocks) {
+  const int nslots = 1 + (H + kHeadGroup - 1) / kHeadGroup;
+  const int ncols = (N + kTN - 1) / kTN, nrows = (Q + kT - 1) / kT;
+  int64_t rest = blockIdx.x;
+  const int col = (int)(rest % ncols);
+  rest /= ncols;
+  const int slot = (int)(rest % nslots);
+  rest /= nslots;
+  const int tile = (int)(rest % nrows);
+  rest /= nrows;
+  const int kind = (int)(rest & 1);
+  const int64_t bc = rest >> 1, row0 = bc * Q;
+  const int r0 = tile * kT, n0 = col * kTN;
+  const float* rb = r + bc * (int64_t)Q * Q;              // R[t][s] at rb + t * Q + s
+  const float* brow = bm + row0 * N;
+  const float* crow = cm + row0 * N;
+  float acc[2][NI][4];
+  zero(acc);
+  if (slot == 0 && kind == 0) {
+    // dB[s][n] = Σ_{t >= s} R[t][s] C_t[n]: t from the s tile's first row.
+    mma_tile<kDbcStages, kW, false, false, false, NI>(acc, ring_a, ring_b, Q - r0,
+        [&](int j, int k) { return r0 + j < Q ? rb + (int64_t)(r0 + k) * Q + r0 + j : nullptr; },
+        [&](int k, int n) { return n0 + n < N ? crow + (int64_t)(r0 + k) * N + n0 + n : nullptr; },
+        NoScale());
+  } else if (slot == 0) {
+    // dC[t][n] = Σ_{s <= t} R[t][s] B_s[n]: s up to the t tile's last row.
+    mma_tile<kDbcStages, kW, true, false, false, NI>(acc, ring_a, ring_b, min(Q, r0 + kT),
+        [&](int i, int k) { return r0 + i < Q ? rb + (int64_t)(r0 + i) * Q + k : nullptr; },
+        [&](int k, int n) { return n0 + n < N ? brow + (int64_t)k * N + n0 + n : nullptr; },
+        NoScale());
+  } else {
+    // The heads [h0, h0 + nh): dB: Σ_{h, p} scale_out[s][h] x_s[h][p] G_c[h][p][n];
+    // dC: Σ_{h, p} scale_in[t][h] dy_t[h][p] h_in[h][p][n]. Each head takes Pp
+    // steps of k, P rounded up to the slab depth (the rest zero), so that
+    // every 8-deep step lies in one head and the scale is a row scale.
+    const int h0 = (slot - 1) * kHeadGroup, nh = min(kHeadGroup, H - h0);
+    const int Pp = (P + kMK - 1) / kMK * kMK;
+    const float* sc = kind == 0 ? scale_out : scale_in;
+    const float* src = (kind == 0 ? x : dy) + (row0 + r0) * HP + (int64_t)h0 * P;
+    const float* st = (kind == 0 ? gstates : h_in) + (bc * H + h0) * PN;   // [k][n], k = (h - h0) P + p
+    for (int e = threadIdx.x; e < kT * kHeadGroup; e += kThreads) {
+      const int i = e / kHeadGroup, hh = e % kHeadGroup;
+      scs[e] = r0 + i < Q && hh < nh ? sc[(row0 + r0 + i) * H + h0 + hh] : 0.f;
+    }
+    mma_tile<kDbcStages, kW, true, false, false, NI>(acc, ring_a, ring_b, nh * Pp,
+        [&](int i, int k) {
+          const int hh = k / Pp, p = k - hh * Pp;
+          return r0 + i < Q && p < P ? src + (int64_t)i * HP + hh * P + p : nullptr;
+        },
+        [&](int k, int n) {
+          const int hh = k / Pp, p = k - hh * Pp;
+          return n0 + n < N && p < P ? st + hh * PN + (int64_t)p * N + n0 + n : nullptr;
+        },
+        [&](int i, int k) { return scs[i * kHeadGroup + k / Pp]; });
+  }
+  float* out = part + ((bc * 2 + kind) * nslots + slot) * (int64_t)Q * N;
+  each_frag<NI>([&](int mi, int ni, int e, int r, int c) {
+    if (r0 + r < Q && n0 + c < N) out[(int64_t)(r0 + r) * N + n0 + c] = acc[mi][ni][e];
+  });
+}
+
+// Phase 5. Blocks [0, nsum): one output element of dB or dC per thread, the
+// slots' partials summed in slot order; one last block sums da.
+__global__ void __launch_bounds__(kSumThreads)
+ssd_bwd_dbc_sum_kernel(const float* __restrict__ part, const float* __restrict__ da_part,
+                       float* __restrict__ db, float* __restrict__ dc, float* __restrict__ da,
+                       int64_t BC, int H, int N, int Q, int nslots, int64_t nsum) {
+  if (blockIdx.x >= nsum) {
     // da_h = Σ_{b, c} da_part[b, c, h], in order.
-    for (int h = threadIdx.x; h < H; h += kThreads) {
+    for (int h = threadIdx.x; h < H; h += kSumThreads) {
       float sum = 0.f;
-      for (int64_t bc = 0; bc < B * nc; ++bc) sum += da_part[bc * H + h];
+      for (int64_t bc = 0; bc < BC; ++bc) sum += da_part[bc * H + h];
       da[h] = sum;
     }
     return;
   }
-  const int nslices = (N + kT - 1) / kT, ntiles = (Q + kT - 1) / kT;
-  const int kind = (int)(blockIdx.x & 1);
-  int64_t rest = blockIdx.x >> 1;
-  const int slice = (int)(rest % nslices);
-  rest /= nslices;
-  const int tile = (int)(rest % ntiles);
-  const int64_t bc = rest / ntiles, b = bc / nc, row0 = bc * Q;
-  const int r0 = tile * kT, n0 = slice * kT;
-  const float* rb = r + bc * (int64_t)Q * Q;              // R[t][s] at rb + t * Q + s
-  const float* brow = bm + row0 * N;
-  const float* crow = cm + row0 * N;
-  const double* cub = cum + b * H * S + (bc - b * nc) * Q;   // head h at cub + h * S
-  float acc[8][4];
-  zero(acc);
-  if (kind == 0) {
-    // dB[s][n] = Σ_{t >= s} R[t][s] C_t[n] ...
-    for (int it = tile; it < ntiles; ++it) {
-      const int t0 = it * kT;
-      mm_tile<false, false>(acc, as, bs, kT,
-          [&](int j, int i) {
-            const int t = t0 + i, s = r0 + j;
-            return t < Q && s < Q ? rb[(int64_t)t * Q + s] : 0.f;
-          },
-          [&](int i, int n) {
-            return t0 + i < Q && n0 + n < N ? crow[(int64_t)(t0 + i) * N + n0 + n] : 0.f;
-          });
-    }
-    // ... + Σ_{h, p} dt_s exp(A_h - cum_s) x_s[h][p] G_c[h][p][n].
-    mm_tile<true, false>(acc, as, bs, (int)HP,
-        [&](int j, int k) {
-          const int s = r0 + j, h = k / P;
-          if (s >= Q) return 0.f;
-          const double* cu = cub + (int64_t)h * S;
-          return dt[(row0 + s) * H + h] * expf((float)(cu[Q - 1] - cu[s])) *
-                 x[(row0 + s) * HP + k];
-        },
-        [&](int k, int n) {
-          const int h = k / P, p = k - h * P;
-          return n0 + n < N ? gstates[(bc * H + h) * PN + (int64_t)p * N + n0 + n] : 0.f;
-        });
-    store_tile(db + row0 * N + n0, N, acc, r0, Q, 0, N - n0);
-  } else {
-    // dC[t][n] = Σ_{s <= t} R[t][s] B_s[n] ...
-    for (int js = 0; js <= tile; ++js) {
-      const int s0 = js * kT;
-      mm_tile<true, false>(acc, as, bs, kT,
-          [&](int i, int j) {
-            const int t = r0 + i, s = s0 + j;
-            return t < Q && s < Q ? rb[(int64_t)t * Q + s] : 0.f;
-          },
-          [&](int j, int n) {
-            return s0 + j < Q && n0 + n < N ? brow[(int64_t)(s0 + j) * N + n0 + n] : 0.f;
-          });
-    }
-    // ... + Σ_{h, p} exp(cum_t) dy_t[h][p] h_in[h][p][n].
-    mm_tile<true, false>(acc, as, bs, (int)HP,
-        [&](int i, int k) {
-          const int t = r0 + i, h = k / P;
-          if (t >= Q) return 0.f;
-          return expf((float)cub[(int64_t)h * S + t]) * dy[(row0 + t) * HP + k];
-        },
-        [&](int k, int n) {
-          const int h = k / P, p = k - h * P;
-          return n0 + n < N ? h_in[(bc * H + h) * PN + (int64_t)p * N + n0 + n] : 0.f;
-        });
-    store_tile(dc + row0 * N + n0, N, acc, r0, Q, 0, N - n0);
-  }
+  const int64_t QN = (int64_t)Q * N, i = (int64_t)blockIdx.x * kSumThreads + threadIdx.x;
+  if (i >= 2 * BC * QN) return;
+  const int64_t e = i % QN, bk = i / QN, bc = bk >> 1;   // bk = bc * 2 + kind
+  const float* p = part + bk * nslots * QN + e;
+  float sum = p[0];
+  for (int k = 1; k < nslots; ++k) sum += p[k * QN];
+  ((bk & 1) ? dc : db)[bc * QN + e] = sum;
 }
 
 int blocks_for(int64_t n, int64_t per, unsigned* out) {
@@ -568,48 +973,154 @@ int blocks_for(int64_t n, int64_t per, unsigned* out) {
   return 0;
 }
 
+struct Chain {
+  const float *x, *dt, *a, *b, *c, *dy, *dh_final;
+  const double* cum;
+  const float *g, *h_in;
+  float *dx, *ddt, *da, *db, *dc, *gstates, *r, *da_part, *scale_out, *scale_in, *part;
+  int64_t B, S, H, P, N, Q;
+};
+
+// Whether every copied operand of chunk_bwd and chunk_dbc moves in 16-byte
+// chunks: P, N and Q multiples of 4 and every source 16-byte aligned.
+bool chunks_of_4(const Chain& k) {
+  const float* const bases[] = {k.x, k.dy, k.b, k.c, k.h_in, k.gstates, k.r};
+  for (const float* p : bases)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return k.P % 4 == 0 && k.N % 4 == 0 && k.Q % 4 == 0;
+}
+
+template <int kW>
+void launch_bwd(const Chain& k, unsigned grid, cudaStream_t st) {
+  ssd_bwd_chunk_bwd_kernel<kW><<<grid, kThreads, bwd_smem_bytes((int)k.Q), st>>>(
+      k.x, k.dt, k.a, k.b, k.c, k.dy, k.cum, k.g, k.h_in, k.gstates, k.dx, k.ddt, k.da_part,
+      k.scale_out, k.scale_in, k.S, (int)k.H, (int)k.P, (int)k.N, (int)k.Q);
+}
+
+template <int NI, int kW>
+void launch_dbc(const Chain& k, unsigned grid, cudaStream_t st) {
+  ssd_bwd_chunk_dbc_kernel<NI, kW><<<grid, kThreads, dbc_smem_bytes(), st>>>(
+      k.x, k.b, k.c, k.dy, k.h_in, k.gstates, k.r, k.scale_out, k.scale_in, k.part, k.S,
+      (int)k.H, (int)k.P, (int)k.N, (int)k.Q);
+}
+
+template <int kW>
+void launch_dbc(const Chain& k, int ni, unsigned grid, cudaStream_t st) {
+  if (ni == 1) launch_dbc<1, kW>(k, grid, st);
+  else if (ni == 2) launch_dbc<2, kW>(k, grid, st);
+  else launch_dbc<4, kW>(k, grid, st);
+}
+
+template <int kW>
+cudaError_t set_smem_limits(cudaFuncAttribute max_smem) {
+  cudaError_t err = cudaFuncSetAttribute(ssd_bwd_chunk_bwd_kernel<kW>, max_smem,
+                                         (int)bwd_smem_bytes(kMaxQ));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_dbc_kernel<1, kW>, max_smem, (int)dbc_smem_bytes());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_dbc_kernel<2, kW>, max_smem, (int)dbc_smem_bytes());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_dbc_kernel<4, kW>, max_smem, (int)dbc_smem_bytes());
+  return err;
+}
+
+// Launches phases [first, last] of the chain (1-based, as numbered above).
+int launch_phases(const Chain& k, int first, int last, cudaStream_t st) {
+  const int64_t B = k.B, S = k.S, H = k.H, P = k.P, N = k.N, Q = k.Q;
+  if (B < 1 || H < 1 || H > INT_MAX || P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 ||
+      Q > kMaxQ || S < Q || S % Q != 0 || H * P > INT_MAX || first < 1 || last > 5)
+    return (int)cudaErrorInvalidValue;
+  const int64_t nc = S / Q, ntiles = (Q + kT - 1) / kT, nslices = (N + kT - 1) / kT;
+  const int64_t npairs = ntiles * (ntiles + 1) / 2, PN = P * N;
+  const int64_t nd = B * nc * H * nslices, nr = B * nc * npairs;
+  const int ni = N <= 16 ? 1 : N <= 32 ? 2 : 4;
+  const int64_t nslots = 1 + (H + kHeadGroup - 1) / kHeadGroup;
+  const int64_t ndbc = B * nc * 2 * ntiles * nslots * ((N + 16 * ni - 1) / (16 * ni));
+  const int64_t nsum = (2 * B * S * N + kSumThreads - 1) / kSumThreads;
+  const int64_t pass_slices = (PN + kPassThreads * kPassPer - 1) / (kPassThreads * kPassPer);
+  unsigned g1, g2, g3, g4, g5;
+  if (blocks_for(nd + nr, 1, &g1) || blocks_for(B * H * pass_slices, 1, &g2) ||
+      blocks_for(B * nc * H, 1, &g3) || blocks_for(ndbc, 1, &g4) || blocks_for(nsum + 1, 1, &g5))
+    return (int)cudaErrorInvalidValue;
+  const bool vec = chunks_of_4(k);
+  cudaError_t err;
+  for (int phase = first; phase <= last; ++phase) {
+    switch (phase) {
+      case 1:
+        ssd_bwd_chunk_dstate_kernel<<<g1, kThreads, 0, st>>>(k.x, k.dt, k.c, k.dy, k.cum,
+                                                             k.gstates, k.r, S, (int)H, (int)P,
+                                                             (int)N, (int)Q, nd);
+        break;
+      case 2:
+        ssd_bwd_dstate_pass_kernel<<<g2, kPassThreads, 0, st>>>(k.gstates, k.dh_final, k.cum, S,
+                                                                (int)H, (int)PN, (int)Q);
+        break;
+      case 3:
+        if (vec) launch_bwd<4>(k, g3, st);
+        else launch_bwd<1>(k, g3, st);
+        break;
+      case 4:
+        if (vec) launch_dbc<4>(k, ni, g4, st);
+        else launch_dbc<1>(k, ni, g4, st);
+        break;
+      default:
+        ssd_bwd_dbc_sum_kernel<<<g5, kSumThreads, 0, st>>>(k.part, k.da_part, k.db, k.dc, k.da,
+                                                           B * nc, (int)H, (int)N, (int)Q,
+                                                           (int)nslots, nsum);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
 }  // namespace
+
+// Sets chunk_bwd's (for Q up to 1024) and chunk_dbc's dynamic shared memory
+// limits on the current device. Call once per device before the first
+// launch there, outside any stream capture. Returns a cudaError_t code, 0 on
+// success.
+extern "C" int ssd_scan_bwd_init() {
+  const cudaFuncAttribute max_smem = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = set_smem_limits<1>(max_smem);
+  if (err == cudaSuccess) err = set_smem_limits<4>(max_smem);
+  return (int)err;
+}
 
 // Every tensor fp32 and contiguous but cum (fp64): x, dy, dx (B,S,H,P); dt,
 // ddt (B,S,H); a, da (H,); b, c, db, dc (B,S,N); dh_final (B,H,P,N); the
 // forward's workspaces cum (B,H,S), g (B,S/Q,Q,Q), h_in (B,S/Q,H,P,N).
 // Workspaces allocated by the caller and overwritten: gstates
-// (B,S/Q,H,P,N), r (B,S/Q,Q,Q), da_part (B,S/Q,H). Launches the four phases
-// in order on `stream`. Returns a cudaError_t code, 0 on success;
+// (B,S/Q,H,P,N), r (B,S/Q,Q,Q), da_part (B,S/Q,H), scale_out and scale_in
+// (B,S,H), part (B,S/Q,2,1+ceil(H/16),Q,N). Launches the five phases in
+// order on `stream`. Returns a cudaError_t code, 0 on success;
 // cudaErrorInvalidValue for shapes outside the kernels' limits.
 extern "C" int ssd_scan_bwd_launch(const float* x, const float* dt, const float* a,
                                    const float* b, const float* c, const float* dy,
                                    const float* dh_final, const double* cum, const float* g,
                                    const float* h_in, float* dx, float* ddt, float* da,
                                    float* db, float* dc, float* gstates, float* r,
-                                   float* da_part, int64_t B, int64_t S, int64_t H, int64_t P,
+                                   float* da_part, float* scale_out, float* scale_in,
+                                   float* part, int64_t B, int64_t S, int64_t H, int64_t P,
                                    int64_t N, int64_t Q, void* stream) {
-  if (B < 1 || H < 1 || H > INT_MAX || P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 ||
-      Q > kMaxQ || S < Q || S % Q != 0 || H * P > INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int64_t nc = S / Q, ntiles = (Q + kT - 1) / kT, nslices = (N + kT - 1) / kT;
-  const int64_t npairs = ntiles * (ntiles + 1) / 2, PN = P * N;
-  const int64_t nd = B * nc * H * nslices, nr = B * nc * npairs;
-  const int64_t ndbc = B * nc * ntiles * nslices * 2;
-  const int64_t pass_slices = (PN + kPassThreads * kPassPer - 1) / (kPassThreads * kPassPer);
-  unsigned g1, g2, g3, g4;
-  if (blocks_for(nd + nr, 1, &g1) || blocks_for(B * H * pass_slices, 1, &g2) ||
-      blocks_for(B * nc * H, 1, &g3) || blocks_for(ndbc + 1, 1, &g4))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  ssd_bwd_chunk_dstate_kernel<<<g1, kThreads, 0, st>>>(x, dt, c, dy, cum, gstates, r, S, (int)H,
-                                                       (int)P, (int)N, (int)Q, nd);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_dstate_pass_kernel<<<g2, kPassThreads, 0, st>>>(gstates, dh_final, cum, S, (int)H,
-                                                          (int)PN, (int)Q);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_chunk_bwd_kernel<<<g3, kThreads, 0, st>>>(x, dt, a, b, c, dy, cum, g, h_in, gstates,
-                                                    dx, ddt, da_part, S, (int)H, (int)P, (int)N,
-                                                    (int)Q);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_chunk_dbc_kernel<<<g4, kThreads, 0, st>>>(x, dt, b, c, dy, cum, h_in, gstates, r,
-                                                    da_part, db, dc, da, B, S, (int)H, (int)P,
-                                                    (int)N, (int)Q, ndbc);
-  return (int)cudaGetLastError();
+  const Chain k{x, dt, a, b, c, dy, dh_final, cum, g, h_in, dx, ddt, da, db, dc, gstates,
+                r, da_part, scale_out, scale_in, part, B, S, H, P, N, Q};
+  return launch_phases(k, 1, 5, (cudaStream_t)stream);
+}
+
+// ssd_scan_bwd_launch's phase `phase` (1..5) alone, on workspaces that an
+// earlier full launch filled: for timing each kernel. dstate_pass turns
+// gstates over again on every call.
+extern "C" int ssd_scan_bwd_phase_launch(int phase, const float* x, const float* dt,
+                                         const float* a, const float* b, const float* c,
+                                         const float* dy, const float* dh_final,
+                                         const double* cum, const float* g, const float* h_in,
+                                         float* dx, float* ddt, float* da, float* db, float* dc,
+                                         float* gstates, float* r, float* da_part,
+                                         float* scale_out, float* scale_in, float* part,
+                                         int64_t B, int64_t S, int64_t H, int64_t P, int64_t N,
+                                         int64_t Q, void* stream) {
+  const Chain k{x, dt, a, b, c, dy, dh_final, cum, g, h_in, dx, ddt, da, db, dc, gstates,
+                r, da_part, scale_out, scale_in, part, B, S, H, P, N, Q};
+  if (phase < 1 || phase > 5) return (int)cudaErrorInvalidValue;
+  return launch_phases(k, phase, phase, (cudaStream_t)stream);
 }

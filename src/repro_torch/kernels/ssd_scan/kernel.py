@@ -11,11 +11,13 @@ Sizes go over as 64-bit integers and every offset inside the kernels is
 64-bit: at the ``prefill_32k`` shape (B = 32, S = 32768, H = 80, P = 64) x
 has 5.4e9 elements.
 
-One call of ``ssd_scan_bwd_launch`` launches the backward chain's four
+One call of ``ssd_scan_bwd_launch`` launches the backward chain's five
 kernels in order — chunk_dstate (with R), dstate_pass, chunk_bwd,
-chunk_dbc — and counts as one launch of ``ssd_scan_bwd_cuda``. It reads the
-forward's three workspaces, so its caller keeps them from the forward
-(:class:`~repro_torch.kernels.ssd_scan.ops.SsdScanFn`).
+chunk_dbc, dbc_sum — and counts as one launch of ``ssd_scan_bwd_cuda``. It
+reads the forward's three workspaces, so its caller keeps them from the
+forward (:class:`~repro_torch.kernels.ssd_scan.ops.SsdScanFn`). Before the
+first launch on a device the wrapper calls ``ssd_scan_bwd_init`` there
+(chunk_bwd's shared memory limit).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ssd_scan.ref import DBC_HEAD_GROUP
 
 #: The kernels' limits: one 8x4-per-thread register tile covers the (P, N)
 #: state (P <= 64, N <= 128), and chunk_scan stages the chunk's cumsum and dt
@@ -125,23 +128,35 @@ def ssd_scan_cuda(
 ssd_scan_cuda.launches = 0
 
 
+#: The backward chain's kernels, in launch order (``ssd_bwd_<name>_kernel``).
+BWD_PHASES = ("chunk_dstate", "dstate_pass", "chunk_bwd", "chunk_dbc", "dbc_sum")
+
+
 @functools.cache
-def _bwd_launcher():
-    fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_launch
+def _bwd_lib():
+    lib = _build.load("ssd_scan_bwd")
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [ptr] * 18 + [i64] * 6 + [ptr]
-    fn.restype = ctypes.c_int
-    return fn
+    args = [ptr] * 21 + [i64] * 6 + [ptr]
+    lib.ssd_scan_bwd_launch.argtypes = args
+    lib.ssd_scan_bwd_phase_launch.argtypes = [ctypes.c_int] + args
+    lib.ssd_scan_bwd_init.argtypes = []
+    for fn in (lib.ssd_scan_bwd_launch, lib.ssd_scan_bwd_phase_launch, lib.ssd_scan_bwd_init):
+        fn.restype = ctypes.c_int
+    return lib
 
 
-def _ssd_scan_bwd_cuda_phases(
-    x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor, c_mat: Tensor, dy: Tensor,
-    dh_final: Tensor, cum: Tensor, g: Tensor, h_in: Tensor, chunk: int,
-) -> tuple[Tensor, ...]:
-    """:func:`ssd_scan_bwd_cuda` returning the chain's workspaces too, in the
-    layouts of :func:`~repro_torch.kernels.ssd_scan.ref.ssd_scan_bwd_phases_ref`:
-    (dx, ddt, da, dB, dC, G (B,S/Q,H,P,N), R (B,S/Q,Q,Q), valid on and below
-    the diagonal). Counts one launch."""
+@functools.cache
+def _bwd_ready(index: int) -> None:
+    """Once per device, before its first launch (and so outside any stream
+    capture): chunk_bwd's dynamic shared memory limit."""
+    with torch.cuda.device(index):
+        rc = _bwd_lib().ssd_scan_bwd_init()
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan backward init failed on cuda:{index}: CUDA error {rc}")
+
+
+def _bwd_operands(x, dt, a, b_mat, c_mat, dy, dh_final, cum, g, h_in, chunk):
+    """Checks the backward chain's operands; returns (B, S, H, P, N)."""
     ops = (x, dt, a, b_mat, c_mat, dy, dh_final, h_in, g)
     if any(t.device.type != "cuda" for t in ops + (cum,)):
         raise TypeError("ssd_scan_bwd_cuda takes CUDA tensors only")
@@ -170,29 +185,67 @@ def _ssd_scan_bwd_cuda_phases(
     if p > MAX_P or n > MAX_N or bsz * nc * h > _MAX_BLOCKS:
         raise ValueError(f"P={p}, N={n} outside the kernels' limits (P <= {MAX_P}, "
                          f"N <= {MAX_N}) or too many blocks")
-    dev, f32 = x.device, torch.float32
-    dx, ddt, db, dc = (torch.empty_like(t) for t in (x, dt, b_mat, c_mat))
-    da = torch.empty((h,), device=dev, dtype=f32)
-    gstates = torch.empty((bsz, nc, h, p, n), device=dev, dtype=f32)
-    r = torch.empty((bsz, nc, chunk, chunk), device=dev, dtype=f32)
-    da_part = torch.empty((bsz, nc, h), device=dev, dtype=f32)
+    return bsz, s, h, p, n
+
+
+def _bwd_call(fn, lead, tensors, out, dims, chunk) -> int:
+    """One call of the library's ``fn`` (``lead``: arguments before the
+    tensors) on the current stream of the operands' device."""
+    dev = tensors[0].device
+    _bwd_ready(dev.index if dev.index is not None else torch.cuda.current_device())
+    # The C order: dx, ddt, da, dB, dC, gstates, r, da_part, scale_out, scale_in, part.
+    order = (0, 1, 2, 3, 4, 5, 6, 10, 7, 8, 9)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        return fn(*lead, *(t.data_ptr() for t in tensors), *(out[i].data_ptr() for i in order),
+                  *dims, chunk, stream)
+
+
+def _ssd_scan_bwd_cuda_phases(
+    x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor, c_mat: Tensor, dy: Tensor,
+    dh_final: Tensor, cum: Tensor, g: Tensor, h_in: Tensor, chunk: int,
+) -> tuple[Tensor, ...]:
+    """:func:`ssd_scan_bwd_cuda` returning the chain's workspaces too, in the
+    layouts of :func:`~repro_torch.kernels.ssd_scan.ref.ssd_scan_bwd_phases_ref`:
+    (dx, ddt, da, dB, dC, G (B,S/Q,H,P,N), R (B,S/Q,Q,Q), valid on and below
+    the diagonal, scale_out and scale_in (B,S,H), chunk_dbc's partials
+    (B,S/Q,2,1+ceil(H/DBC_HEAD_GROUP),Q,N), da_part (B,S/Q,H)). Counts one
+    launch."""
+    tensors = (x, dt, a, b_mat, c_mat, dy, dh_final, cum, g, h_in)
+    bsz, s, h, p, n = _bwd_operands(*tensors, chunk)
+    nc, dev, f32 = s // chunk, x.device, torch.float32
+    nslots = 1 + -(-h // DBC_HEAD_GROUP)
+    empty = lambda *shape: torch.empty(shape, device=dev, dtype=f32)
+    out = (torch.empty_like(x), torch.empty_like(dt), empty(h), torch.empty_like(b_mat),
+           torch.empty_like(c_mat), empty(bsz, nc, h, p, n), empty(bsz, nc, chunk, chunk),
+           empty(bsz, s, h), empty(bsz, s, h), empty(bsz, nc, 2, nslots, chunk, n),
+           empty(bsz, nc, h))
     if bsz and s and h and p and n:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = _bwd_launcher()(
-                x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-                dy.data_ptr(), dh_final.data_ptr(), cum.data_ptr(), g.data_ptr(),
-                h_in.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
-                dc.data_ptr(), gstates.data_ptr(), r.data_ptr(), da_part.data_ptr(),
-                bsz, s, h, p, n, chunk, stream,
-            )
+        rc = _bwd_call(_bwd_lib().ssd_scan_bwd_launch, (), tensors, out, (bsz, s, h, p, n), chunk)
         if rc != 0:
             raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA error {rc}")
         ssd_scan_bwd_cuda.launches += 1
     else:
-        for t in (dx, ddt, da, db, dc):
+        for t in out[:5]:
             t.zero_()
-    return dx, ddt, da, db, dc, gstates, r
+    return out
+
+
+def _ssd_scan_bwd_cuda_phase(
+    phase: str, x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor, c_mat: Tensor, dy: Tensor,
+    dh_final: Tensor, cum: Tensor, g: Tensor, h_in: Tensor, chunk: int, out: tuple[Tensor, ...],
+) -> None:
+    """Launch the chain's kernel ``phase`` (one of :data:`BWD_PHASES`) alone,
+    on ``out``: what :func:`_ssd_scan_bwd_cuda_phases` returned for the same
+    operands. For timing each kernel on workspaces already filled; not a
+    launch of the chain (``ssd_scan_bwd_cuda.launches`` is unchanged).
+    dstate_pass turns G over again on every call."""
+    tensors = (x, dt, a, b_mat, c_mat, dy, dh_final, cum, g, h_in)
+    dims = _bwd_operands(*tensors, chunk)
+    rc = _bwd_call(_bwd_lib().ssd_scan_bwd_phase_launch, (BWD_PHASES.index(phase) + 1,),
+                   tensors, out, dims, chunk)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan backward {phase} launch failed: CUDA error {rc}")
 
 
 def ssd_scan_bwd_cuda(
@@ -205,7 +258,7 @@ def ssd_scan_bwd_cuda(
     :func:`_ssd_scan_cuda_phases`). Every operand fp32 (cum fp64),
     contiguous, on one CUDA device, S a multiple of ``chunk``. Returns (dx,
     ddt, da, dB, dC), fp32. Increments ``ssd_scan_bwd_cuda.launches`` once
-    per call: one launch is one call of the four-kernel chain."""
+    per call: one launch is one call of the five-kernel chain."""
     return _ssd_scan_bwd_cuda_phases(x, dt, a, b_mat, c_mat, dy, dh_final, cum, g, h_in,
                                      chunk)[:5]
 

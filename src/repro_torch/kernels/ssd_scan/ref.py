@@ -31,6 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+#: Heads per partial of dB's and dC's state terms in the backward chain's
+#: chunk_dbc (``csrc/ssd_scan_bwd.cu``'s kHeadGroup): the H·P depth is split
+#: so that enough blocks fill the card, then summed in a fixed order.
+DBC_HEAD_GROUP = 16
+
 
 def ssd_scan_ref(
     x: Tensor,      # (B, S, H, P)
@@ -144,13 +149,21 @@ def ssd_scan_bwd_phases_ref(
       V_s = exp(A_c - cum_s) dt_s x_s·(G_c B_s) (− on s, + on Q) and
       exp(A_c) <G_c, h_in> on Q; the reverse cumsum of ∂cum adds a·(…) to
       ddt and Σ dt·(…) to da;
-    - chunk_dbc: dB_s = Σ_t R_ts C_t + Σ_h dt_s exp(A_c - cum_s) G_cᵀ x_s,
-      dC_t = Σ_s R_ts B_s + Σ_h exp(cum_t) h_inᵀ dy_t; da summed over (b, c).
+    - chunk_bwd also writes the per-(b, step, head) scales scale_out_s =
+      dt_s exp(A_c - cum_s) and scale_in_t = exp(cum_t) that chunk_dbc reads;
+    - chunk_dbc: dB_s = Σ_t R_ts C_t + Σ_h scale_out_s G_cᵀ x_s, dC_t = Σ_s
+      R_ts B_s + Σ_h scale_in_t h_inᵀ dy_t, each as partials: slot 0 the R
+      term, slot 1 + g the heads [g·DBC_HEAD_GROUP, (g + 1)·DBC_HEAD_GROUP)
+      (the last group ragged where H is no multiple);
+    - dbc_sum: dB, dC the partials summed in slot order; da the chunks' da
+      partials summed over (b, c).
 
     Returns (dx (B,S,H,P), ddt (B,S,H), da (H,), dB, dC (B,S,N)), all fp32,
-    then the workspaces G (B, nc, H, P, N) and R (B, nc, Q, Q) (zero above
-    the diagonal). Every exponent is an fp64 difference of cum values
-    rounded once to fp32, as in the forward."""
+    then the workspaces G (B, nc, H, P, N), R (B, nc, Q, Q) (zero above the
+    diagonal), scale_out and scale_in (B, S, H), the partials (B, nc, 2,
+    1 + ceil(H / DBC_HEAD_GROUP), Q, N) (dB's, then dC's) and da_part (B, nc,
+    H). Every exponent is an fp64 difference of cum values rounded once to
+    fp32, as in the forward."""
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     q = chunk
@@ -201,14 +214,26 @@ def ssd_scan_bwd_phases_ref(
     dcum[:, :, -1, :] += decay * (gst * h_in).sum((-1, -2)) + v.sum(2)
     rev = dcum.flip(2).cumsum(2).flip(2)
     ddt = col + e_out * xi + a.to(f32) * rev
-    da = (dtc * rev).sum(2).sum((0, 1))
-    # Phase 4, chunk_dbc: dB and dC, summed over heads.
-    db = torch.einsum("bcts,bctn->bcsn", r, cc) + torch.einsum(
-        "bcsh,bcshp,bchpn->bcsn", dtc * e_out, xc, gst)
-    dc = torch.einsum("bcts,bcsn->bctn", r, bc) + torch.einsum(
-        "bcth,bcthp,bchpn->bctn", e_in, dyc, h_in)
-    return (dx.reshape(bsz, s, h, p), ddt.reshape(bsz, s, h), da, db.reshape(bsz, s, n),
-            dc.reshape(bsz, s, n), gst, r)
+    da_part = (dtc * rev).sum(2)                                       # (B,NC,H)
+    scale_out = dtc * e_out
+    # Phase 4, chunk_dbc: the R terms, then each head group's state terms.
+    groups = [slice(g0, g0 + DBC_HEAD_GROUP) for g0 in range(0, h, DBC_HEAD_GROUP)]
+    part = torch.stack([
+        torch.stack([torch.einsum("bcts,bctn->bcsn", r, cc)] + [torch.einsum(
+            "bcsh,bcshp,bchpn->bcsn", scale_out[..., hs], xc[..., hs, :], gst[:, :, hs])
+            for hs in groups], dim=2),
+        torch.stack([torch.einsum("bcts,bcsn->bctn", r, bc)] + [torch.einsum(
+            "bcth,bcthp,bchpn->bctn", e_in[..., hs], dyc[..., hs, :], h_in[:, :, hs])
+            for hs in groups], dim=2),
+    ], dim=2)                                                          # (B,NC,2,slots,Q,N)
+    # Phase 5, dbc_sum: the slots in order; da over (b, c) in order.
+    dbc = part[:, :, :, 0]
+    for k in range(1, part.shape[3]):
+        dbc = dbc + part[:, :, :, k]
+    da = da_part.reshape(-1, h).sum(0)
+    return (dx.reshape(bsz, s, h, p), ddt.reshape(bsz, s, h), da, dbc[:, :, 0].reshape(bsz, s, n),
+            dbc[:, :, 1].reshape(bsz, s, n), gst, r, scale_out.reshape(bsz, s, h),
+            e_in.reshape(bsz, s, h), part, da_part)
 
 
 def ssd_scan_bwd_ref(

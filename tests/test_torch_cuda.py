@@ -799,8 +799,13 @@ def test_ssd_scan_has_a_gradient_on_cuda(cuda):
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 64, 8, 32, 16, 32), (2, 512, 80, 64, 128, 256),
-                                             (1, 192, 3, 64, 16, 64), (2, 130, 4, 20, 40, 65)])
+                                             (1, 192, 3, 64, 16, 64), (2, 130, 4, 20, 40, 65),
+                                             (1, 256, 50, 64, 16, 128)])
 def test_ssd_scan_backward_chain_matches_plain_and_repeats_bitwise(cuda, b, s, h, p, n, chunk):
+    """Every output and workspace of the chain (G, R, chunk_dbc's scales and
+    head-group partials, the da partials) against the plain version, and
+    two launches bitwise equal; H = 50 leaves chunk_dbc's last head group
+    ragged."""
     s_pad = -(-s // chunk) * chunk
     x, dt, a, bm, cm = _ssd_inputs(s + n, b, s_pad, h, p, n, torch.float32, cuda)
     gen = torch.Generator(device=cuda).manual_seed(5)
@@ -814,7 +819,9 @@ def test_ssd_scan_backward_chain_matches_plain_and_repeats_bitwise(cuda, b, s, h
     want = ssd_scan_bwd_phases_ref(x, dt, a, bm, cm, dy, dhf, cum, g, h_in, chunk)
     torch.cuda.synchronize()
     tri = torch.ones(chunk, chunk, dtype=torch.bool, device=cuda).tril()
-    names = ("dx", "ddt", "da", "dB", "dC", "G", "R")
+    names = ("dx", "ddt", "da", "dB", "dC", "G", "R", "scale_out", "scale_in", "part",
+             "da_part")
+    assert len(got) == len(want) == len(names)
     for name, u, v, w in zip(names, got, again, want):
         if name == "R":
             u, v, w = u[..., tri], v[..., tri], w[..., tri]

@@ -31,6 +31,7 @@ from repro_torch.kernels.ssd_scan import (
     ssd_scan_ref,
 )
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_cuda, ssd_scan_cuda
+from repro_torch.kernels.ssd_scan.ref import DBC_HEAD_GROUP
 
 torch.set_float32_matmul_precision("highest")
 
@@ -42,6 +43,11 @@ NAMES = ("dx", "ddt", "da", "dB", "dC")
 SHAPES = [(2, 100, 3, 8, 16, 32, True), (1, 192, 2, 16, 128, 64, True),
           (2, 96, 2, 16, 16, 24, True), (1, 40, 3, 8, 32, 64, True),
           (2, 64, 2, 8, 16, 16, False)]
+#: Shapes whose H is no multiple of DBC_HEAD_GROUP (chunk_dbc's last head
+#: group ragged): hymba-1.5b's H = 50 and N = 16, H = 20, and H = 17 at a
+#: ragged S with unit-normal inputs (exponents deep into fp32's range).
+GROUP_SHAPES = [(1, 64, 50, 8, 16, 32, True), (2, 48, 20, 4, 16, 16, True),
+                (1, 70, 17, 4, 32, 32, False)]
 
 
 @pytest.fixture(autouse=True)
@@ -78,21 +84,28 @@ def _rel(got, want):
     return float(np.abs(np.asarray(got, np.float64) - want).max() / np.abs(want).max())
 
 
-def _padded_bwd(ops, dy, dhf, q):
-    """ssd_scan_bwd_ref on the operands padded to a chunk multiple as the
-    wrapper pads them, gradients sliced back."""
-    s = ops[0].shape[1]
-    pad = (-s) % q
+def _padded_phases(ops, dy, dhf, q):
+    """ssd_scan_bwd_phases_ref on the operands padded to a chunk multiple as
+    the wrapper pads them: (padded operands, padded dy, the forward's
+    workspaces cum, G, h_in, the backward's outputs)."""
+    pad = (-ops[0].shape[1]) % q
     t = [torch.from_numpy(v) for v in ops]
     padw = lambda v: torch.nn.functional.pad(v, (0, 0) * (v.dim() - 2) + (0, pad))
     t = [padw(v) if v.dim() > 1 else v for v in t]
     dyp = padw(torch.from_numpy(dy))
     _, _, cum, g, h_in = ssd_scan_phases_ref(*t, q)
-    grads = ssd_scan_bwd_ref(*t, dyp, torch.from_numpy(dhf), cum, g, h_in, q)
+    out = ssd_scan_bwd_phases_ref(*t, dyp, torch.from_numpy(dhf), cum, g, h_in, q)
+    return t, dyp, (cum, g, h_in), out
+
+
+def _padded_bwd(ops, dy, dhf, q):
+    """ssd_scan_bwd_ref's gradients on the padded operands, sliced back."""
+    s = ops[0].shape[1]
+    grads = _padded_phases(ops, dy, dhf, q)[3][:5]
     return [u[:, :s] if u.dim() > 1 else u for u in grads]
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + GROUP_SHAPES, ids=str)
 def test_bwd_ref_matches_autograd_of_the_sequential_form(shape):
     b, s, h, p, n, q, model_like = shape
     ops, dy, dhf = _inputs(sum(shape[:6]), b, s, h, p, n, model_like)
@@ -104,7 +117,7 @@ def test_bwd_ref_matches_autograd_of_the_sequential_form(shape):
         assert _rel(g.numpy(), t.grad.numpy()) <= BWD_TOL, (name, shape)
 
 
-@pytest.mark.parametrize("shape", SHAPES[:3], ids=str)
+@pytest.mark.parametrize("shape", SHAPES[:3] + GROUP_SHAPES, ids=str)
 def test_bwd_ref_matches_jax_vjp_of_the_reference(shape):
     b, s, h, p, n, q, model_like = shape
     ops, dy, dhf = _inputs(sum(shape[:6]) + 1, b, s, h, p, n, model_like)
@@ -141,6 +154,67 @@ def test_bwd_phases_ref_workspaces():
         ssd_scan_bwd_phases_ref(*(v[:, :95] if v.dim() > 1 else v for v in t),
                                 torch.from_numpy(dy)[:, :95], torch.from_numpy(dhf), cum, g,
                                 h_in, q)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:1] + GROUP_SHAPES, ids=str)
+def test_bwd_scales_match_numpy_exp_of_the_fp64_differences(shape):
+    """chunk_dbc's scales, scale_out_s = dt_s exp(A_c - cum_s) and scale_in_t
+    = exp(cum_t): numpy's fp64 exp of the same fp64 cum differences, each
+    rounded once to fp32 as the kernels round them, within 1e-6 relative
+    (fp32's exp and one product; values that fp32 holds only as denormals
+    within 1e-38)."""
+    b, s, h, p, n, q, model_like = shape
+    ops, dy, dhf = _inputs(sum(shape[:6]) + 2, b, s, h, p, n, model_like)
+    t, _, (cum, _, _), out = _padded_phases(ops, dy, dhf, q)
+    sp = cum.shape[-1]
+    cc = cum.numpy().reshape(b, h, sp // q, q)                          # fp64
+    e = lambda d: np.exp(d.astype(np.float32).astype(np.float64))
+    to_bsh = lambda v: v.reshape(b, h, sp).transpose(0, 2, 1)
+    dt = t[1].numpy().astype(np.float64)
+    scale_out, scale_in = out[7].numpy(), out[8].numpy()
+    assert scale_out.shape == scale_in.shape == (b, sp, h)
+    np.testing.assert_allclose(scale_out, dt * to_bsh(e(cc[..., -1:] - cc)), rtol=1e-6, atol=1e-38)
+    np.testing.assert_allclose(scale_in, to_bsh(e(cc)), rtol=1e-6, atol=1e-38)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:1] + GROUP_SHAPES, ids=str)
+def test_bwd_group_partials_sum_to_the_whole_einsum(shape):
+    """chunk_dbc's partials: slot 0 the R term, slot 1 + g the heads
+    [16g, 16g + 16) (the last group ragged), dB's then dC's. Summed over the
+    slots in order they are the chain's dB and dC (bitwise: the plain
+    version defines them so), and within 1e-5 of the largest |value| of the
+    whole product over every head at once in fp64 (fp32 rounding of a few
+    partial sums)."""
+    b, s, h, p, n, q, model_like = shape
+    ops, dy, dhf = _inputs(sum(shape[:6]) + 3, b, s, h, p, n, model_like)
+    t, dyp, (_, _, h_in), out = _padded_phases(ops, dy, dhf, q)
+    sp = t[0].shape[1]
+    nc, slots = sp // q, 1 + -(-h // DBC_HEAD_GROUP)
+    part = out[9]
+    assert part.shape == (b, nc, 2, slots, q, n) and out[10].shape == (b, nc, h)
+    ordered = part[:, :, :, 0]
+    for k in range(1, slots):
+        ordered = ordered + part[:, :, :, k]
+    assert torch.equal(ordered[:, :, 0].reshape(b, sp, n), out[3])
+    assert torch.equal(ordered[:, :, 1].reshape(b, sp, n), out[4])
+    f64 = lambda v: v.numpy().astype(np.float64)
+    r, gst = f64(out[6]), f64(out[5])
+    xc, dyc = f64(t[0]).reshape(b, nc, q, h, p), f64(dyp).reshape(b, nc, q, h, p)
+    bc, cc = f64(t[3]).reshape(b, nc, q, n), f64(t[4]).reshape(b, nc, q, n)
+    so, si = f64(out[7]).reshape(b, nc, q, h), f64(out[8]).reshape(b, nc, q, h)
+    whole_db = (np.einsum("bcts,bctn->bcsn", r, cc)
+                + np.einsum("bcsh,bcshp,bchpn->bcsn", so, xc, gst))
+    whole_dc = (np.einsum("bcts,bcsn->bctn", r, bc)
+                + np.einsum("bcth,bcthp,bchpn->bctn", si, dyc, f64(h_in)))
+    assert _rel(ordered[:, :, 0].numpy(), whole_db) <= 1e-5
+    assert _rel(ordered[:, :, 1].numpy(), whole_dc) <= 1e-5
+    # Each head group's slot is that group's product alone.
+    g_last = (slots - 2) * DBC_HEAD_GROUP
+    hs = slice(g_last, h)
+    last_db = np.einsum("bcsh,bcshp,bchpn->bcsn", so[..., hs], xc[..., hs, :], gst[:, :, hs])
+    assert _rel(part[:, :, 0, -1].numpy(), last_db) <= 1e-5
+    # da: the chunks' partials summed over (b, c).
+    np.testing.assert_allclose(out[2].numpy(), f64(out[10]).sum((0, 1)), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("shape", SHAPES[:2], ids=str)
