@@ -10,7 +10,9 @@ Phases, each printing one line or more; any failure exits non-zero:
              with nvcc (all sources at once) into ``build/torch_kernels/``;
              ptxas's registers, spills and shared memory per kernel, and the
              backward chain's tensor-core (HMMA) instructions per kernel
-             from ``cuobjdump -sass`` where the toolkit has it.
+             from ``cuobjdump -sass`` where the toolkit has it; fails if a
+             kernel of the backward chain spills, or if chunk_dstate,
+             chunk_bwd or chunk_dbc has no HMMA.
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the test shapes and each main path's (fleet, fleet V-sweep,
              the serving engine's one-run (K, N) = (8, 256)):
@@ -481,7 +483,9 @@ SSD_BWD_PHASES = ("chunk_dstate", "dstate_pass", "chunk_bwd", "chunk_dbc", "dbc_
 #: The chain's outputs and workspaces, as _ssd_scan_bwd_cuda_phases and
 #: ssd_scan_bwd_phases_ref return them.
 SSD_BWD_OUTPUTS = ("dx", "ddt", "da", "dB", "dC", "G", "R", "scale_out", "scale_in", "part",
-                   "da_part")
+                   "da_part", "R_part")
+#: The chain's kernels that run on the tensor cores (HMMA in their SASS).
+SSD_BWD_MMA_PHASES = ("chunk_dstate", "chunk_bwd", "chunk_dbc")
 #: Timed: mamba2-2.7b's training microbatch (2 x 2048, phase 19 (b)) and
 #: hymba-1.5b's 4 x 2048 prefill shape, with CUDA-graph (reps, replays) for
 #: the chain and for each of its kernels alone.
@@ -739,22 +743,35 @@ def sass_mma_counts(lib: Path, prefix: str) -> dict[str, dict[str, int]] | None:
 def phase_build() -> dict[str, dict[str, int]] | None:
     """Builds every kernel, logs ptxas's registers, spills and shared memory
     per kernel function, then the backward chain's HMMA counts (None: not
-    measured)."""
+    measured). Fails where a kernel of the backward chain spills or one of
+    SSD_BWD_MMA_PHASES has no HMMA."""
+    import re
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     logs = _build.build_all()
     secs = time.perf_counter() - t0
+    spilled = []
     for name, text in logs.items():
         for usage in ptxas_usage(text):
             log(f"[build] {name}: ptxas {usage}")
+            m = re.search(r"spill stores (\d+) B, spill loads (\d+) B", usage)
+            if usage.startswith("ssd_bwd_") and (m is None or m.group(1) != "0" or m.group(2) != "0"):
+                spilled.append(usage)
     log(f"[build] {len(logs)} kernel(s) built in {secs:.2f} s -> {_build.BUILD_DIR}")
+    if spilled:
+        fail(f"backward chain kernels spill (or ptxas did not say): {spilled}")
     mma = sass_mma_counts(_build.library_path("ssd_scan_bwd"), "ssd_bwd_")
     if mma is None:
         log("[build] ssd_scan_bwd: tensor-core instructions not measured (no cuobjdump)")
     for fn, ops in (mma or {}).items():
         log(f"[build] ssd_scan_bwd: sass {fn}: {sum(ops.values())} HMMA"
             + "".join(f", {op} x{c}" for op, c in sorted(ops.items())))
+    for ph in SSD_BWD_MMA_PHASES if mma is not None else ():
+        fns = {fn: ops for fn, ops in mma.items() if fn.startswith(f"ssd_bwd_{ph}_kernel")}
+        if not fns or not all(sum(ops.values()) for ops in fns.values()):
+            fail(f"ssd_scan_bwd: {ph} without tensor-core instructions: {fns}")
     return mma
 
 
@@ -1324,25 +1341,27 @@ def ssd_bwd_bound_ms(b: int, s: int, h: int, p: int, n: int, q: int) -> tuple[fl
 def ssd_bwd_phase_work(b: int, s: int, h: int, p: int, n: int, q: int) -> dict[str, tuple[int, int]]:
     """Bytes and fp32 operations of each kernel of the backward chain alone,
     each of its inputs read once and outputs written once (S a multiple of
-    Q): chunk_dstate reads dy, C, x, dt, cum and writes D_c and R, forming
-    D_c and the causal half of dy xᵀ per head; dstate_pass reads D_c,
-    dh_final and A_c and writes G_c; chunk_bwd reads x, dy, dt, a, B, C, cum,
+    Q): chunk_dstate reads dy, C, x, dt, cum and writes D_c and R's
+    head-group partials, forming D_c and the causal half of dy xᵀ per head;
+    dstate_pass reads D_c, dh_final, A_c and the partials and writes G_c and
+    R, summing the partials; chunk_bwd reads x, dy, dt, a, B, C, cum,
     CBᵀ, h_in and G_c and writes dx, ddt, the da partials and the two scales,
     forming dy xᵀ and (L ⊙ CB)ᵀ dy on the causal half, G_c B_s and h_inᵀ C_t
     per head; chunk_dbc reads x, dy, the scales, G_c, h_in, R, B and C and
     writes the partials, forming the heads' state terms and R C, R B;
     dbc_sum reads the partials and the da partials and writes dB, dC, da."""
-    from repro_torch.kernels.ssd_scan.ref import DBC_HEAD_GROUP
+    from repro_torch.kernels.ssd_scan.ref import DBC_HEAD_GROUP, DSTATE_HEAD_GROUP
 
     nc = s // q
     pairs = nc * q * (q + 1) // 2
-    slots = 1 + -(-h // DBC_HEAD_GROUP)
+    slots, groups = 1 + -(-h // DBC_HEAD_GROUP), -(-h // DSTATE_HEAD_GROUP)
     bshp, bsh, bsn, st = b * s * h * p, b * s * h, b * s * n, b * nc * h * p * n
     bshpn, causal = b * s * h * p * n, 2 * pairs * b * h * p
     return {
-        "chunk_dstate": (4 * (2 * bshp + bsn + bsh + st + b * nc * q * q) + 8 * b * h * s,
-                         2 * bshpn + causal),
-        "dstate_pass": (4 * (2 * st + b * h * p * n) + 8 * b * h * nc, 2 * st),
+        "chunk_dstate": (4 * (2 * bshp + bsn + bsh + st + groups * b * nc * q * q)
+                         + 8 * b * h * s, 2 * bshpn + causal),
+        "dstate_pass": (4 * (2 * st + b * h * p * n + (groups + 1) * b * nc * q * q)
+                        + 8 * b * h * nc, 2 * st + (groups - 1) * b * nc * q * q),
         "chunk_bwd": (4 * (3 * bshp + 4 * bsh + h + 2 * bsn + b * nc * q * q + 2 * st
                            + b * nc * h) + 8 * b * h * s, 2 * causal + 4 * bshpn),
         "chunk_dbc": (4 * (2 * bshp + 2 * bsh + 2 * st + b * nc * q * q + 2 * bsn
@@ -1401,7 +1420,8 @@ def phase_ssd_bwd(dev) -> dict:
         torch.cuda.synchronize()
         tag = f"B={b} S={s} H={h} P={p} N={n} chunk={q}"
         tri = torch.ones(q, q, dtype=torch.bool, device=dev).tril()
-        valid = lambda nm, u: u[..., tri] if nm == "R" else u   # R above the diagonal: unspecified
+        # R and its partials above the diagonal: unspecified.
+        valid = lambda nm, u: u[..., tri] if nm in ("R", "R_part") else u
         if not all(torch.equal(valid(nm, u), valid(nm, v))
                    for nm, u, v in zip(SSD_BWD_OUTPUTS, got, again)):
             fail(f"ssd_scan backward launches differ bitwise at {tag}")

@@ -28,13 +28,16 @@
 //
 // The chain, launched in order on the caller's stream by
 // ssd_scan_bwd_launch; the caller allocates the workspaces:
-//   1. chunk_dstate per (b, chunk, h, 64-column slice of N): D_c into the
-//                   gstates workspace (B, nc, H, P, N), a (P, N) product of
-//                   depth Q; then, as further blocks of the same launch, per
-//                   (b, chunk, causal 64x64 tile pair): R = Σ_h dt_s L_ts M_ts
-//                   into r (B, nc, Q, Q), the heads summed in order.
+//   1. chunk_dstate per (b, chunk, head group of 16, causal 64x64 tile
+//                   pair): the group's partial of R = Σ_h dt_s L_ts M_ts into
+//                   r_part (B, nc, ceil(H / 16), Q, Q); then, as further
+//                   blocks of the same launch, per (b, chunk, h, column tile
+//                   of 16, 32 or 64 as N needs): D_c into the gstates
+//                   workspace (B, nc, H, P, N), a (P, N) product of depth Q.
 //   2. dstate_pass  per (b, h, slice of P·N): walks the chunks backwards and
-//                   turns gstates[c] in place from D_c into G_c.
+//                   turns gstates[c] in place from D_c into G_c; then, as
+//                   further blocks, per (b, chunk, causal tile pair): R into
+//                   r (B, nc, Q, Q), the groups' partials summed in order.
 //   3. chunk_bwd    per (b, chunk, h), one block for the whole chunk: dx,
 //                   ddt, the chunk's da partial into da_part (B, nc, H), and
 //                   the per-(b, step, head) scales scale_out = dt_s exp(A_c -
@@ -54,14 +57,14 @@
 // gradient needs ≈ 32.6 GFLOP (≈ 0.49 ms on the fp32 CUDA cores, ≈ 0.20 ms as
 // 3xTF32 on the tensor cores; chip_smoke.py's ssd_bwd_work under bound_ms
 // and tc_bound_ms) against 0.32 GB of HBM traffic (0.09 ms). The chain
-// executes ≈ 47.3 GFLOP of fp32 products: chunk_dstate 5.4 (D) + 6.7 (R: M
-// formed again per head, summed over heads) on the fp32 CUDA cores (the
-// forward's 8x4 register tile, mm_tile); chunk_bwd 24.2 (M, the (L ⊙ CB)ᵀ dy
-// tiles, G_c B_s and h_in C_t per head) and chunk_dbc 11.1 (the heads' state
-// terms at depth H·P and the R terms) on the tensor cores, three TF32
-// products each (≈ 106 TF32 GFLOP).
+// executes ≈ 47.3 GFLOP of fp32 products, all on the tensor cores as three
+// TF32 products each (≈ 142 TF32 GFLOP): chunk_dstate 5.4 (D) + 6.7 (R: M
+// per head and causal tile pair), chunk_bwd 24.2 (M, the (L ⊙ CB)ᵀ dy tiles,
+// G_c B_s and h_in C_t per head) and chunk_dbc 11.1 (the heads' state terms
+// at depth H·P and the R terms); and 21M exps of R's diagonal tiles (52M in
+// the per-element form).
 //
-// What held chunk_bwd and chunk_dbc back, and what they do about it:
+// What held the chain's kernels back, and what they do about it:
 //   * every product ran on the fp32 CUDA cores: they run on mma.sync
 //     m16n8k8 TF32 as 3xTF32 (mma_step). Each fp32 operand v is split into
 //     big, v rounded to TF32 to nearest (ties away, as cvt.rna.tf32), and
@@ -96,19 +99,39 @@
 //     for x_s·(G_c B_s); the inter-chunk term is yiᵀ = h_in C_tᵀ with h_in
 //     resident, dy_t read at the accumulator's positions before the
 //     product. The Q-long arrays are sized by the launch's Q in dynamic
-//     shared memory (61 KB at Q = 256: three blocks an SM).
+//     shared memory (61 KB at Q = 256: three blocks an SM);
+//   * chunk_dstate's R ran 160 blocks that each walked all 80 heads, M
+//     formed on the fp32 CUDA cores with two barriers a 32-deep slab, then
+//     an fp64 subtraction and an exp per element and head: the walk is
+//     split over groups of 16 heads (800 blocks at mamba2's shape, 1280 at
+//     hymba's), each block's partial summed in order by dstate_pass; per
+//     head one batch of copies brings the dy_t and x_s tiles (and cum, dt)
+//     into one of two stages while the other head's product runs. Off the
+//     diagonal the per-element exp goes: L_ts = exp(cum_t - cum_r) exp(cum_r
+//     - cum_s) with r the s tile's last step, so a head's term is one
+//     product with dy_t's rows and x_s's columns scaled, accumulating in R's
+//     registers; where an exponent of that form is > 0 (cum rising: a·dt >
+//     0, which no model has) the head takes the per-element form;
+//   * chunk_dstate's D ran on the fp32 CUDA cores in 64-column slices: it is
+//     mma_tile's product, exp(cum_t) a per-k scale of A (KScale), its column
+//     tile 16 or 32 wide where N is;
+//   * dstate_pass kept one chunk's load in flight (it stores G_c over D_c
+//     before the next load): each thread loads a window of 8 chunks' D_c
+//     and decays before its first store, in 16-byte vectors where P·N is a
+//     multiple of 4.
 
 // Design points:
 //   * no two blocks write one value and no atomics are used: chunk_bwd owns
-//     a whole (b, chunk, h), chunk_dbc's partials have one writer each and
-//     dbc_sum adds them in slot order, so launches repeat bitwise;
+//     a whole (b, chunk, h), chunk_dstate's and chunk_dbc's partials have one
+//     writer each, and dstate_pass and dbc_sum add them in order, so launches
+//     repeat bitwise;
 //   * the causal mask is applied before exp, every exponent is an fp64
 //     difference of cum values rounded once to fp32, as in the forward;
-//   * chunk_bwd opts in to more than 48 KB of dynamic shared memory (Q up to
-//     1024) once per device, in ssd_scan_bwd_init, which the wrapper calls
-//     before the first launch on a device. The attribute belongs to the
-//     function, not to a launch, so a launch is captured in a CUDA graph as
-//     any other;
+//   * chunk_dstate, chunk_bwd (Q up to 1024) and chunk_dbc opt in to their
+//     dynamic shared memory once per device, in ssd_scan_bwd_init, which
+//     the wrapper calls before the first launch on a device. The attribute
+//     belongs to the function, not to a launch, so a launch is captured in a
+//     CUDA graph as any other;
 //   * every global offset is 64-bit.
 // Limits: as the forward's: P <= 64, N <= 128, Q <= 1024, every grid under
 // 2^31 blocks; the launcher refuses others.
@@ -120,127 +143,35 @@
 
 namespace {
 
-constexpr int kT = 64;          // output tile rows (and chunk_dstate's columns)
-constexpr int kK = 32;          // chunk_dstate: depth of one shared slab
-constexpr int kLd = kT + 4;     // chunk_dstate: row stride of a k-major slab (16-byte rows)
-constexpr int kThreads = 128;   // chunk_dstate: 8 x 16 threads, 8x4 outputs each; else 2 x 2 warps
+constexpr int kT = 64;          // output tile rows
+constexpr int kThreads = 128;   // 2 x 2 warps
 constexpr int kMaxP = 64;
 constexpr int kMaxN = 128;
 constexpr int kMaxQ = 1024;
 constexpr int kPassThreads = 256;
-constexpr int kPassPer = 4;
+constexpr int kPassWin = 8;     // dstate_pass: chunks whose loads are in flight before a store
 constexpr int kMK = 16;         // the tensor-core routine: depth of one shared slab
 constexpr int kLdM = kMK + 4;   // row stride of an m-major plane: fragment loads hit 32 banks
 constexpr int kPlane = kT * kLdM;   // words per plane, >= kMK * (kT + 8) for a k-major one
 constexpr int kWLd = kT + 8;    // row stride of chunk_bwd's (L ⊙ CB) tile
-constexpr int kLdT = kT + 4;    // row stride of chunk_bwd's dy_t and x_s tiles
+constexpr int kLdT = kT + 4;    // row stride of the dy_t and x_s tiles (chunk_dstate, chunk_bwd)
 constexpr int kLdH = 2 * kT + 4;   // row stride of chunk_bwd's h_in tile (N <= 128)
-constexpr int kTilesWords = 2 * kT * kLdT;   // chunk_bwd's dy_t and x_s tiles
+constexpr int kTilesWords = 2 * kT * kLdT;   // the dy_t and x_s tiles
 constexpr int kBwdStages = 2;   // chunk_bwd: mma_tile's ring stages
-constexpr int kDbcStages = 4;   // chunk_dbc: mma_tile's ring stages
+constexpr int kRingStages = 4;  // chunk_dstate's D and chunk_dbc: mma_tile's ring stages
 constexpr int kHeadGroup = 16;  // chunk_dbc: heads per state-term partial
+constexpr int kRHeadGroup = 16; // chunk_dstate: heads per partial of R
+// chunk_dstate's R: words per stage of its two-stage ring over heads: the
+// dy_t and x_s tiles, cum_t and cum_s (fp64), dt_s, then the factored
+// form's row and column scales.
+constexpr int kRStageWords = kTilesWords + 7 * kT;
 constexpr int kSumThreads = 256;
 static_assert(kPlane >= kMK * (kT + 8), "a k-major plane fits");
 static_assert(kBwdStages * kPlane <= kT * kLdT && kBwdStages * kPlane <= kT * kWLd &&
               kT * kLdH <= kTilesWords, "chunk_bwd's rings and h_in fit its tiles");
+static_assert(kThreads == 2 * kT, "chunk_dstate's R: one thread per cum_t, cum_s copy");
 
-// This thread's 8x4 register tile: rows 8*ty .. 8*ty+7, columns 4*tx ..
-// 4*tx+3. A warp covers 4 ty x 8 tx.
-__device__ __forceinline__ void tile_coords(int& ty, int& tx) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  tx = (warp & 1) * 8 + (lane & 7);
-  ty = (warp >> 1) * 4 + (lane >> 3);
-}
-
-// acc[i][j] += Σ_{k < depth} fa(8ty + i, k) · fb(k, 4tx + j) on the fp32
-// CUDA cores (chunk_dstate). fa(m, k) and fb(k, n) give the operands'
-// elements (0 outside their range); each slab of kK steps is stored k-major
-// in as / bs. kAk (kBk) says that the left (right) operand's source runs
-// along k in memory: consecutive threads then take consecutive k, otherwise
-// consecutive m (n), so global reads are coalesced either way. A slab's
-// elements are all read into registers before any is stored: the shared
-// stores go through generic pointers, which the compiler cannot tell from
-// the global reads, so interleaved stores would serialise the reads (one
-// memory round trip each). The first slab's elements are read before the
-// first barrier: fa and fb may read shared memory only where a barrier has
-// passed since it was written. A barrier precedes every store into as / bs,
-// so the caller may read the slabs (or what aliases them) right before the
-// call; it ends without one.
-template <bool kAk, bool kBk, typename FA, typename FB>
-__device__ __forceinline__ void mm_tile(float (&acc)[8][4], float* __restrict__ as,
-                                        float* __restrict__ bs, int depth, FA fa, FB fb) {
-  constexpr int kPer = kK * kT / kThreads;
-  int ty, tx;
-  tile_coords(ty, tx);
-  for (int k0 = 0; k0 < depth; k0 += kK) {
-    float va[kPer], vb[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const int k = kAk ? e % kK : e / kT, m = kAk ? e / kK : e % kT;
-      va[i] = k0 + k < depth ? fa(m, k0 + k) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const int k = kBk ? e % kK : e / kT, n = kBk ? e / kK : e % kT;
-      vb[i] = k0 + k < depth ? fb(k0 + k, n) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const int k = kAk ? e % kK : e / kT, m = kAk ? e / kK : e % kT;
-      as[k * kLd + m] = va[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const int k = kBk ? e % kK : e / kT, n = kBk ? e / kK : e % kT;
-      bs[k * kLd + n] = vb[i];
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(as + k * kLd + 8 * ty);
-      const float4 a1 = *reinterpret_cast<const float4*>(as + k * kLd + 8 * ty + 4);
-      const float4 b = *reinterpret_cast<const float4*>(bs + k * kLd + 4 * tx);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-}
-
-// out[r][c] = acc for rows r0 + r < rows and columns c0 + c < cols, with
-// out's rows `ld` apart.
-__device__ __forceinline__ void store_tile(float* out, int64_t ld, const float (&acc)[8][4],
-                                           int r0, int rows, int c0, int cols) {
-  int ty, tx;
-  tile_coords(ty, tx);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = r0 + 8 * ty + i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + 4 * tx + j;
-      if (c < cols) out[(int64_t)r * ld + c] = acc[i][j];
-    }
-  }
-}
-
-// ---- The tensor-core routine (chunk_bwd, chunk_dbc) ----------------------
+// ---- The tensor-core routine (chunk_dstate, chunk_bwd, chunk_dbc) ---------
 //
 // A block's output tile is 64 rows x 16·NI columns; its four warps are 2 x 2,
 // each owning 32 rows x 8·NI columns as 2 x NI mma tiles of 16 x 8. A
@@ -300,13 +231,15 @@ __device__ __forceinline__ int plane_at(int m, int k) {
   return kAlongK ? m * kLdM + k : k * (kRows + 8) + m;
 }
 
-// Asynchronous copy of kW floats (4 or 16 bytes) from global to shared
-// memory (cp.async), and its group bookkeeping.
+// Asynchronous copy of kW floats (4, 8 or 16 bytes, as aligned) from global
+// to shared memory (cp.async), and its group bookkeeping.
 template <int kW>
 __device__ __forceinline__ void cp_async(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   if constexpr (kW == 4)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src) : "memory");
+  else if constexpr (kW == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" :: "r"(d), "l"(src) : "memory");
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src) : "memory");
 }
@@ -331,10 +264,19 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& sma
   small = __float_as_uint(v - __uint_as_float(big & 0xffffe000u));
 }
 
-// mma_tile's operand maps: no row scale; no source (a resident A).
+// mma_tile's operand maps: no row scale; a scale w[k] of A's column k in
+// place of a row scale (PerK); no source (a resident A).
 struct NoScale {
   __device__ float operator()(int, int) const { return 1.f; }
 };
+struct KScale {
+  const float* w;
+  __device__ float operator()(int, int k) const { return w[k]; }
+};
+template <typename XA>
+constexpr bool PerK = false;
+template <>
+constexpr bool PerK<KScale> = true;
 struct NoSource {
   __device__ const float* operator()(int, int) const { return nullptr; }
 };
@@ -352,13 +294,14 @@ __device__ __forceinline__ void zero_chunk(float* dst) {
 // n]. Each fragment element is split
 // into big = rna_tf32(v) and small = rna_tf32(v - big) as it is loaded, A's
 // rows scaled by xa(m, kabs) first (kabs the step's depth in the whole
-// product), and a tile takes big·small + small·big + big·big. With the row
+// product; with a PerK xa, element k of A's rows by xa(m, kabs + k)), B's
+// columns by xb(n, kabs), and a tile takes big·small + small·big + big·big. With the row
 // strides used here (20, 68, 72, 132, 16·NI + 8) no two lanes of a
 // fragment load hit one bank, but for a k-major B at stride 68 (two).
-template <bool kAk, bool kBk, int NI, typename XA>
+template <bool kAk, bool kBk, int NI, typename XA, typename XB = NoScale>
 __device__ __forceinline__ void mma_step(float (&acc)[2][NI][4], const float* __restrict__ A,
                                          int lda, int ka, const float* __restrict__ B, int ldb,
-                                         int kb, XA xa, int kabs) {
+                                         int kb, XA xa, int kabs, XB xb = XB()) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
   const int wr = (warp >> 1) * 32, wc = (warp & 1) * 8 * NI;
@@ -368,18 +311,26 @@ __device__ __forceinline__ void mma_step(float (&acc)[2][NI][4], const float* __
 #pragma unroll
   for (int ni = 0; ni < NI; ++ni) {
     const int n = wc + ni * 8 + g;
-    split_tf32(b_at(kb + q, n), bb[ni][0], bs[ni][0]);
-    split_tf32(b_at(kb + q + 4, n), bb[ni][1], bs[ni][1]);
+    const float sn = xb(n, kabs);
+    split_tf32(sn * b_at(kb + q, n), bb[ni][0], bs[ni][0]);
+    split_tf32(sn * b_at(kb + q + 4, n), bb[ni][1], bs[ni][1]);
   }
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
     const int m = wr + mi * 16 + g;
-    const float s0 = xa(m, kabs), s8 = xa(m + 8, kabs);
+    float sc[4];   // the scales of A's fragment elements (m, q), (m + 8, q), (m, q + 4), (m + 8, q + 4)
+    if constexpr (PerK<XA>) {
+      sc[0] = sc[1] = xa(m, kabs + q);
+      sc[2] = sc[3] = xa(m, kabs + q + 4);
+    } else {
+      sc[0] = sc[2] = xa(m, kabs);
+      sc[1] = sc[3] = xa(m + 8, kabs);
+    }
     uint32_t ab[4], as[4];
-    split_tf32(s0 * a_at(m, ka + q), ab[0], as[0]);
-    split_tf32(s8 * a_at(m + 8, ka + q), ab[1], as[1]);
-    split_tf32(s0 * a_at(m, ka + q + 4), ab[2], as[2]);
-    split_tf32(s8 * a_at(m + 8, ka + q + 4), ab[3], as[3]);
+    split_tf32(sc[0] * a_at(m, ka + q), ab[0], as[0]);
+    split_tf32(sc[1] * a_at(m + 8, ka + q), ab[1], as[1]);
+    split_tf32(sc[2] * a_at(m, ka + q + 4), ab[2], as[2]);
+    split_tf32(sc[3] * a_at(m + 8, ka + q + 4), ab[3], as[3]);
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni) {
       mma_tf32(acc[mi][ni], ab, bs[ni][0], bs[ni][1]);
@@ -390,12 +341,15 @@ __device__ __forceinline__ void mma_step(float (&acc)[2][NI][4], const float* __
 }
 
 // acc += A · B over a depth (a multiple of 8) of operands already in shared
-// memory (layouts as mma_step's). No barrier: the caller makes them ready.
-template <bool kAk, bool kBk, int NI>
+// memory (layouts as mma_step's), A's rows scaled by xa(m, k) and B's
+// columns by xb(n, k), each uniform over an 8-deep step. No barrier: the
+// caller makes them ready.
+template <bool kAk, bool kBk, int NI, typename XA = NoScale, typename XB = NoScale>
 __device__ __forceinline__ void mma_resident(float (&acc)[2][NI][4], const float* A, int lda,
-                                             const float* B, int ldb, int depth) {
+                                             const float* B, int ldb, int depth, XA xa = XA(),
+                                             XB xb = XB()) {
   for (int k = 0; k < depth; k += 8)
-    mma_step<kAk, kBk, NI>(acc, A, lda, k, B, ldb, k, NoScale(), k);
+    mma_step<kAk, kBk, NI>(acc, A, lda, k, B, ldb, k, xa, k, xb);
 }
 
 // This thread's share of a rows x cols tile copied by cp.async into dst
@@ -404,18 +358,23 @@ __device__ __forceinline__ void mma_resident(float (&acc)[2][NI][4], const float
 // caller commits and waits.
 template <int kW, typename F>
 __device__ __forceinline__ void load_tile(float* dst, int ld, int rows, int cols, F src) {
-  const int per_row = cols / kW;
-  for (int c = threadIdx.x; c < rows * per_row; c += kThreads) {
-    const int r = c / per_row, col = c % per_row * kW;
+  const int per_row = cols / kW, dr = kThreads / per_row, dc = kThreads % per_row;
+  int r = threadIdx.x / per_row, cc = threadIdx.x % per_row;
+  while (r < rows) {
+    const int col = cc * kW;
     const float* from = src(r, col);
     if (from) cp_async<kW>(dst + r * ld + col, from);
     else zero_chunk<kW>(dst + r * ld + col);
+    r += dr;
+    cc += dc;
+    if (cc >= per_row) cc -= per_row, ++r;
   }
 }
 
 // acc += Σ_{k < depth} A(m, k) · B(k, n) over the block's 64 x 16·NI tile
 // in 3xTF32, A's rows scaled by xa(m, k), uniform over each 8-deep step of
-// k (NoScale() where there is none).
+// k (NoScale() where there is none), or A's columns by a KScale's w[k] (w
+// read up to the last slab's end).
 //
 // Operands come from global memory in chunks of kW floats along the
 // dimension their source runs along (kAk / kBk: along k; else along m / n):
@@ -543,103 +502,241 @@ __device__ __forceinline__ void col_partials(F f, float* red) {
     }
 }
 
-// Phase 1. Blocks [0, nd): (((b * nc + c) * H + h) * nslices + slice) with
-// D_c[p][n] for n in the slice; blocks [nd, nd + nr): (b * nc + c) * npairs
-// + pair, pair = it (it + 1) / 2 + js with js <= it: R[t][s] for the tile
-// (it, js).
-__global__ void __launch_bounds__(kThreads)
+// Phase 1's dynamic shared memory: R's two stages, or D's ring and its
+// exp(cum_t) (Q at most kMaxQ).
+constexpr size_t dstate_smem_bytes() {
+  constexpr int r_words = 2 * kRStageWords, d_words = 2 * kRingStages * kPlane + kMaxQ;
+  return sizeof(float) * (r_words > d_words ? r_words : d_words);
+}
+
+// Phase 1. Blocks [0, nr): ((b * nc + c) * ngroups + group) * npairs + pair,
+// pair = it (it + 1) / 2 + js with js <= it: the partial of R[t][s] over
+// the heads [16·group, 16·group + 16) for the tile (it, js) into r_part[b,
+// c, group]; blocks [nr, nr + nd): ((b * nc + c) * H + h) * ncols + col:
+// D_c[p][n] for the column tile col of 16·NI. Operands copied in chunks of
+// kW floats.
+template <int NI, int kW>
+__global__ void __launch_bounds__(kThreads, 3)
 ssd_bwd_chunk_dstate_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                             const float* __restrict__ cm, const float* __restrict__ dy,
                             const double* __restrict__ cum, float* __restrict__ gstates,
-                            float* __restrict__ r, int64_t S, int H, int P, int N, int Q,
-                            int64_t nd) {
-  __shared__ __align__(16) float as[kK * kLd];
-  __shared__ __align__(16) float bs[kK * kLd];
-  __shared__ float w[kMaxQ];
+                            float* __restrict__ r_part, int64_t S, int H, int P, int N, int Q,
+                            int64_t nr) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int64_t nc = S / Q, HP = (int64_t)H * P;
-  float acc[8][4];
-  zero(acc);
-  if (blockIdx.x < nd) {
-    const int nslices = (N + kT - 1) / kT;
-    const int slice = (int)(blockIdx.x % nslices);
-    const int64_t bch = blockIdx.x / nslices, bc = bch / H, b = bc / nc;
-    const int h = (int)(bch % H), n0 = slice * kT;
+  if (blockIdx.x >= nr) {
+    // D[p][n] = Σ_t (exp(cum_t) dy_t[p]) C_t[n], the scale a KScale of A's
+    // columns.
+    constexpr int kTN = 16 * NI;
+    float* ring_a = reinterpret_cast<float*>(smem);
+    float* ring_b = ring_a + kRingStages * kPlane;
+    float* w = ring_b + kRingStages * kPlane;   // exp(cum_t), zero past Q to the last slab
+    const int ncols = (N + kTN - 1) / kTN;
+    const int64_t rest = blockIdx.x - nr, bch = rest / ncols, bc = bch / H, b = bc / nc;
+    const int h = (int)(bch % H), n0 = (int)(rest % ncols) * kTN;
     const double* cu = cum + (b * H + h) * S + (bc - b * nc) * Q;
-    for (int t = threadIdx.x; t < Q; t += kThreads) w[t] = expf((float)cu[t]);
-    __syncthreads();
+    for (int t = threadIdx.x; t < (Q + kMK - 1) / kMK * kMK; t += kThreads)
+      w[t] = t < Q ? expf((float)cu[t]) : 0.f;
     const float* dyb = dy + bc * Q * HP + (int64_t)h * P;   // step t at dyb + t * HP
     const float* crow = cm + bc * Q * N;
-    // D[p][n] = Σ_t (exp(cum_t) dy_t[p]) C_t[n].
-    mm_tile<false, false>(acc, as, bs, Q,
-        [&](int p, int t) { return p < P ? w[t] * dyb[(int64_t)t * HP + p] : 0.f; },
-        [&](int t, int n) { return n0 + n < N ? crow[(int64_t)t * N + n0 + n] : 0.f; });
-    store_tile(gstates + bch * (int64_t)P * N + n0, N, acc, 0, P, 0, N - n0);
+    float acc[2][NI][4];
+    zero(acc);
+    mma_tile<kRingStages, kW, false, false, false, NI>(acc, ring_a, ring_b, Q,
+        [&](int p, int t) { return p < P ? dyb + (int64_t)t * HP + p : nullptr; },
+        [&](int t, int n) { return n0 + n < N ? crow + (int64_t)t * N + n0 + n : nullptr; },
+        KScale{w});
+    float* out = gstates + bch * (int64_t)P * N;
+    each_frag<NI>([&](int mi, int ni, int e, int r, int c) {
+      if (r < P && n0 + c < N) out[(int64_t)r * N + n0 + c] = acc[mi][ni][e];
+    });
     return;
   }
   const int ntiles = (Q + kT - 1) / kT, npairs = ntiles * (ntiles + 1) / 2;
-  const int64_t rest = blockIdx.x - nd, bc = rest / npairs, b = bc / nc;
-  int js = (int)(rest % npairs), it = 0;
+  const int ngroups = (H + kRHeadGroup - 1) / kRHeadGroup;
+  int js = (int)(blockIdx.x % npairs), it = 0;
   while (js > it) js -= ++it;
-  const int t0 = it * kT, s0 = js * kT;
-  const int64_t row0 = bc * Q;
-  int ty, tx;
-  tile_coords(ty, tx);
-  for (int h = 0; h < H; ++h) {
-    float m[8][4];
-    zero(m);
+  const int64_t bg = blockIdx.x / npairs, bc = bg / ngroups, b = bc / nc, row0 = bc * Q;
+  const int h0 = (int)(bg % ngroups) * kRHeadGroup, nh = min(kRHeadGroup, H - h0);
+  const int t0 = it * kT, s0 = js * kT, P8 = (P + 7) / 8 * 8, tid = threadIdx.x;
+  const double* cub = cum + b * H * S + (bc - b * nc) * Q;   // head h's at cub + h * S
+  float* const stages = reinterpret_cast<float*>(smem);
+  // Head h0 + hh's operands into stage hh % 2, one group: the dy_t and x_s
+  // tiles (columns past P zero), cum_t and cum_s (thread i < 64 copies
+  // cum_{t0+i}, thread 64 + i cum_{s0+i} and dt_{s0+i}).
+  auto issue = [&](int hh) {
+    float* const dyt = stages + (hh & 1) * kRStageWords;
+    float* const xs = dyt + kT * kLdT;
+    double* const cts = reinterpret_cast<double*>(xs + kT * kLdT);
+    const int h = h0 + hh;
     const float* dyb = dy + row0 * HP + (int64_t)h * P;
     const float* xb = x + row0 * HP + (int64_t)h * P;
-    // M[t][s] = dy_t · x_s over P.
-    mm_tile<true, true>(m, as, bs, P,
-        [&](int i, int p) { return t0 + i < Q ? dyb[(int64_t)(t0 + i) * HP + p] : 0.f; },
-        [&](int p, int j) { return s0 + j < Q ? xb[(int64_t)(s0 + j) * HP + p] : 0.f; });
-    const double* cu = cum + (b * H + h) * S + (bc - b * nc) * Q;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int s = s0 + 4 * tx + j;
-      if (s >= Q) continue;
-      const double cs = cu[s];
-      const float ds = dt[(row0 + s) * H + h];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int t = t0 + 8 * ty + i;
-        if (t < Q && s <= t) acc[i][j] = fmaf(ds * expf((float)(cu[t] - cs)), m[i][j], acc[i][j]);
-      }
+    load_tile<kW>(dyt, kLdT, kT, P8, [&](int r, int c) {
+      return t0 + r < Q && c < P ? dyb + (int64_t)(t0 + r) * HP + c : nullptr;
+    });
+    load_tile<kW>(xs, kLdT, kT, P8, [&](int r, int c) {
+      return s0 + r < Q && c < P ? xb + (int64_t)(s0 + r) * HP + c : nullptr;
+    });
+    const int i = tid % kT, u = (tid < kT ? t0 : s0) + i;
+    if (u < Q) {
+      cp_async<2>(reinterpret_cast<float*>(cts + tid),
+                  reinterpret_cast<const float*>(cub + (int64_t)h * S + u));
+      if (tid >= kT) cp_async<1>(reinterpret_cast<float*>(cts + 2 * kT) + i, dt + (row0 + u) * H + h);
     }
+    cp_async_commit();
+  };
+  // Off the diagonal (t0 > s0 + 63 = r, the s tile's last step), L_ts =
+  // exp(cum_t - cum_r) exp(cum_r - cum_s): a head's R term is then one
+  // product of dy_t's rows scaled by sa_t = exp(cum_t - cum_r) and x_s's by
+  // sb_s = dt_s exp(cum_r - cum_s), each exponent an fp64 difference rounded
+  // once to fp32, with no exp per element. Both factors are <= 1 where cum
+  // does not rise within the chunk (a·dt <= 0, as in every model); a head
+  // with an exponent > 0 takes the per-element form, as does the diagonal
+  // tile. Thread i < 64 forms sa_{t0+i}, thread 64 + i sb_{s0+i}: fetch
+  // reads its operands a head ahead, settle writes the scale into the
+  // head's stage and says whether its exponent is > 0.
+  const bool off = it > js;
+  double cu_u = 0.0, cu_r = 0.0;
+  float dt_s = 0.f;
+  auto fetch = [&](int hh) {
+    if (!off) return;
+    const double* cu = cub + (int64_t)(h0 + hh) * S;
+    const int u = (tid < kT ? t0 : s0) + tid % kT;
+    cu_r = cu[s0 + kT - 1];
+    cu_u = u < Q ? cu[u] : cu_r;   // rows past Q: scale 1 on a zero row
+    if (tid >= kT) dt_s = dt[(row0 + u) * H + h0 + hh];
+  };
+  auto settle = [&](int hh) {
+    if (!off) return true;
+    const double d = tid < kT ? cu_u - cu_r : cu_r - cu_u;
+    const float e = expf((float)d);
+    stages[(hh & 1) * kRStageWords + kTilesWords + 5 * kT + tid] = tid < kT ? e : dt_s * e;
+    return d > 0.0;
+  };
+  float acc[2][4][4];
+  zero(acc);
+  issue(0);
+  fetch(0);
+  bool rises = settle(0);
+  for (int hh = 0; hh < nh; ++hh) {
+    if (hh + 1 < nh) {
+      issue(hh + 1);
+      fetch(hh + 1);
+      cp_async_wait<1>();   // this thread's copies of head hh have landed
+    } else {
+      cp_async_wait<0>();
+    }
+    // Everyone's have; whether any exponent of the factored form is > 0.
+    const bool per_element = __syncthreads_or(rises);
+    const float* dyt = stages + (hh & 1) * kRStageWords;
+    const float* xs = dyt + kT * kLdT;
+    const double* ct = reinterpret_cast<const double*>(xs + kT * kLdT);
+    const double* cs = ct + kT;
+    const float* ds = reinterpret_cast<const float*>(cs + kT);
+    const float* sa = ds + kT;
+    const float* sb = sa + kT;
+    if (!per_element) {
+      mma_resident<true, true, 4>(acc, dyt, kLdT, xs, kLdT, P8,
+                                  [&](int m, int) { return sa[m]; },
+                                  [&](int n, int) { return sb[n]; });
+    } else {
+      // M[t][s] = dy_t · x_s over P, then R += dt_s exp(cum_t - cum_s) M on
+      // and below the diagonal (the mask before exp: cum_t, cum_s past Q
+      // unset).
+      float m[2][4][4];
+      zero(m);
+      mma_resident<true, true, 4>(m, dyt, kLdT, xs, kLdT, P8);
+      each_frag<4>([&](int mi, int ni, int e, int r, int c) {
+        if (t0 + r < Q && s0 + c <= t0 + r)
+          acc[mi][ni][e] = fmaf(ds[c] * expf((float)(ct[r] - cs[c])), m[mi][ni][e], acc[mi][ni][e]);
+      });
+    }
+    if (hh + 1 < nh) rises = settle(hh + 1);   // stage (hh + 1) % 2 is not read until then
+    __syncthreads();        // stage hh % 2 is free for head hh + 2's copies
   }
-  store_tile(r + bc * (int64_t)Q * Q, Q, acc, t0, Q, s0, Q);
+  float* out = r_part + (bg * Q + t0) * (int64_t)Q + s0;
+  each_frag<4>([&](int mi, int ni, int e, int r, int c) {
+    if (t0 + r < Q && s0 + c < Q) out[(int64_t)r * Q + c] = acc[mi][ni][e];
+  });
 }
 
-// Phase 2. Block (b * H + h) * slices + slice: each thread carries kPassPer
-// elements of the (P, N) gradient backwards through the chunks, reading
-// D_c before writing G_c over it.
+// kV consecutive floats at p (16-byte aligned where kV is 4) into v, and back.
+template <int kV>
+__device__ __forceinline__ void load_vec(float (&v)[kV], const float* p) {
+  if constexpr (kV == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int kV>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[kV]) {
+  if constexpr (kV == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else *p = v[0];
+}
+
+// Phase 2. Blocks [0, npass): (b * H + h) * slices + slice: each thread
+// carries kV consecutive elements of the (P, N) gradient backwards through
+// the chunks, kPassWin chunks at a time: the window's D_c and decays are all
+// loaded before G_c is stored over the first of them. Blocks [npass, npass
+// + B·nc·npairs): (b * nc + c) * npairs + pair: R over the causal tile pair,
+// the head groups' partials summed in order.
+template <int kV>
 __global__ void __launch_bounds__(kPassThreads)
 ssd_bwd_dstate_pass_kernel(float* __restrict__ gstates, const float* __restrict__ dh_final,
-                           const double* __restrict__ cum, int64_t S, int H, int PN, int Q) {
-  constexpr int kSpan = kPassThreads * kPassPer;
-  const int slices = (PN + kSpan - 1) / kSpan;
-  const int64_t bh = blockIdx.x / slices, nc = S / Q, b = bh / H, h = bh - b * H;
-  const int e0 = (int)(blockIdx.x % slices) * kSpan + threadIdx.x;
-  const int64_t step = (int64_t)H * PN;             // chunk c to chunk c + 1
-  float* base = gstates + (b * nc * H + h) * PN;    // chunk c at base + c * step
-  const double* last = cum + bh * S + (Q - 1);      // cum_Q of chunk c at last[c * Q]
-  float g[kPassPer];
+                           const double* __restrict__ cum, const float* __restrict__ r_part,
+                           float* __restrict__ r, int64_t S, int H, int PN, int Q, int ngroups,
+                           int64_t npass) {
+  const int64_t nc = S / Q;
+  if (blockIdx.x >= npass) {
+    const int ntiles = (Q + kT - 1) / kT, npairs = ntiles * (ntiles + 1) / 2;
+    const int64_t rest = blockIdx.x - npass, bc = rest / npairs, QQ = (int64_t)Q * Q;
+    int js = (int)(rest % npairs), it = 0;
+    while (js > it) js -= ++it;
+    const float* src = r_part + bc * ngroups * QQ;
+    float* dst = r + bc * QQ;
+    for (int e = threadIdx.x * kV; e < kT * kT; e += kPassThreads * kV) {
+      const int t = it * kT + e / kT, s = js * kT + e % kT;
+      if (t >= Q || s >= Q) continue;
+      const int64_t o = (int64_t)t * Q + s;
+      float sum[kV], v[kV];
+      load_vec<kV>(sum, src + o);
+      for (int g = 1; g < ngroups; ++g) {
+        load_vec<kV>(v, src + g * QQ + o);
 #pragma unroll
-  for (int k = 0; k < kPassPer; ++k) {
-    const int e = e0 + k * kPassThreads;
-    g[k] = e < PN ? dh_final[bh * PN + e] : 0.f;
-  }
-  for (int64_t c = nc - 1; c >= 0; --c) {
-    const float decay = expf((float)last[c * Q]);
-#pragma unroll
-    for (int k = 0; k < kPassPer; ++k) {
-      const int e = e0 + k * kPassThreads;
-      if (e < PN) {
-        const float d = base[c * step + e];
-        base[c * step + e] = g[k];
-        g[k] = fmaf(decay, g[k], d);
+        for (int k = 0; k < kV; ++k) sum[k] += v[k];
       }
+      store_vec<kV>(dst + o, sum);
     }
+    return;
+  }
+  constexpr int kSpan = kPassThreads * kV;
+  const int slices = (PN + kSpan - 1) / kSpan;
+  const int64_t bh = blockIdx.x / slices, b = bh / H, h = bh - b * H;
+  const int e = (int)(blockIdx.x % slices) * kSpan + threadIdx.x * kV;
+  if (e >= PN) return;
+  const int64_t step = (int64_t)H * PN;                 // chunk c to chunk c + 1
+  float* base = gstates + (b * nc * H + h) * PN + e;    // chunk c at base + c * step
+  const double* last = cum + bh * S + (Q - 1);          // cum_Q of chunk c at last[c * Q]
+  float g[kV];
+  load_vec<kV>(g, dh_final + bh * PN + e);
+  for (int64_t top = nc - 1; top >= 0; top -= kPassWin) {   // chunks top, top - 1, ...
+    const int wn = top + 1 < kPassWin ? (int)(top + 1) : kPassWin;
+    float d[kPassWin][kV], decay[kPassWin];
+#pragma unroll
+    for (int i = 0; i < kPassWin; ++i)
+      if (i < wn) {
+        load_vec<kV>(d[i], base + (top - i) * step);
+        decay[i] = expf((float)last[(top - i) * Q]);
+      }
+#pragma unroll
+    for (int i = 0; i < kPassWin; ++i)
+      if (i < wn) {
+        store_vec<kV>(base + (top - i) * step, g);
+#pragma unroll
+        for (int k = 0; k < kV; ++k) g[k] = fmaf(decay[i], g[k], d[i][k]);
+      }
   }
 }
 
@@ -653,7 +750,7 @@ constexpr size_t bwd_smem_bytes(int Q) {
 
 // Phase 4's dynamic shared memory: mma_tile's ring, then the block's scales.
 constexpr size_t dbc_smem_bytes() {
-  return sizeof(float) * (2 * kDbcStages * kPlane + kT * kHeadGroup);
+  return sizeof(float) * (2 * kRingStages * kPlane + kT * kHeadGroup);
 }
 
 // Phase 3. Block (b * nc + c) * H + h; operands copied in chunks of kW
@@ -879,8 +976,8 @@ ssd_bwd_chunk_dbc_kernel(const float* __restrict__ x, const float* __restrict__ 
   constexpr int kTN = 16 * NI;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ring_a = reinterpret_cast<float*>(smem);
-  float* ring_b = ring_a + kDbcStages * kPlane;
-  float* scs = ring_b + kDbcStages * kPlane;   // [row][head - h0]
+  float* ring_b = ring_a + kRingStages * kPlane;
+  float* scs = ring_b + kRingStages * kPlane;   // [row][head - h0]
   const int64_t nc = S / Q, HP = (int64_t)H * P, PN = (int64_t)P * N;
   const int nslots = 1 + (H + kHeadGroup - 1) / kHeadGroup;
   const int ncols = (N + kTN - 1) / kTN, nrows = (Q + kT - 1) / kT;
@@ -901,13 +998,13 @@ ssd_bwd_chunk_dbc_kernel(const float* __restrict__ x, const float* __restrict__ 
   zero(acc);
   if (slot == 0 && kind == 0) {
     // dB[s][n] = Σ_{t >= s} R[t][s] C_t[n]: t from the s tile's first row.
-    mma_tile<kDbcStages, kW, false, false, false, NI>(acc, ring_a, ring_b, Q - r0,
+    mma_tile<kRingStages, kW, false, false, false, NI>(acc, ring_a, ring_b, Q - r0,
         [&](int j, int k) { return r0 + j < Q ? rb + (int64_t)(r0 + k) * Q + r0 + j : nullptr; },
         [&](int k, int n) { return n0 + n < N ? crow + (int64_t)(r0 + k) * N + n0 + n : nullptr; },
         NoScale());
   } else if (slot == 0) {
     // dC[t][n] = Σ_{s <= t} R[t][s] B_s[n]: s up to the t tile's last row.
-    mma_tile<kDbcStages, kW, true, false, false, NI>(acc, ring_a, ring_b, min(Q, r0 + kT),
+    mma_tile<kRingStages, kW, true, false, false, NI>(acc, ring_a, ring_b, min(Q, r0 + kT),
         [&](int i, int k) { return r0 + i < Q ? rb + (int64_t)(r0 + i) * Q + k : nullptr; },
         [&](int k, int n) { return n0 + n < N ? brow + (int64_t)k * N + n0 + n : nullptr; },
         NoScale());
@@ -925,7 +1022,7 @@ ssd_bwd_chunk_dbc_kernel(const float* __restrict__ x, const float* __restrict__ 
       const int i = e / kHeadGroup, hh = e % kHeadGroup;
       scs[e] = r0 + i < Q && hh < nh ? sc[(row0 + r0 + i) * H + h0 + hh] : 0.f;
     }
-    mma_tile<kDbcStages, kW, true, false, false, NI>(acc, ring_a, ring_b, nh * Pp,
+    mma_tile<kRingStages, kW, true, false, false, NI>(acc, ring_a, ring_b, nh * Pp,
         [&](int i, int k) {
           const int hh = k / Pp, p = k - hh * Pp;
           return r0 + i < Q && p < P ? src + (int64_t)i * HP + hh * P + p : nullptr;
@@ -977,17 +1074,40 @@ struct Chain {
   const float *x, *dt, *a, *b, *c, *dy, *dh_final;
   const double* cum;
   const float *g, *h_in;
-  float *dx, *ddt, *da, *db, *dc, *gstates, *r, *da_part, *scale_out, *scale_in, *part;
+  float *dx, *ddt, *da, *db, *dc, *gstates, *r, *da_part, *scale_out, *scale_in, *part, *r_part;
   int64_t B, S, H, P, N, Q;
 };
 
-// Whether every copied operand of chunk_bwd and chunk_dbc moves in 16-byte
-// chunks: P, N and Q multiples of 4 and every source 16-byte aligned.
+// Whether every copied operand of chunk_dstate, chunk_bwd and chunk_dbc moves
+// in 16-byte chunks and dstate_pass in 16-byte vectors: P, N and Q multiples
+// of 4 and every base 16-byte aligned.
 bool chunks_of_4(const Chain& k) {
-  const float* const bases[] = {k.x, k.dy, k.b, k.c, k.h_in, k.gstates, k.r};
+  const float* const bases[] = {k.x, k.dy, k.b, k.c, k.h_in, k.gstates, k.r, k.dh_final,
+                                k.r_part};
   for (const float* p : bases)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   return k.P % 4 == 0 && k.N % 4 == 0 && k.Q % 4 == 0;
+}
+
+template <int NI, int kW>
+void launch_dstate(const Chain& k, unsigned grid, int64_t nr, cudaStream_t st) {
+  ssd_bwd_chunk_dstate_kernel<NI, kW><<<grid, kThreads, dstate_smem_bytes(), st>>>(
+      k.x, k.dt, k.c, k.dy, k.cum, k.gstates, k.r_part, k.S, (int)k.H, (int)k.P, (int)k.N,
+      (int)k.Q, nr);
+}
+
+template <int kW>
+void launch_dstate(const Chain& k, int ni, unsigned grid, int64_t nr, cudaStream_t st) {
+  if (ni == 1) launch_dstate<1, kW>(k, grid, nr, st);
+  else if (ni == 2) launch_dstate<2, kW>(k, grid, nr, st);
+  else launch_dstate<4, kW>(k, grid, nr, st);
+}
+
+template <int kV>
+void launch_pass(const Chain& k, unsigned grid, int64_t npass, int ngroups, cudaStream_t st) {
+  ssd_bwd_dstate_pass_kernel<kV><<<grid, kPassThreads, 0, st>>>(
+      k.gstates, k.dh_final, k.cum, k.r_part, k.r, k.S, (int)k.H, (int)(k.P * k.N), (int)k.Q,
+      ngroups, npass);
 }
 
 template <int kW>
@@ -1016,6 +1136,15 @@ cudaError_t set_smem_limits(cudaFuncAttribute max_smem) {
   cudaError_t err = cudaFuncSetAttribute(ssd_bwd_chunk_bwd_kernel<kW>, max_smem,
                                          (int)bwd_smem_bytes(kMaxQ));
   if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_dstate_kernel<1, kW>, max_smem,
+                               (int)dstate_smem_bytes());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_dstate_kernel<2, kW>, max_smem,
+                               (int)dstate_smem_bytes());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_dstate_kernel<4, kW>, max_smem,
+                               (int)dstate_smem_bytes());
+  if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ssd_bwd_chunk_dbc_kernel<1, kW>, max_smem, (int)dbc_smem_bytes());
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ssd_bwd_chunk_dbc_kernel<2, kW>, max_smem, (int)dbc_smem_bytes());
@@ -1030,30 +1159,31 @@ int launch_phases(const Chain& k, int first, int last, cudaStream_t st) {
   if (B < 1 || H < 1 || H > INT_MAX || P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 ||
       Q > kMaxQ || S < Q || S % Q != 0 || H * P > INT_MAX || first < 1 || last > 5)
     return (int)cudaErrorInvalidValue;
-  const int64_t nc = S / Q, ntiles = (Q + kT - 1) / kT, nslices = (N + kT - 1) / kT;
-  const int64_t npairs = ntiles * (ntiles + 1) / 2, PN = P * N;
-  const int64_t nd = B * nc * H * nslices, nr = B * nc * npairs;
+  const int64_t nc = S / Q, ntiles = (Q + kT - 1) / kT, npairs = ntiles * (ntiles + 1) / 2;
   const int ni = N <= 16 ? 1 : N <= 32 ? 2 : 4;
+  const int64_t ncols = (N + 16 * ni - 1) / (16 * ni);
+  const int64_t ngroups = (H + kRHeadGroup - 1) / kRHeadGroup;
+  const int64_t nr = B * nc * ngroups * npairs, nd = B * nc * H * ncols;
+  const bool vec = chunks_of_4(k);
+  const int64_t span = kPassThreads * (vec ? 4 : 1);
+  const int64_t npass = B * H * ((P * N + span - 1) / span);
   const int64_t nslots = 1 + (H + kHeadGroup - 1) / kHeadGroup;
-  const int64_t ndbc = B * nc * 2 * ntiles * nslots * ((N + 16 * ni - 1) / (16 * ni));
+  const int64_t ndbc = B * nc * 2 * ntiles * nslots * ncols;
   const int64_t nsum = (2 * B * S * N + kSumThreads - 1) / kSumThreads;
-  const int64_t pass_slices = (PN + kPassThreads * kPassPer - 1) / (kPassThreads * kPassPer);
   unsigned g1, g2, g3, g4, g5;
-  if (blocks_for(nd + nr, 1, &g1) || blocks_for(B * H * pass_slices, 1, &g2) ||
+  if (blocks_for(nr + nd, 1, &g1) || blocks_for(npass + B * nc * npairs, 1, &g2) ||
       blocks_for(B * nc * H, 1, &g3) || blocks_for(ndbc, 1, &g4) || blocks_for(nsum + 1, 1, &g5))
     return (int)cudaErrorInvalidValue;
-  const bool vec = chunks_of_4(k);
   cudaError_t err;
   for (int phase = first; phase <= last; ++phase) {
     switch (phase) {
       case 1:
-        ssd_bwd_chunk_dstate_kernel<<<g1, kThreads, 0, st>>>(k.x, k.dt, k.c, k.dy, k.cum,
-                                                             k.gstates, k.r, S, (int)H, (int)P,
-                                                             (int)N, (int)Q, nd);
+        if (vec) launch_dstate<4>(k, ni, g1, nr, st);
+        else launch_dstate<1>(k, ni, g1, nr, st);
         break;
       case 2:
-        ssd_bwd_dstate_pass_kernel<<<g2, kPassThreads, 0, st>>>(k.gstates, k.dh_final, k.cum, S,
-                                                                (int)H, (int)PN, (int)Q);
+        if (vec) launch_pass<4>(k, g2, npass, (int)ngroups, st);
+        else launch_pass<1>(k, g2, npass, (int)ngroups, st);
         break;
       case 3:
         if (vec) launch_bwd<4>(k, g3, st);
@@ -1075,8 +1205,8 @@ int launch_phases(const Chain& k, int first, int last, cudaStream_t st) {
 
 }  // namespace
 
-// Sets chunk_bwd's (for Q up to 1024) and chunk_dbc's dynamic shared memory
-// limits on the current device. Call once per device before the first
+// Sets chunk_dstate's, chunk_bwd's (for Q up to 1024) and chunk_dbc's
+// dynamic shared memory limits on the current device. Call once per device before the first
 // launch there, outside any stream capture. Returns a cudaError_t code, 0 on
 // success.
 extern "C" int ssd_scan_bwd_init() {
@@ -1091,8 +1221,8 @@ extern "C" int ssd_scan_bwd_init() {
 // forward's workspaces cum (B,H,S), g (B,S/Q,Q,Q), h_in (B,S/Q,H,P,N).
 // Workspaces allocated by the caller and overwritten: gstates
 // (B,S/Q,H,P,N), r (B,S/Q,Q,Q), da_part (B,S/Q,H), scale_out and scale_in
-// (B,S,H), part (B,S/Q,2,1+ceil(H/16),Q,N). Launches the five phases in
-// order on `stream`. Returns a cudaError_t code, 0 on success;
+// (B,S,H), part (B,S/Q,2,1+ceil(H/16),Q,N), r_part (B,S/Q,ceil(H/16),Q,Q).
+// Launches the five phases in order on `stream`. Returns a cudaError_t code, 0 on success;
 // cudaErrorInvalidValue for shapes outside the kernels' limits.
 extern "C" int ssd_scan_bwd_launch(const float* x, const float* dt, const float* a,
                                    const float* b, const float* c, const float* dy,
@@ -1100,16 +1230,16 @@ extern "C" int ssd_scan_bwd_launch(const float* x, const float* dt, const float*
                                    const float* h_in, float* dx, float* ddt, float* da,
                                    float* db, float* dc, float* gstates, float* r,
                                    float* da_part, float* scale_out, float* scale_in,
-                                   float* part, int64_t B, int64_t S, int64_t H, int64_t P,
-                                   int64_t N, int64_t Q, void* stream) {
+                                   float* part, float* r_part, int64_t B, int64_t S, int64_t H,
+                                   int64_t P, int64_t N, int64_t Q, void* stream) {
   const Chain k{x, dt, a, b, c, dy, dh_final, cum, g, h_in, dx, ddt, da, db, dc, gstates,
-                r, da_part, scale_out, scale_in, part, B, S, H, P, N, Q};
+                r, da_part, scale_out, scale_in, part, r_part, B, S, H, P, N, Q};
   return launch_phases(k, 1, 5, (cudaStream_t)stream);
 }
 
 // ssd_scan_bwd_launch's phase `phase` (1..5) alone, on workspaces that an
 // earlier full launch filled: for timing each kernel. dstate_pass turns
-// gstates over again on every call.
+// gstates over again on every call (and sums R again).
 extern "C" int ssd_scan_bwd_phase_launch(int phase, const float* x, const float* dt,
                                          const float* a, const float* b, const float* c,
                                          const float* dy, const float* dh_final,
@@ -1117,10 +1247,10 @@ extern "C" int ssd_scan_bwd_phase_launch(int phase, const float* x, const float*
                                          float* dx, float* ddt, float* da, float* db, float* dc,
                                          float* gstates, float* r, float* da_part,
                                          float* scale_out, float* scale_in, float* part,
-                                         int64_t B, int64_t S, int64_t H, int64_t P, int64_t N,
-                                         int64_t Q, void* stream) {
+                                         float* r_part, int64_t B, int64_t S, int64_t H,
+                                         int64_t P, int64_t N, int64_t Q, void* stream) {
   const Chain k{x, dt, a, b, c, dy, dh_final, cum, g, h_in, dx, ddt, da, db, dc, gstates,
-                r, da_part, scale_out, scale_in, part, B, S, H, P, N, Q};
+                r, da_part, scale_out, scale_in, part, r_part, B, S, H, P, N, Q};
   if (phase < 1 || phase > 5) return (int)cudaErrorInvalidValue;
   return launch_phases(k, phase, phase, (cudaStream_t)stream);
 }

@@ -12,12 +12,14 @@ Sizes go over as 64-bit integers and every offset inside the kernels is
 has 5.4e9 elements.
 
 One call of ``ssd_scan_bwd_launch`` launches the backward chain's five
-kernels in order — chunk_dstate (with R), dstate_pass, chunk_bwd,
-chunk_dbc, dbc_sum — and counts as one launch of ``ssd_scan_bwd_cuda``. It
+kernels in order — chunk_dstate (with R's head-group partials),
+dstate_pass (with R's sum), chunk_bwd, chunk_dbc, dbc_sum — and counts as
+one launch of ``ssd_scan_bwd_cuda``. It
 reads the forward's three workspaces, so its caller keeps them from the
 forward (:class:`~repro_torch.kernels.ssd_scan.ops.SsdScanFn`). Before the
 first launch on a device the wrapper calls ``ssd_scan_bwd_init`` there
-(chunk_bwd's shared memory limit).
+(the dynamic shared memory limits of chunk_dstate, chunk_bwd and
+chunk_dbc).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd_scan.ref import DBC_HEAD_GROUP
+from repro_torch.kernels.ssd_scan.ref import DBC_HEAD_GROUP, DSTATE_HEAD_GROUP
 
 #: The kernels' limits: one 8x4-per-thread register tile covers the (P, N)
 #: state (P <= 64, N <= 128), and chunk_scan stages the chunk's cumsum and dt
@@ -136,7 +138,7 @@ BWD_PHASES = ("chunk_dstate", "dstate_pass", "chunk_bwd", "chunk_dbc", "dbc_sum"
 def _bwd_lib():
     lib = _build.load("ssd_scan_bwd")
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    args = [ptr] * 21 + [i64] * 6 + [ptr]
+    args = [ptr] * 22 + [i64] * 6 + [ptr]
     lib.ssd_scan_bwd_launch.argtypes = args
     lib.ssd_scan_bwd_phase_launch.argtypes = [ctypes.c_int] + args
     lib.ssd_scan_bwd_init.argtypes = []
@@ -148,7 +150,7 @@ def _bwd_lib():
 @functools.cache
 def _bwd_ready(index: int) -> None:
     """Once per device, before its first launch (and so outside any stream
-    capture): chunk_bwd's dynamic shared memory limit."""
+    capture): the chain's dynamic shared memory limits."""
     with torch.cuda.device(index):
         rc = _bwd_lib().ssd_scan_bwd_init()
     if rc != 0:
@@ -193,8 +195,9 @@ def _bwd_call(fn, lead, tensors, out, dims, chunk) -> int:
     tensors) on the current stream of the operands' device."""
     dev = tensors[0].device
     _bwd_ready(dev.index if dev.index is not None else torch.cuda.current_device())
-    # The C order: dx, ddt, da, dB, dC, gstates, r, da_part, scale_out, scale_in, part.
-    order = (0, 1, 2, 3, 4, 5, 6, 10, 7, 8, 9)
+    # The C order: dx, ddt, da, dB, dC, gstates, r, da_part, scale_out, scale_in, part,
+    # r_part.
+    order = (0, 1, 2, 3, 4, 5, 6, 10, 7, 8, 9, 11)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         return fn(*lead, *(t.data_ptr() for t in tensors), *(out[i].data_ptr() for i in order),
@@ -209,17 +212,18 @@ def _ssd_scan_bwd_cuda_phases(
     layouts of :func:`~repro_torch.kernels.ssd_scan.ref.ssd_scan_bwd_phases_ref`:
     (dx, ddt, da, dB, dC, G (B,S/Q,H,P,N), R (B,S/Q,Q,Q), valid on and below
     the diagonal, scale_out and scale_in (B,S,H), chunk_dbc's partials
-    (B,S/Q,2,1+ceil(H/DBC_HEAD_GROUP),Q,N), da_part (B,S/Q,H)). Counts one
-    launch."""
+    (B,S/Q,2,1+ceil(H/DBC_HEAD_GROUP),Q,N), da_part (B,S/Q,H), R's partials
+    (B,S/Q,ceil(H/DSTATE_HEAD_GROUP),Q,Q), valid on and below the diagonal).
+    Counts one launch."""
     tensors = (x, dt, a, b_mat, c_mat, dy, dh_final, cum, g, h_in)
     bsz, s, h, p, n = _bwd_operands(*tensors, chunk)
     nc, dev, f32 = s // chunk, x.device, torch.float32
-    nslots = 1 + -(-h // DBC_HEAD_GROUP)
+    nslots, ngroups = 1 + -(-h // DBC_HEAD_GROUP), -(-h // DSTATE_HEAD_GROUP)
     empty = lambda *shape: torch.empty(shape, device=dev, dtype=f32)
     out = (torch.empty_like(x), torch.empty_like(dt), empty(h), torch.empty_like(b_mat),
            torch.empty_like(c_mat), empty(bsz, nc, h, p, n), empty(bsz, nc, chunk, chunk),
            empty(bsz, s, h), empty(bsz, s, h), empty(bsz, nc, 2, nslots, chunk, n),
-           empty(bsz, nc, h))
+           empty(bsz, nc, h), empty(bsz, nc, ngroups, chunk, chunk))
     if bsz and s and h and p and n:
         rc = _bwd_call(_bwd_lib().ssd_scan_bwd_launch, (), tensors, out, (bsz, s, h, p, n), chunk)
         if rc != 0:

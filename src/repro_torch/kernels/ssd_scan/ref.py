@@ -35,6 +35,10 @@ from torch import Tensor
 #: chunk_dbc (``csrc/ssd_scan_bwd.cu``'s kHeadGroup): the H·P depth is split
 #: so that enough blocks fill the card, then summed in a fixed order.
 DBC_HEAD_GROUP = 16
+#: Heads per partial of R in the backward chain's chunk_dstate
+#: (``csrc/ssd_scan_bwd.cu``'s kRHeadGroup): the walk over the heads is split
+#: so that enough blocks fill the card; dstate_pass sums the partials in order.
+DSTATE_HEAD_GROUP = 16
 
 
 def ssd_scan_ref(
@@ -139,9 +143,12 @@ def ssd_scan_bwd_phases_ref(
     L_ts = exp(cum_t - cum_s) for t >= s, CB_ts = C_t·B_s, M_ts = dy_t·x_s
     and G_c the gradient of the state leaving chunk c:
 
-    - chunk_dstate: D_c = Σ_t exp(cum_t) dy_t ⊗ C_t, and R_ts = Σ_h dt_s
-      L_ts M_ts (t >= s), once per (b, chunk) for all heads;
-    - dstate_pass: G_{nc-1} = dh_final, G_{c-1} = exp(A_c) G_c + D_c;
+    - chunk_dstate: D_c = Σ_t exp(cum_t) dy_t ⊗ C_t, and the partials of
+      R_ts = Σ_h dt_s L_ts M_ts (t >= s) over the heads [g·DSTATE_HEAD_GROUP,
+      (g + 1)·DSTATE_HEAD_GROUP) (the last group ragged where H is no
+      multiple), once per (b, chunk, group);
+    - dstate_pass: G_{nc-1} = dh_final, G_{c-1} = exp(A_c) G_c + D_c; R the
+      partials summed in group order;
     - chunk_bwd, per head: dx_s = dt_s [Σ_{t>=s} L_ts CB_ts dy_t +
       exp(A_c - cum_s) G_c B_s]; the direct ddt_s = Σ_t L_ts CB_ts M_ts +
       exp(A_c - cum_s) x_s·(G_c B_s); ∂cum from W_ts = L_ts CB_ts dt_s M_ts
@@ -161,9 +168,10 @@ def ssd_scan_bwd_phases_ref(
     Returns (dx (B,S,H,P), ddt (B,S,H), da (H,), dB, dC (B,S,N)), all fp32,
     then the workspaces G (B, nc, H, P, N), R (B, nc, Q, Q) (zero above the
     diagonal), scale_out and scale_in (B, S, H), the partials (B, nc, 2,
-    1 + ceil(H / DBC_HEAD_GROUP), Q, N) (dB's, then dC's) and da_part (B, nc,
-    H). Every exponent is an fp64 difference of cum values rounded once to
-    fp32, as in the forward."""
+    1 + ceil(H / DBC_HEAD_GROUP), Q, N) (dB's, then dC's), da_part (B, nc,
+    H) and R's partials (B, nc, ceil(H / DSTATE_HEAD_GROUP), Q, Q) (zero
+    above the diagonal). Every exponent is an fp64 difference of cum values
+    rounded once to fp32, as in the forward."""
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     q = chunk
@@ -185,14 +193,18 @@ def ssd_scan_bwd_phases_ref(
     e_in = torch.exp(cumc.to(f32))                                     # exp(cum_t)
     e_out = torch.exp((last[:, :, None, :] - cumc).to(f32))            # exp(A_c - cum_s)
 
-    # Phase 1, chunk_dstate: D_c per head, and R once per (b, chunk).
+    # Phase 1, chunk_dstate: D_c per head, and R's partials per head group.
     dstate = torch.einsum("bcth,bcthp,bctn->bchpn", e_in, dyc, cc)
     seg = cumc[:, :, :, None, :] - cumc[:, :, None, :, :]             # (B,NC,Q,Q,H) [t, s]
     seg = seg.masked_fill(~tri[None, None, :, :, None], float("-inf"))
     lmat = torch.exp(seg.to(f32))
     mmat = torch.einsum("bcthp,bcshp->bctsh", dyc, xc)
-    r = torch.einsum("bctsh,bcsh->bcts", lmat * mmat, dtc)
-    # Phase 2, dstate_pass: the gradient of the state leaving each chunk.
+    lm = lmat * mmat
+    r_part = torch.stack([torch.einsum("bctsh,bcsh->bcts", lm[..., hs], dtc[..., hs])
+                          for hs in _groups(h, DSTATE_HEAD_GROUP)], dim=2)   # (B,NC,G,Q,Q)
+    # Phase 2, dstate_pass: R the partials in group order; the gradient of
+    # the state leaving each chunk.
+    r = _ordered_sum(r_part, 2)
     decay = torch.exp(last.to(f32))
     gcur = dh_final.to(f32)
     gs = []
@@ -217,7 +229,7 @@ def ssd_scan_bwd_phases_ref(
     da_part = (dtc * rev).sum(2)                                       # (B,NC,H)
     scale_out = dtc * e_out
     # Phase 4, chunk_dbc: the R terms, then each head group's state terms.
-    groups = [slice(g0, g0 + DBC_HEAD_GROUP) for g0 in range(0, h, DBC_HEAD_GROUP)]
+    groups = _groups(h, DBC_HEAD_GROUP)
     part = torch.stack([
         torch.stack([torch.einsum("bcts,bctn->bcsn", r, cc)] + [torch.einsum(
             "bcsh,bcshp,bchpn->bcsn", scale_out[..., hs], xc[..., hs, :], gst[:, :, hs])
@@ -227,13 +239,25 @@ def ssd_scan_bwd_phases_ref(
             for hs in groups], dim=2),
     ], dim=2)                                                          # (B,NC,2,slots,Q,N)
     # Phase 5, dbc_sum: the slots in order; da over (b, c) in order.
-    dbc = part[:, :, :, 0]
-    for k in range(1, part.shape[3]):
-        dbc = dbc + part[:, :, :, k]
+    dbc = _ordered_sum(part, 3)
     da = da_part.reshape(-1, h).sum(0)
     return (dx.reshape(bsz, s, h, p), ddt.reshape(bsz, s, h), da, dbc[:, :, 0].reshape(bsz, s, n),
             dbc[:, :, 1].reshape(bsz, s, n), gst, r, scale_out.reshape(bsz, s, h),
-            e_in.reshape(bsz, s, h), part, da_part)
+            e_in.reshape(bsz, s, h), part, da_part, r_part)
+
+
+def _groups(h: int, size: int) -> list[slice]:
+    """The heads in groups of ``size``, the last one ragged."""
+    return [slice(g0, g0 + size) for g0 in range(0, h, size)]
+
+
+def _ordered_sum(parts: Tensor, dim: int) -> Tensor:
+    """parts summed over ``dim`` in index order, as the chain's kernels sum
+    their partials (so launches repeat bitwise)."""
+    total = parts.select(dim, 0)
+    for k in range(1, parts.shape[dim]):
+        total = total + parts.select(dim, k)
+    return total
 
 
 def ssd_scan_bwd_ref(

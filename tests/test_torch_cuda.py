@@ -800,14 +800,42 @@ def test_ssd_scan_has_a_gradient_on_cuda(cuda):
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 64, 8, 32, 16, 32), (2, 512, 80, 64, 128, 256),
                                              (1, 192, 3, 64, 16, 64), (2, 130, 4, 20, 40, 65),
-                                             (1, 256, 50, 64, 16, 128)])
+                                             (1, 256, 50, 64, 16, 128), (1, 8192, 8, 32, 16, 64),
+                                             (2, 256, 20, 32, 32, 64), (1, 1300, 3, 7, 9, 65)])
 def test_ssd_scan_backward_chain_matches_plain_and_repeats_bitwise(cuda, b, s, h, p, n, chunk):
-    """Every output and workspace of the chain (G, R, chunk_dbc's scales and
-    head-group partials, the da partials) against the plain version, and
-    two launches bitwise equal; H = 50 leaves chunk_dbc's last head group
-    ragged."""
+    """Every output and workspace of the chain (G, R and its head-group
+    partials, chunk_dbc's scales and head-group partials, the da partials)
+    against the plain version, and two launches bitwise equal. H = 50 and
+    H = 20 (N = 32) leave chunk_dstate's and chunk_dbc's last head group
+    ragged; nc = 128 and nc = 20 (Q = 65, P·N = 63: 4-byte copies and
+    accesses) walk dstate_pass's window of 8 chunks across its edges."""
     s_pad = -(-s // chunk) * chunk
-    x, dt, a, bm, cm = _ssd_inputs(s + n, b, s_pad, h, p, n, torch.float32, cuda)
+    _check_backward_chain(cuda, _ssd_inputs(s + n, b, s_pad, h, p, n, torch.float32, cuda), chunk)
+
+
+def test_ssd_scan_backward_chain_where_cum_rises(cuda):
+    """a of either sign (cum rises within a chunk where a > 0): chunk_dstate's
+    off-diagonal tiles take the per-element form for those heads, the
+    factored one for the others; the chain as above."""
+    rng = np.random.default_rng(11)
+    b, s, h, p, n = 2, 512, 20, 32, 32
+    t = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(cuda)
+    silu = lambda v: v / (1.0 + np.exp(-v))
+    ops = (t(silu(rng.standard_normal((b, s, h, p)))),
+           t(np.exp(rng.uniform(np.log(1e-3), np.log(0.1), (b, s, h)))),
+           t(rng.uniform(-4.0, 4.0, h)), t(silu(rng.standard_normal((b, s, n)))),
+           t(silu(rng.standard_normal((b, s, n)))))
+    assert float(ops[2].max()) > 0.0 > float(ops[2].min())
+    _check_backward_chain(cuda, ops, 128)
+
+
+def _check_backward_chain(cuda, ops, chunk):
+    """The chain at (x, dt, a, B, C) (S a multiple of ``chunk``) with a
+    seeded dy and dh_final: every output and workspace against
+    ssd_scan_bwd_phases_ref within BWD_TOL, two launches bitwise equal."""
+    x, dt, a, bm, cm = ops
+    b, s_pad, h, p = x.shape
+    n = bm.shape[-1]
     gen = torch.Generator(device=cuda).manual_seed(5)
     dy = torch.randn((b, s_pad, h, p), generator=gen, device=cuda)
     dhf = torch.randn((b, h, p, n), generator=gen, device=cuda)
@@ -820,10 +848,10 @@ def test_ssd_scan_backward_chain_matches_plain_and_repeats_bitwise(cuda, b, s, h
     torch.cuda.synchronize()
     tri = torch.ones(chunk, chunk, dtype=torch.bool, device=cuda).tril()
     names = ("dx", "ddt", "da", "dB", "dC", "G", "R", "scale_out", "scale_in", "part",
-             "da_part")
+             "da_part", "R_part")
     assert len(got) == len(want) == len(names)
     for name, u, v, w in zip(names, got, again, want):
-        if name == "R":
+        if name in ("R", "R_part"):
             u, v, w = u[..., tri], v[..., tri], w[..., tri]
         assert torch.equal(u, v), name
         assert _rel_max(u, w) <= BWD_TOL, name

@@ -31,7 +31,7 @@ from repro_torch.kernels.ssd_scan import (
     ssd_scan_ref,
 )
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_cuda, ssd_scan_cuda
-from repro_torch.kernels.ssd_scan.ref import DBC_HEAD_GROUP
+from repro_torch.kernels.ssd_scan.ref import DBC_HEAD_GROUP, DSTATE_HEAD_GROUP
 
 torch.set_float32_matmul_precision("highest")
 
@@ -43,9 +43,10 @@ NAMES = ("dx", "ddt", "da", "dB", "dC")
 SHAPES = [(2, 100, 3, 8, 16, 32, True), (1, 192, 2, 16, 128, 64, True),
           (2, 96, 2, 16, 16, 24, True), (1, 40, 3, 8, 32, 64, True),
           (2, 64, 2, 8, 16, 16, False)]
-#: Shapes whose H is no multiple of DBC_HEAD_GROUP (chunk_dbc's last head
-#: group ragged): hymba-1.5b's H = 50 and N = 16, H = 20, and H = 17 at a
-#: ragged S with unit-normal inputs (exponents deep into fp32's range).
+#: Shapes whose H is no multiple of DBC_HEAD_GROUP or DSTATE_HEAD_GROUP
+#: (chunk_dbc's and chunk_dstate's last head group ragged): hymba-1.5b's H =
+#: 50 and N = 16, H = 20, and H = 17 at a ragged S with unit-normal inputs
+#: (exponents deep into fp32's range).
 GROUP_SHAPES = [(1, 64, 50, 8, 16, 32, True), (2, 48, 20, 4, 16, 16, True),
                 (1, 70, 17, 4, 32, 32, False)]
 
@@ -129,21 +130,28 @@ def test_bwd_ref_matches_jax_vjp_of_the_reference(shape):
 
 
 def test_bwd_phases_ref_workspaces():
-    """G is dh_final in the last chunk; R is zero above the diagonal and its
-    diagonal is Σ_h dt_t dy_t·x_t; CBᵀ above the diagonal is never read."""
+    """G is dh_final in the last chunk; R and its head-group partials are
+    zero above the diagonal, R's diagonal is Σ_h dt_t dy_t·x_t and each
+    partial's that sum over its group's heads; CBᵀ above the diagonal is
+    never read."""
     b, s, h, p, n, q = 1, 96, 2, 8, 16, 32
     ops, dy, dhf = _inputs(5, b, s, h, p, n, True)
     t = [torch.from_numpy(v) for v in ops]
     _, _, cum, g, h_in = ssd_scan_phases_ref(*t, q)
     out = ssd_scan_bwd_phases_ref(*t, torch.from_numpy(dy), torch.from_numpy(dhf), cum, g, h_in, q)
-    gst, r = out[5], out[6]
+    gst, r, r_part = out[5], out[6], out[11]
     assert gst.shape == (b, s // q, h, p, n) and r.shape == (b, s // q, q, q)
+    assert r_part.shape == (b, s // q, -(-h // DSTATE_HEAD_GROUP), q, q)
     assert torch.equal(gst[:, -1], torch.from_numpy(dhf))
     assert torch.equal(r.triu(1), torch.zeros_like(r))
-    # R's diagonal: Σ_h dt_t dy_t·x_t (L_tt = 1).
+    assert torch.equal(r_part.triu(1), torch.zeros_like(r_part))
+    # R's diagonal: Σ_h dt_t dy_t·x_t (L_tt = 1); a partial's, over its heads.
     xt, dyt = torch.from_numpy(ops[0]), torch.from_numpy(dy)
-    diag = (torch.from_numpy(ops[1]) * (xt * dyt).sum(-1)).sum(-1).reshape(b, s // q, q)
-    torch.testing.assert_close(torch.diagonal(r, dim1=-2, dim2=-1), diag, rtol=1e-5, atol=1e-6)
+    per_head = (torch.from_numpy(ops[1]) * (xt * dyt).sum(-1)).reshape(b, s // q, q, h)
+    torch.testing.assert_close(torch.diagonal(r, dim1=-2, dim2=-1), per_head.sum(-1), rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(torch.diagonal(r_part[:, :, 0], dim1=-2, dim2=-1),
+                               per_head[..., :DSTATE_HEAD_GROUP].sum(-1), rtol=1e-5, atol=1e-6)
     # G above the diagonal is never read (the forward chain leaves it
     # unspecified): NaN there changes nothing.
     g_nan = g.masked_fill(~torch.ones(q, q, dtype=torch.bool).tril(), float("nan"))
@@ -215,6 +223,39 @@ def test_bwd_group_partials_sum_to_the_whole_einsum(shape):
     assert _rel(part[:, :, 0, -1].numpy(), last_db) <= 1e-5
     # da: the chunks' partials summed over (b, c).
     np.testing.assert_allclose(out[2].numpy(), f64(out[10]).sum((0, 1)), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:1] + GROUP_SHAPES, ids=str)
+def test_bwd_r_partials_sum_to_the_whole_einsum(shape):
+    """chunk_dstate's partials of R: group g the heads [16g, 16g + 16) (the
+    last group ragged). Summed over the groups in order they are the chain's
+    R (bitwise: the plain version defines it so), and within 1e-5 of the
+    largest |value| of R over every head at once in fp64 (fp32 rounding of
+    a few partial sums); the last group's partial is its heads' sum alone."""
+    b, s, h, p, n, q, model_like = shape
+    ops, dy, dhf = _inputs(sum(shape[:6]) + 4, b, s, h, p, n, model_like)
+    t, dyp, (cum, _, _), out = _padded_phases(ops, dy, dhf, q)
+    sp = t[0].shape[1]
+    nc, groups = sp // q, -(-h // DSTATE_HEAD_GROUP)
+    r_part = out[11]
+    assert r_part.shape == (b, nc, groups, q, q)
+    ordered = r_part[:, :, 0]
+    for g in range(1, groups):
+        ordered = ordered + r_part[:, :, g]
+    assert torch.equal(ordered, out[6])
+    f64 = lambda v: v.numpy().astype(np.float64)
+    xc, dyc = f64(t[0]).reshape(b, nc, q, h, p), f64(dyp).reshape(b, nc, q, h, p)
+    dtc = f64(t[1]).reshape(b, nc, q, h)
+    cc = cum.numpy().reshape(b, h, nc, q).transpose(0, 2, 3, 1)          # (B,NC,Q,H) fp64
+    tri = np.tril(np.ones((q, q), bool))[None, None, :, :, None]
+    seg = np.where(tri, cc[:, :, :, None, :] - cc[:, :, None, :, :], -np.inf)
+    lm = np.exp(seg.astype(np.float32).astype(np.float64)) * np.einsum(
+        "bcthp,bcshp->bctsh", dyc, xc)
+    whole = np.einsum("bctsh,bcsh->bcts", lm, dtc)
+    assert _rel(ordered.numpy(), whole) <= 1e-5
+    g0 = (groups - 1) * DSTATE_HEAD_GROUP
+    last = np.einsum("bctsh,bcsh->bcts", lm[..., g0:], dtc[..., g0:])
+    assert _rel(r_part[:, :, -1].numpy(), last) <= 1e-5
 
 
 @pytest.mark.parametrize("shape", SHAPES[:2], ids=str)
