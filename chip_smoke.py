@@ -210,7 +210,8 @@ Phases, each printing one line or more; any failure exits non-zero:
              both serving classes executing); then ``python -m
              repro_torch.benchmarks.run --record build/bench_torch.json``
              with REPRO_BENCH_RUNS=100: exit 0, a CSV line with positive µs
-             per call from every ported bench, the three SKIPPED lines, the
+             per call from every ported bench (shard_bench's two lines with
+             bitwise=True among them), the two SKIPPED lines, the
              record labelled torch_full.
 19. train — training on the card (``repro_torch.train``, slice 8a): (a) the
              ``ssd_scan`` backward chain (``csrc/ssd_scan_bwd.cu``, five
@@ -241,7 +242,31 @@ Phases, each printing one line or more; any failure exits non-zero:
              25 as subprocesses, each exiting 0 after one restart; the same
              smoke run in process with and without the failure: final
              params bitwise equal, or within TRAIN_REPLAY_RTOL.
-20. results — one JSON line of per-kernel numbers, then the device line.
+20. substrate — the substrate on one card (``repro_torch.distributed``):
+             (a) ``shard_bench``'s paper scenario (facebook_4dc, T = 48,
+             GMSA) at 1000 runs, one chunk against eight, bitwise, both
+             walls; (b) full fleet_256 ``simulate_many`` through
+             ``make_kernel_policy(None)`` at R = 1000 with ``runs_mesh(1)``,
+             ``runs_mesh(8)`` and ``runs_mesh(7)`` (padded): every output
+             bitwise across the three, ``gmsa_score`` launches 288 x chunks,
+             wall and peak memory of each call; (c) phase 12's staged fleet
+             (K = 8, S = 3, seed 17) through ``stage_oblivious(
+             make_kernel_policy(None), pin_map=True)`` at R = 1000 in 10
+             chunks against 8, then at R = 100 with the degraded-link bill
+             (``link_health`` as phase 13 draws it) in 25 chunks of 4 runs
+             against 20 of 5, and ``link_health=None`` against all-ones:
+             bitwise each, launches 288 x chunks, walls, peak memory; (d)
+             full-width qwen2-0.5b on a two-pod mesh, 4 x 2048 tokens a step,
+             two microbatches, full remat: three steps at ``grad_sync=
+             "native"`` and three at ``"int8"`` from the same params, losses
+             finite, step 1 within 1e-6, steps 2-3 within 1e-2 of the native
+             loss, the largest param difference after one step, step walls,
+             the int8 sync's device time, peak memory; (e)
+             ``make_prefill_step`` / ``make_decode_step`` on qwen2-0.5b at full
+             width, 4 x 2048 prompts: prefill logits bitwise
+             ``make_local_exec``'s, decode at ``kv_shard="heads"`` bitwise
+             ``"seq"``.
+21. results — one JSON line of per-kernel numbers, then the device line.
 
 Numbers are measured on whatever card runs this; the bound uses the H100
 SXM's published peaks (3.35 TB/s, 67 TFLOP/s fp32) at its 700 W limit.
@@ -458,8 +483,8 @@ ENTRY_EXAMPLES = ("quickstart", "staged_jobs", "adaptive_placement", "serve_geo"
 ENTRY_BENCH_RUNS = 100
 ENTRY_BENCHES = {"fig5": "fig5", "fig6": "fig6", "sim_bench": "sim_",
                  "placement_bench": "placement_", "jobs_bench": "jobs_",
-                 "serve_bench": "torch_serve_"}
-ENTRY_SKIPPED = ("kernel_bench", "shard_bench", "roofline")
+                 "serve_bench": "torch_serve_", "shard_bench": "shard_"}
+ENTRY_SKIPPED = ("kernel_bench", "roofline")
 ENTRY_RECORD = "build/bench_torch.json"
 #: Phase 19, training. (a) The ssd_scan backward chain against its plain
 #: versions, (B, S, H, P, N, chunk): the smoke model's shape (unit-normal
@@ -514,6 +539,47 @@ TRAIN_SMOKE_ARGS = ("--arch", MAMBA_ARCH, "--variant", "smoke", "--steps", "40",
                     "--seq", "128", "--ckpt-every", "10")
 TRAIN_SMOKE_FAIL_AT = 25
 TRAIN_REPLAY_RTOL = 1e-5
+
+#: Phase 20, the substrate on one card: the Monte-Carlo runs axis in chunks
+#: (repro_torch.distributed.mesh), the int8 pod-axis gradient sync in the
+#: train step and the sharded serving steps at world size 1. (a)
+#: shard_bench's paper scenario (facebook_4dc, T = 48, GMSA) at SUB_RUNS
+#: runs, one chunk against SUB_SHARD_CHUNKS; (b) fleet_256 simulate_many
+#: through the kernel policy at SUB_RUNS runs in each of SUB_FLEET_CHUNKS
+#: (7 does not divide 1000: padded); (c) phase 12's staged fleet at
+#: SUB_RUNS runs in each of SUB_STAGED_CHUNKS, then at SUB_DEGRADED_RUNS
+#: with the degraded-link bill in each of SUB_DEGRADED_CHUNKS (4 and 5 runs
+#: a chunk); every chunk count bitwise the first's, on every output.
+SUB_RUNS = 1000
+SUB_SHARD_CHUNKS = 8
+SUB_FLEET_CHUNKS = (1, 8, 7)
+SUB_STAGED_CHUNKS = (10, 8)
+SUB_DEGRADED_RUNS = 100
+SUB_DEGRADED_CHUNKS = (25, 20)
+#: (d) full-width qwen2-0.5b on a ("pod",) mesh of two pods, TRAIN_BATCH
+#: tokens a step in TRAIN_MICROBATCHES microbatches, full remat, the
+#: reference's AdamW defaults (a run's first steps: lr warming up to 3e-4
+#: over 100 steps), from the same params under grad_sync "native" and
+#: "int8": SUB_POD_STEPS steps each. The sync comes after the loss, so the
+#: step-1 losses differ only by the order of the means (each pod's rows
+#: first under int8): within SUB_POD_STEP1_RTOL (the reference's
+#: tests/test_distributed.py holds the step-1 loss to 1e-3 absolute on its
+#: smoke model). Later steps train on int8-synced gradients: within
+#: SUB_POD_LOSS_RTOL of the native loss. Each pod's row is half a leaf under
+#: one absmax scale, so most entries of an early gradient round to 0 and do
+#: not move, where AdamW's first steps move every entry by about lr: on the
+#: H100 the gap was 2.56e-3 of the loss at step 3 (1e-3 was asked for and
+#: not met), about lr times the summed size of the entries that rounded to
+#: 0. The CPU tests hold the int8 step to the reference's own
+#: (tests/test_torch_distributed.py).
+SUB_POD_ARCH = "qwen2-0.5b"
+SUB_POD_STEPS = 3
+SUB_POD_STEP1_RTOL = 1e-6
+SUB_POD_LOSS_RTOL = 1e-2
+#: (e) make_prefill_step / make_decode_step at full width on SUB_SERVE_BATCH
+#: prompts: prefill logits bitwise make_local_exec's, decode "heads" bitwise
+#: "seq".
+SUB_SERVE_BATCH = (4, 2048)
 
 
 def log(msg: str) -> None:
@@ -3886,6 +3952,275 @@ def phase_entry_points(dev, smi, device_args=(), example_runs=None,
     return out
 
 
+def tree_diff(got, want, prefix="") -> list[str]:
+    """The leaves of two like-structured output trees (named tuples,
+    tuples, dicts of tensors) that are not bitwise equal."""
+    import torch
+
+    if isinstance(want, torch.Tensor):
+        same = got.shape == want.shape and torch.equal(got, want)
+        return [] if same else [prefix or "."]
+    if isinstance(want, dict):
+        return [d for k in want for d in tree_diff(got[k], want[k], f"{prefix}.{k}")]
+    names = getattr(want, "_fields", range(len(want)))
+    return [d for name, a, b in zip(names, got, want) for d in tree_diff(a, b, f"{prefix}.{name}")]
+
+
+def chunked_call(call, chunks: int) -> dict:
+    """``call(runs_mesh(chunks))`` with the launch counts set to 0 before
+    and read after, its wall, and its peak device memory above what was
+    held before it."""
+    import torch
+
+    from repro_torch.distributed.mesh import runs_mesh
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = call(runs_mesh(chunks))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"outs": outs, "wall_s": wall, "counts": read_counts(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "above_gib": (torch.cuda.max_memory_allocated() - mem0) / 2**30}
+
+
+def chunked_arms(label: str, smi: str, call, chunk_counts, runs: int, t_slots: int) -> dict:
+    """``call`` at each chunk count: gmsa_score launched t_slots x chunks
+    times each, every output finite and bitwise the first count's; each
+    call's wall and peak memory printed. Returns {chunks: launches}."""
+    import torch
+
+    first, launches = None, {}
+    for n in chunk_counts:
+        rec = chunked_call(call, n)
+        outs = rec["outs"]
+        launches[n] = rec["counts"]["gmsa_score"]
+        per = -(-runs // n)
+        log(f"[substrate] {label}, R = {runs} in {n} chunks of {per} runs"
+            f"{' (padded)' if per * n != runs else ''}: launches {rec['counts']}; {smi} | wall "
+            f"{rec['wall_s'] * 1e3:.1f} ms, peak device memory {rec['peak_gib']:.2f} GiB "
+            f"({rec['above_gib']:.2f} GiB above what was held before the call)")
+        if launches[n] != t_slots * n:
+            fail(f"substrate: {label}: gmsa_score launched {launches[n]} times in {n} chunks, "
+                 f"expected {t_slots * n}")
+        flat = outs if not isinstance(outs, tuple) or hasattr(outs, "_fields") else outs[0]
+        for name, x in flat._asdict().items():
+            if not bool(torch.isfinite(x).all()):
+                fail(f"substrate: {label}: non-finite {name} in {n} chunks")
+        if first is None:
+            first = (n, outs)
+            continue
+        diff = tree_diff(outs, first[1])
+        log(f"[substrate] {label}: {n} chunks against {first[0]}: "
+            f"{'every output bitwise equal' if not diff else f'differ in {diff}'}")
+        if diff:
+            fail(f"substrate: {label}: {n} chunks differ from {first[0]} in {diff}")
+        del outs
+    del first
+    torch.cuda.empty_cache()
+    return launches
+
+
+def int8_sync_ms(params, efb, n_pods: int) -> float:
+    """Device time of the int8 pod sync alone on one step's gradients
+    (random, params-shaped): each pod's error-feedback add and quantization
+    of every leaf, then every leaf's exchange and owned sums, as the train
+    step runs them; CUDA events around one warm call."""
+    import torch
+
+    from repro_torch.distributed.compression import quantize_pod, reduce_pods
+    from repro_torch.train.optimizer import leaves
+
+    flat_p, flat_e = leaves(params), leaves(efb)
+    grads = [torch.randn_like(p, dtype=torch.float32) for p in flat_p]
+
+    def sync():
+        sent = [[quantize_pod(g + e[pod], n_pods)[:2] for pod in range(n_pods)]
+                for g, e in zip(grads, flat_e)]
+        return [reduce_pods(torch.stack([x[0] for x in rows]), torch.stack([x[1] for x in rows]),
+                            p.shape, torch.float32) for rows, p in zip(sent, flat_p)]
+
+    sync()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    sync()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_substrate(dev, smi, cfg=None, runs: int = SUB_RUNS,
+                    degraded_runs: int = SUB_DEGRADED_RUNS, shard_runs: int = SUB_RUNS,
+                    variant: str = "full", pod_batch=TRAIN_BATCH,
+                    serve_batch=SUB_SERVE_BATCH) -> dict:
+    """Phase 20 (see the module docstring); the arguments cut it down for a
+    rehearsal on the CPU with the phase 14 stubs."""
+    import torch
+
+    from repro_torch.benchmarks import shard_bench
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.fleet_256 import FleetConfig, make_fleet_builder
+    from repro_torch.core.gmsa import make_kernel_policy
+    from repro_torch.core.simulator import simulate_many
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.jobs import simulate_staged_many, stage_oblivious
+    from repro_torch.launch.train import token_batch
+    from repro_torch.models.lm import init_params
+    from repro_torch.serve.step import make_decode_step, make_local_exec, make_prefill_step
+    from repro_torch.traces.bandwidth import link_fault_trace
+    from repro_torch.traces.faults import health_trace
+    from repro_torch.traces.tokens import SyntheticTokenStream, TokenPipelineConfig, lm_inputs
+    from repro_torch.train import AdamWConfig, TrainStepConfig, adamw_init, make_train_step
+    from repro_torch.train.optimizer import leaves, tree_map
+
+    out = {}
+    # (a) shard_bench on the card.
+    t0 = time.perf_counter()
+    res = shard_bench.run(shard_runs, SUB_SHARD_CHUNKS, dev)
+    us1, usn = res["us"][1], res["us"][SUB_SHARD_CHUNKS]
+    log(f"[substrate] shard_bench facebook_4dc T = {shard_bench.SHARD_SLOTS}, {shard_runs} runs, "
+        f"GMSA: 1 chunk {us1 * shard_runs / 1e3:.1f} ms a call ({us1:.1f} us per run), "
+        f"{SUB_SHARD_CHUNKS} chunks {usn * shard_runs / 1e3:.1f} ms ({usn:.1f} us per run), "
+        f"ratio {us1 / usn:.2f}x (not gated: one card); bitwise {res['bitwise']}; {smi}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        shard_bench.verify(res)
+    except AssertionError as exc:
+        fail(f"substrate: shard_bench: {exc}")
+
+    # (b) fleet_256 simulate_many through the kernel at R = 1000.
+    cfg = cfg or FleetConfig()
+    _, build = make_fleet_builder(cfg, device=dev)
+    gen = lambda: torch.Generator(device=dev).manual_seed(7)
+    policy = make_kernel_policy(None)
+    out["launches_fleet"] = chunked_arms(
+        "fleet_256 simulate_many, make_kernel_policy(None)", smi,
+        lambda mesh: simulate_many(build, policy, gen(), runs, cfg.v, device=dev, mesh=mesh),
+        SUB_FLEET_CHUNKS, runs, cfg.t_slots)
+
+    # (c) the staged fleet, then its degraded-link bill.
+    sbuild, dag, wan = staged_fleet(cfg, dev)
+    arm = stage_oblivious(make_kernel_policy(None), pin_map=True)
+    staged = lambda r, **kw: (lambda mesh: simulate_staged_many(
+        sbuild, dag, wan, arm, gen(), r, cfg.v, device=dev, mesh=mesh, **kw))
+    out["launches_staged"] = chunked_arms(
+        f"staged fleet (K = {cfg.k_types}, S = {dag.s_max})", smi, staged(runs),
+        SUB_STAGED_CHUNKS, runs, cfg.t_slots)
+    hgen = torch.Generator(device=dev).manual_seed(PLACED_DEGRADED_SEED)
+    health_trace(hgen, cfg.t_slots, cfg.n_sites, death_prob=0.05, device=dev)
+    link = link_fault_trace(hgen, cfg.t_slots, cfg.n_sites, sever_frac=0.0, device=dev)
+    plans_gb = degraded_runs * cfg.t_slots * dag.s_max * cfg.k_types * cfg.n_sites ** 2 * 4 / 1e9
+    log(f"[substrate] degraded-link bill: {float((link < 1).float().mean()):.4f} of link-slots "
+        f"degraded; its (..., K, N, N) plans would take {plans_gb:.0f} GB in one call of "
+        f"{degraded_runs} runs, {plans_gb / degraded_runs:.2f} GB a run")
+    out["launches_degraded"] = chunked_arms(
+        "staged fleet with the degraded-link bill", smi, staged(degraded_runs, link_health=link),
+        SUB_DEGRADED_CHUNKS, degraded_runs, cfg.t_slots)
+    ones = chunked_call(staged(degraded_runs, link_health=torch.ones_like(link)),
+                        SUB_DEGRADED_CHUNKS[0])
+    none = chunked_call(staged(degraded_runs), SUB_DEGRADED_CHUNKS[0])
+    diff = tree_diff(ones["outs"], none["outs"])
+    log(f"[substrate] all-ones link_health against None, {SUB_DEGRADED_CHUNKS[0]} chunks: "
+        f"{'every output bitwise equal' if not diff else f'differ in {diff}'}; walls "
+        f"{ones['wall_s'] * 1e3:.1f} / {none['wall_s'] * 1e3:.1f} ms, peaks "
+        f"{ones['peak_gib']:.2f} / {none['peak_gib']:.2f} GiB; {smi}")
+    if diff:
+        fail(f"substrate: all-ones link_health differs from None in {diff}")
+    del ones, none
+    torch.cuda.empty_cache()
+
+    # (d) the pod train step: native against int8 from the same params.
+    pcfg = get_arch(SUB_POD_ARCH, variant)
+    b, s = pod_batch
+    ocfg = AdamWConfig()          # the reference's defaults: a run's first steps, in warm-up
+    mesh = Mesh((2,), ("pod",))
+    params0 = init_params(pcfg, torch.Generator(device=dev).manual_seed(0), torch.float32, dev)
+    pipe = SyntheticTokenStream(TokenPipelineConfig(vocab_size=pcfg.vocab_size, seq_len=s + 1,
+                                                    global_batch=b, seed=0))
+    batches = [token_batch(lm_inputs(pipe.batch(i)), dev) for i in range(SUB_POD_STEPS)]
+    pod = {}
+    for sync in ("native", "int8"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = tree_map(lambda t: t.clone(), params0)
+        opt = adamw_init(params)
+        step, init_efb = make_train_step(pcfg, TrainStepConfig(
+            microbatches=TRAIN_MICROBATCHES, remat=TRAIN_REMAT, grad_sync=sync, optimizer=ocfg),
+            device=dev, mesh=mesh)
+        efb = init_efb(params)
+        rec = {"losses": [], "walls": []}
+        for i in range(SUB_POD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met, efb = step(params, opt, batches[i], efb)
+            torch.cuda.synchronize()
+            rec["walls"].append(time.perf_counter() - t0)
+            rec["losses"].append(float(met["loss"]))
+            if i == 0:
+                rec["after1"] = [t.detach().clone() for t in leaves(params)]
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if sync == "int8":
+            rec["sync_ms"] = int8_sync_ms(params, efb, 2)
+        pod[sync] = rec
+        del params, opt, efb, step
+    nat, q8 = pod["native"], pod["int8"]
+    dmax = max(float((a - c).abs().max()) for a, c in zip(nat.pop("after1"), q8.pop("after1")))
+    for sync, rec in pod.items():
+        log(f"[substrate] {SUB_POD_ARCH} ({variant}) on a 2-pod mesh, grad_sync={sync}: losses "
+            f"{', '.join(f'{x:.6f}' for x in rec['losses'])}; {smi} | step walls "
+            f"{', '.join(f'{w:.3f}' for w in rec['walls'])} s, peak device memory "
+            f"{rec['peak_gib']:.2f} GiB"
+            + (f", the int8 sync alone {rec['sync_ms']:.2f} ms of device time" if "sync_ms" in rec
+               else ""))
+    step1 = abs(q8["losses"][0] - nat["losses"][0]) / abs(nat["losses"][0])
+    later = max(abs(a - c) / abs(c) for a, c in zip(q8["losses"][1:], nat["losses"][1:]))
+    log(f"[substrate] pod step: step-1 losses differ by {step1:.2e} of the native loss (tol "
+        f"{SUB_POD_STEP1_RTOL:g}), steps 2-{SUB_POD_STEPS} by at most {later:.2e} (tol "
+        f"{SUB_POD_LOSS_RTOL:g}); the largest param difference after one step {dmax:.3e}")
+    if not all(math.isfinite(x) for r in pod.values() for x in r["losses"]):
+        fail(f"substrate: pod step: non-finite loss {pod}")
+    if step1 > SUB_POD_STEP1_RTOL or later > SUB_POD_LOSS_RTOL:
+        fail(f"substrate: pod step: int8 losses {q8['losses']} against native {nat['losses']}")
+    out["pod"] = pod
+    del batches
+    torch.cuda.empty_cache()
+
+    # (e) the sharded serving steps at world size 1.
+    b, s = serve_batch
+    tok = torch.randint(0, pcfg.vocab_size, (b, s), generator=torch.Generator(device=dev)
+                        .manual_seed(5), device=dev)
+    one = Mesh((1, 1), ("data", "model"))
+    prefill, _, _ = make_prefill_step(pcfg, one, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params0, tokens=tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    local, _ = make_local_exec(pcfg, 16, device=dev)
+    local_logits, _ = local(params0, tok)
+    same = torch.equal(logits, local_logits)
+    nxt = logits.argmax(-1)
+    dec = {kv: make_decode_step(pcfg, one, kv_shard=kv, device=dev)[0](params0, cache, nxt)
+           for kv in ("heads", "seq")}
+    diff = tree_diff(dec["seq"], dec["heads"])
+    log(f"[substrate] make_prefill_step {SUB_POD_ARCH} ({variant}) {b} x {s}: {wall * 1e3:.1f} ms, "
+        f"logits finite {bool(torch.isfinite(logits).all())}, bitwise make_local_exec's: {same} "
+        f"(only the cache differs: bf16 and as long as the prompt against fp32 with 16 more "
+        f"slots); make_decode_step kv_shard heads against seq: "
+        f"{'logits and cache bitwise equal' if not diff else f'differ in {diff}'}; {smi}")
+    if not (same and bool(torch.isfinite(logits).all())) or diff:
+        fail("substrate: the sharded serving steps differ from the local path")
+    del params0, cache, dec, logits, local_logits
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -3922,6 +4257,9 @@ def main() -> int:
     ssd_bwd = phase_ssd_bwd(dev)
     train = phase_train(dev, smi)
     log(f"[train] phase 19 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    substrate = phase_substrate(dev, smi)
+    log(f"[substrate] phase 20 took {time.perf_counter() - t0:.1f} s")
 
     entry = {
         "name": "gmsa_score",
@@ -3941,6 +4279,9 @@ def main() -> int:
         "launches_frontends": front["hubert-xlarge"]["counts"]["gmsa_score"]
         + front["internvl2-76b"]["counts"]["gmsa_score"],
         "launches_serve_frontend": front["serve"]["counts"]["gmsa_score"],
+        "launches_chunked_fleet": substrate["launches_fleet"],
+        "launches_chunked_staged": substrate["launches_staged"],
+        "launches_chunked_degraded": substrate["launches_degraded"],
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],

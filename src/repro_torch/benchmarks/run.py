@@ -31,6 +31,7 @@ from repro_torch.benchmarks import (
     jobs_bench,
     placement_bench,
     serve_bench,
+    shard_bench,
     sim_bench,
 )
 from repro_torch.configs.facebook_4dc_stages import StagedPaperConfig
@@ -55,12 +56,13 @@ BENCHES = {
     "jobs_bench": lambda dev: _verified(
         jobs_bench, jobs_bench.run(min(common.N_RUNS, StagedPaperConfig().n_runs), dev)),
     "serve_bench": lambda dev: serve_bench.main(["--device", str(dev)]),
+    "shard_bench": lambda dev: _verified(
+        shard_bench, shard_bench.run(min(shard_bench.SHARD_RUNS, common.N_RUNS), 8, dev)),
 }
 
 #: The JAX package's benches the port does not run, with the reason.
 SKIPPED = {
     "kernel_bench": "not to port: chip_smoke.py phases 3 and 7 measure the ported kernels",
-    "shard_bench": "waits for the distributed slice (ROADMAP.md slice 8)",
     "roofline": "waits for the dry-run and roofline slice (ROADMAP.md slice 8)",
 }
 

@@ -44,7 +44,9 @@ import torch
 from torch import Tensor
 
 from repro_torch.core.queues import queue_step
+from repro_torch.core.reduce import run_sum
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import runs_parts, sharded_runs, take_runs
 from repro_torch.telemetry.config import TelemetryConfig
 from repro_torch.telemetry.config import enabled as _tel_enabled
 from repro_torch.telemetry.config import histograms as _tel_hist
@@ -100,9 +102,15 @@ def energy_tables(r: Tensor, wpue: Tensor, pue: Tensor, p_it: Tensor) -> tuple[T
 
 def energy_row(r: Tensor, wpue_t: Tensor, pue_t: Tensor, p_it: Tensor) -> tuple[Tensor, Tensor]:
     """(K, N) dispatch-cost and raw-energy tables for ONE slot; a
-    (..., K, N, N) ``r`` with leading run dimensions gives (..., K, N)."""
-    e_cost = torch.einsum("...kij,j->...ki", r, wpue_t)
-    e_raw = torch.einsum("...kij,j->...ki", r, pue_t)
+    (..., K, N, N) ``r`` with leading run dimensions gives (..., K, N), as
+    products summed by :func:`repro_torch.core.reduce.run_sum` (a batched
+    matmul's kernel may change with the number of runs)."""
+    if r.ndim > 3:
+        e_cost = run_sum(r * wpue_t, -1)
+        e_raw = run_sum(r * pue_t, -1)
+    else:
+        e_cost = torch.einsum("...kij,j->...ki", r, wpue_t)
+        e_raw = torch.einsum("...kij,j->...ki", r, pue_t)
     return e_cost * p_it[:, None], e_raw * p_it[:, None]
 
 
@@ -115,13 +123,16 @@ def slot_step(
     the per-slot columns behind :class:`SimOutputs`. Leading run dimensions
     on q, f, arrivals and mu carry through; e_cost/e_raw are (K, N), or
     carry the run dimensions too (the placement controller's per-run rows).
+    The per-run sums are :func:`repro_torch.core.reduce.run_sum`'s, the same
+    bits whatever the number of runs in the call.
     """
     fa = f * arrivals.unsqueeze(-2)
     dims = (-2, -1)
-    cost = (fa * e_cost.mT).sum(dim=dims)
-    energy = (fa * e_raw.mT).sum(dim=dims)
+    cost = run_sum(fa * e_cost.mT, dims)
+    energy = run_sum(fa * e_raw.mT, dims)
     q_next = queue_step(q, f, arrivals, mu)
-    return q_next, (cost, energy, q_next.sum(dim=dims), q_next.mean(dim=dims), f)
+    total = run_sum(q_next, dims)
+    return q_next, (cost, energy, total, total / float(q.shape[-2] * q.shape[-1]), f)
 
 
 def _check_policy(policy: PolicyFn, r_varying: bool) -> None:
@@ -161,6 +172,43 @@ def _stacked_ring(batch: tuple[int, ...], dev, capacity: int = 1) -> EventRing:
                        for x in ring_init(capacity, device=dev)))
 
 
+def _with_health(inputs: SimInputs, health: Tensor | None) -> SimInputs:
+    """``inputs`` with service rates scaled by a (T, N) health trace."""
+    if health is None:
+        return inputs
+    h = torch.as_tensor(health, dtype=inputs.mu.dtype, device=inputs.mu.device)
+    return inputs._replace(mu=inputs.mu * h[:, :, None])
+
+
+def _policy_aux(inputs: SimInputs, policy: PolicyFn, wpue_all: Tensor | None, t: int | None):
+    """The policy's aux for slot ``t`` (``None``: every slot, slot axis
+    leading): ``data_dist``, ``(data_dist, wpue)`` for ``wants_wpue``, and
+    the ratio tensor appended for ``wants_r``."""
+    if t is None or inputs.data_dist.ndim != 3:
+        aux = inputs.data_dist
+    else:
+        aux = inputs.data_dist[t]
+    if wpue_all is not None:
+        aux = (aux, wpue_all if t is None else wpue_all[t])
+    if getattr(policy, "wants_r", False):
+        aux = aux + (inputs.r if (t is None or inputs.r.ndim != 4) else inputs.r[t],)
+    return aux
+
+
+def _all_slot_decisions(inputs: SimInputs, policy: PolicyFn, gen, scalar: Tensor,
+                        e_cost_all: Tensor, wpue_all: Tensor | None) -> Tensor:
+    """A state-independent policy's decisions for every slot and run in one
+    call: per-slot operands keep their slot axis, the zero backlog gets a
+    broadcastable one. Returns them expanded to (batch..., T, N, K)."""
+    t_slots, k_types = inputs.arrivals.shape[-2:]
+    batch = tuple(inputs.arrivals.shape[:-2])
+    n = inputs.mu.shape[-2]
+    q0 = torch.zeros(batch + (1, n, k_types), dtype=torch.float32, device=inputs.arrivals.device)
+    f_all = policy(gen, q0, inputs.arrivals, inputs.mu, e_cost_all,
+                   _policy_aux(inputs, policy, wpue_all, None), scalar)
+    return f_all.expand(batch + (t_slots, n, k_types))
+
+
 def simulate(
     inputs: SimInputs,
     policy: PolicyFn,
@@ -185,9 +233,7 @@ def simulate(
     engine records no events in its loop).
     """
     tel_on = _tel_enabled(telemetry)
-    if health is not None:
-        h = torch.as_tensor(health, dtype=inputs.mu.dtype, device=inputs.mu.device)
-        inputs = inputs._replace(mu=inputs.mu * h[:, :, None])
+    inputs = _with_health(inputs, health)
     t_slots, k_types = inputs.arrivals.shape[-2:]
     batch = tuple(inputs.arrivals.shape[:-2])                  # (), (R,) or (V, R)
     n = inputs.mu.shape[-2]
@@ -198,40 +244,21 @@ def simulate(
     )                                                          # (T, K, N)
     scalar = _scalar_for(scalar, batch, dev)
 
-    dd_varying = inputs.data_dist.ndim == 3
-    r_varying = inputs.r.ndim == 4
-    _check_policy(policy, r_varying)
-    wants_wpue = getattr(policy, "wants_wpue", False)
-    wants_r = getattr(policy, "wants_r", False)
+    _check_policy(policy, inputs.r.ndim == 4)
     gen = generator if getattr(policy, "consumes_key", True) else None
-    wpue_all = inputs.omega * inputs.pue if wants_wpue else None
-
-    def aux_for(t):
-        """Policy aux for slot ``t`` (``None``: every slot, slot axis leading)."""
-        if t is None:
-            aux = inputs.data_dist
-        else:
-            aux = inputs.data_dist[t] if dd_varying else inputs.data_dist
-        if wants_wpue:
-            aux = (aux, wpue_all if t is None else wpue_all[t])
-        if wants_r:
-            aux = aux + (inputs.r if (t is None or not r_varying) else inputs.r[t],)
-        return aux
+    wpue_all = inputs.omega * inputs.pue if getattr(policy, "wants_wpue", False) else None
 
     f_all = None
     if getattr(policy, "state_independent", False):
-        # All slots (and runs) at once: per-slot operands keep their slot
-        # axis, q0 gets a broadcastable one.
-        f_all = policy(gen, q.unsqueeze(-3), inputs.arrivals, inputs.mu,
-                       e_cost_all, aux_for(None), scalar)
-        f_all = f_all.expand(batch + (t_slots, n, k_types))
+        f_all = _all_slot_decisions(inputs, policy, gen, scalar, e_cost_all, wpue_all)
 
     cols = []
     for t in range(t_slots):
         arrivals = inputs.arrivals[..., t, :]
         mu = inputs.mu[..., t, :, :]
         if f_all is None:
-            f = policy(gen, q, arrivals, mu, e_cost_all[t], aux_for(t), scalar)
+            f = policy(gen, q, arrivals, mu, e_cost_all[t], _policy_aux(inputs, policy, wpue_all, t),
+                       scalar)
         else:
             f = f_all[..., t, :, :]
         q, out = slot_step(q, f, arrivals, mu, e_cost_all[t], e_raw_all[t])
@@ -260,7 +287,13 @@ def build_runs(
     device=None,
 ) -> SimInputs:
     """``build_inputs(generator, n_runs)``, checked to run on ``device``
-    (``None``: CUDA): the generator and the built tensors must live there."""
+    (``None``: CUDA): the generator and the built tensors must live there.
+
+    The per-run traces are returned contiguous, each run's slots one block
+    (a builder may draw them in another order): the order in which every
+    operation downstream walks a run's elements, and so each reduction's
+    sum order, is then the same whatever the number of runs in a call or
+    chunk (:mod:`repro_torch.distributed.mesh`)."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator lives on {generator.device}, not {dev}")
@@ -269,7 +302,92 @@ def build_runs(
         raise ValueError(
             f"build_inputs made tensors on {inputs.arrivals.device}, not {dev}"
         )
-    return inputs
+    return inputs._replace(arrivals=inputs.arrivals.contiguous(), mu=inputs.mu.contiguous())
+
+
+def take_runs_inputs(inputs: SimInputs, sel: Tensor | None) -> SimInputs:
+    """The runs ``sel`` of a bundle built with a leading runs axis
+    (``arrivals`` (R, T, K), ``mu`` (R, T, N, K)); the shared traces stay
+    as they are. ``sel=None``: the bundle itself."""
+    if sel is None:
+        return inputs
+    if inputs.arrivals.ndim != 3:
+        raise ValueError("chunking the runs axis needs a bundle with one leading runs axis, "
+                         f"got arrivals of shape {tuple(inputs.arrivals.shape)}")
+    return inputs._replace(arrivals=take_runs(inputs.arrivals, sel),
+                           mu=take_runs(inputs.mu, sel))
+
+
+def take_runs_scalar(x, sel: Tensor | None, n_runs: int):
+    """A per-run control parameter's runs ``sel``: a tensor whose leading
+    axis is the runs axis (``n_runs`` > 1 long) is sliced; anything else
+    (a number, a 0-d tensor, a broadcast axis) is shared."""
+    if isinstance(x, Tensor) and x.ndim and x.shape[0] == n_runs > 1:
+        return take_runs(x, sel)
+    return x
+
+
+def refuse_generator_in_chunks(policy: PolicyFn, mesh, where: str) -> None:
+    """Raise when ``policy`` would draw from the generator inside a chunked
+    call: its draws would have each chunk's shape, not the whole batch's,
+    and the runs would differ from the unchunked call's."""
+    if runs_parts(mesh) > 1 and getattr(policy, "consumes_key", True):
+        raise ValueError(
+            f"{where} with a runs mesh of {runs_parts(mesh)} parts: the policy consumes the "
+            "generator, and drawing per chunk would give other runs than the unchunked call. "
+            "Run it without a mesh."
+        )
+
+
+def _replayed(f_all: Tensor) -> PolicyFn:
+    """A state-independent policy answering with decisions already drawn."""
+
+    def policy(generator, q, arrivals, mu, e, aux, scalar):
+        del generator, q, arrivals, mu, e, aux, scalar
+        return f_all
+
+    policy.state_independent = True
+    policy.consumes_key = False
+    return policy
+
+
+def simulate_runs(
+    inputs: SimInputs,
+    policy: PolicyFn,
+    generator: torch.Generator | None = None,
+    scalar: float | Tensor = 0.0,
+    health: Tensor | None = None,
+    telemetry: TelemetryConfig | None = None,
+    mesh=None,
+) -> SimOutputs | tuple[SimOutputs, TelemetryFrame]:
+    """:func:`simulate` on a bundle with a leading runs axis, the runs in
+    ``mesh``'s chunks (:func:`repro_torch.distributed.mesh.sharded_runs`;
+    ``None``: one call), bitwise the unchunked call's outputs.
+
+    A state-independent policy that consumes the generator (RANDOM) is
+    evaluated once on the whole batch, as without a mesh, and each chunk
+    replays its runs' decisions; a state-dependent one raises.
+    """
+    n_runs = inputs.arrivals.shape[0]
+    chunked = runs_parts(mesh) > 1
+    if chunked and getattr(policy, "consumes_key", True):
+        if not getattr(policy, "state_independent", False):
+            refuse_generator_in_chunks(policy, mesh, "simulate_runs")
+        whole = _with_health(inputs, health)
+        dev = whole.arrivals.device
+        wpue_all = whole.omega * whole.pue if getattr(policy, "wants_wpue", False) else None
+        e_cost_all, _ = energy_tables(whole.r, whole.omega * whole.pue, whole.pue, whole.p_it)
+        f_all = _all_slot_decisions(
+            whole, policy, generator,
+            _scalar_for(scalar, tuple(whole.arrivals.shape[:-2]), dev), e_cost_all, wpue_all)
+        del whole, e_cost_all
+        chunk_policy = lambda sel: _replayed(take_runs(f_all, sel))
+    else:
+        chunk_policy = lambda sel: policy
+    return sharded_runs(
+        lambda sel: simulate(take_runs_inputs(inputs, sel), chunk_policy(sel), generator,
+                             take_runs_scalar(scalar, sel, n_runs), health, telemetry),
+        n_runs, mesh)
 
 
 def simulate_many(
@@ -281,6 +399,7 @@ def simulate_many(
     health: Tensor | None = None,
     device=None,
     telemetry: TelemetryConfig | None = None,
+    mesh=None,
 ) -> SimOutputs | tuple[SimOutputs, TelemetryFrame]:
     """Monte-Carlo replication: fresh stochastic traces + policy randomness
     per run, all runs in one batched simulation.
@@ -290,9 +409,14 @@ def simulate_many(
     ``health``, when given) are shared. ``device=None`` means CUDA; the
     generator and the built inputs must live on that device. ``telemetry``
     as in :func:`simulate`: the frame's tensors carry the runs axis.
+
+    ``mesh`` (:func:`repro_torch.distributed.mesh.runs_mesh`) runs the runs
+    axis in chunks, one after another on the device, after one draw of the
+    traces for every run (:func:`simulate_runs`): the outputs are bitwise
+    identical at every chunk count, padded counts included.
     """
     inputs = build_runs(build_inputs, generator, n_runs, device)
-    return simulate(inputs, policy, generator, scalar, health, telemetry)
+    return simulate_runs(inputs, policy, generator, scalar, health, telemetry, mesh)
 
 
 def summarize(outs: SimOutputs) -> dict:

@@ -39,7 +39,10 @@ from repro_torch.core.simulator import (
     SimOutputs,
     build_runs,
     simulate,
+    simulate_runs,
+    take_runs_inputs,
 )
+from repro_torch.distributed.mesh import sharded_runs
 
 
 def simulate_sweep(
@@ -47,10 +50,13 @@ def simulate_sweep(
     policy: PolicyFn,
     generator: torch.Generator | None,
     scalars,
+    mesh=None,
 ) -> SimOutputs:
     """Run one trace bundle (with or without a runs axis) under ``policy``
     at every scalar in ``scalars``, all lanes in one slot loop. Outputs
-    carry a leading ``(len(scalars),)`` axis."""
+    carry a leading ``(len(scalars),)`` axis. ``mesh`` runs a bundle's
+    leading runs axis in chunks (:func:`repro_torch.core.simulator.simulate_runs`),
+    bitwise the unchunked lanes."""
     dev = inputs.arrivals.device
     scalars = torch.as_tensor(scalars, dtype=torch.float32, device=dev)
     if scalars.ndim != 1:
@@ -60,7 +66,7 @@ def simulate_sweep(
     if getattr(policy, "state_independent", False):
         # The scalar reaches neither the decisions nor the queues: one
         # simulation, the same outputs in every lane.
-        outs = simulate(inputs, policy, generator, scalars[0])
+        outs = simulate_runs(inputs, policy, generator, scalars[0], mesh=mesh)
         return SimOutputs(*(lanes(x) for x in outs))
     if getattr(policy, "consumes_key", True):
         raise ValueError(
@@ -70,8 +76,13 @@ def simulate_sweep(
             "Run it per point with simulate_many instead."
         )
     batch = tuple(inputs.arrivals.shape[:-2])
-    grid = inputs._replace(arrivals=lanes(inputs.arrivals), mu=lanes(inputs.mu))
-    return simulate(grid, policy, None, scalars.reshape((n_points,) + (1,) * len(batch)))
+
+    def one(sel):
+        part = take_runs_inputs(inputs, sel)
+        grid = part._replace(arrivals=lanes(part.arrivals), mu=lanes(part.mu))
+        return simulate(grid, policy, None, scalars.reshape((n_points,) + (1,) * len(batch)))
+
+    return sharded_runs(one, batch[0] if batch else 1, mesh, axis=1)
 
 
 def sweep_grid(
@@ -81,6 +92,7 @@ def sweep_grid(
     n_runs: int,
     scalars,
     device=None,
+    mesh=None,
 ) -> SimOutputs:
     """A full Monte-Carlo sweep at every scalar: ``build_inputs(generator,
     n_runs)`` once, then :func:`simulate_sweep` on the built bundle.
@@ -88,10 +100,11 @@ def sweep_grid(
     Every scalar lane sees the same per-run traces, as ``simulate_many``
     per point with a generator seeded alike would. ``device=None`` means
     CUDA; the generator and the built inputs must live on that device.
-    Outputs: leading ``(len(scalars), n_runs)``.
+    ``mesh`` runs the runs axis in chunks after the one draw, bitwise the
+    unchunked call. Outputs: leading ``(len(scalars), n_runs)``.
     """
     inputs = build_runs(build_inputs, generator, n_runs, device)
-    return simulate_sweep(inputs, policy, generator, scalars)
+    return simulate_sweep(inputs, policy, generator, scalars, mesh)
 
 
 def sweep_placed_budgets(
@@ -109,6 +122,7 @@ def sweep_placed_budgets(
     sizes_gb: Tensor | None = None,
     alive: Tensor | None = None,
     device=None,
+    mesh=None,
 ):
     """One-loop move-budget sweep of the two-timescale controller.
 
@@ -120,8 +134,9 @@ def sweep_placed_budgets(
     drawn once and expanded over the budgets (paired lanes, as in
     :func:`sweep_grid`). A policy that consumes the generator would draw one
     stream for all lanes where per-budget calls draw one each, so it
-    raises. Outputs: ``PlacedOutputs`` with leading ``(len(budgets),
-    n_runs)``.
+    raises. ``mesh`` runs the runs axis in chunks after the one draw,
+    bitwise the unchunked call. Outputs: ``PlacedOutputs`` with leading
+    ``(len(budgets), n_runs)``.
     """
     from repro_torch.placement.controller import simulate_placed
 
@@ -140,9 +155,14 @@ def sweep_placed_budgets(
     n_b = budgets.shape[0]
     lanes = lambda x: x.expand((n_b,) + tuple(x.shape))
     batch = tuple(inputs.arrivals.shape[:-2])
-    grid = inputs._replace(arrivals=lanes(inputs.arrivals), mu=lanes(inputs.mu))
-    return simulate_placed(
-        grid, up, down, policy, rule, None, cfg, scalar=scalar, ingest=ingest,
-        sizes_gb=sizes_gb, alive=alive,
-        move_budget=budgets.reshape((n_b,) + (1,) * len(batch)),
-    )
+
+    def one(sel):
+        part = take_runs_inputs(inputs, sel)
+        grid = part._replace(arrivals=lanes(part.arrivals), mu=lanes(part.mu))
+        return simulate_placed(
+            grid, up, down, policy, rule, None, cfg, scalar=scalar, ingest=ingest,
+            sizes_gb=sizes_gb, alive=alive,
+            move_budget=budgets.reshape((n_b,) + (1,) * len(batch)),
+        )
+
+    return sharded_runs(one, n_runs, mesh, axis=1)

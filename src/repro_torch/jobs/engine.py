@@ -37,6 +37,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch import Tensor
 
+from repro_torch.core.reduce import run_sum
 from repro_torch.core.simulator import (
     PolicyFn,
     SimInputs,
@@ -44,7 +45,11 @@ from repro_torch.core.simulator import (
     _stacked_ring,
     build_runs,
     energy_tables,
+    refuse_generator_in_chunks,
+    take_runs_inputs,
+    take_runs_scalar,
 )
+from repro_torch.distributed.mesh import sharded_runs
 from repro_torch.jobs.dag import StageDag
 from repro_torch.jobs.scheduler import stage_oblivious, stage_service_rates_all
 from repro_torch.placement.wan import WanModel, degraded_surcharge, plan_cost
@@ -123,7 +128,7 @@ def staged_slot_update(
             accs.append(acc_s)
             if s + 1 < s_max:
                 done_s = torch.minimum(acc_s, mu_stages[..., s])
-                total_in = done_s.sum(dim=-2) * dag.stage_mask[:, s + 1]
+                total_in = run_sum(done_s, -2) * dag.stage_mask[:, s + 1]
         acc = torch.stack(accs, dim=-1)                            # (..., N, K, S)
         in_stack = torch.stack(ins, dim=-1)                        # (..., K, S)
 
@@ -169,7 +174,7 @@ def staged_shuffle_mixes(
         src_all = dd0                                              # (..., T, 1, K, N)
     else:
         done_up = _skn(done_all[..., :-1])                         # (..., T, S-1, K, N)
-        td_up = done_all[..., :-1].sum(dim=-3).mT[..., None]       # (..., T, S-1, K, 1)
+        td_up = run_sum(done_all[..., :-1], -3).mT[..., None]      # (..., T, S-1, K, 1)
         src_up = torch.where(td_up > _EPS, done_up / torch.clamp_min(td_up, _EPS), 1.0 / n)
         src_all = torch.cat([dd0, src_up], dim=-3)
     dst_all = _skn(f_trace)                                        # (..., T, S, K, N)
@@ -435,7 +440,9 @@ def simulate_staged(
     done_all = torch.minimum(acc_all, mu_eff_all)                  # (..., T, N, K, S)
     td_all = done_all.sum(dim=-3)                                  # (..., T, K, S)
     nxt = torch.cat([dag.stage_mask[:, 1:], torch.zeros_like(dag.stage_mask[:, :1])], dim=1)
-    completed = torch.einsum("...ks,ks->...k", td_all, dag.stage_mask - nxt)
+    # Products summed over s, not an einsum: a batched matmul's kernel may
+    # change with the number of runs, and with it the sum order.
+    completed = (td_all * (dag.stage_mask - nxt)).sum(dim=-1)
     del td_all
 
     dd_all = (
@@ -501,6 +508,7 @@ def simulate_staged_many(
     health: Tensor | None = None,
     link_health: Tensor | None = None,
     device=None,
+    mesh=None,
 ) -> StagedOutputs | tuple[StagedOutputs, TelemetryFrame]:
     """Monte-Carlo replication of :func:`simulate_staged`: fresh stochastic
     traces + policy randomness per run, all runs in one batched simulation.
@@ -510,10 +518,19 @@ def simulate_staged_many(
     WAN model — and the degraded-mode health/link traces, when given) are
     shared. ``device=None`` means CUDA; the generator and the built inputs
     must live there. Telemetry frames carry the runs axis.
+
+    ``mesh`` (:func:`repro_torch.distributed.mesh.runs_mesh`) runs the runs
+    axis in chunks after the one draw, bitwise the unchunked call; it also
+    bounds the memory a call holds, the degraded-link bill's (..., K, N, N)
+    plans included. A policy that consumes the generator raises there.
     """
     inputs = build_runs(build_inputs, generator, n_runs, device)
-    return simulate_staged(inputs, dag, wan, policy, generator, scalar, telemetry,
-                           health, link_health)
+    refuse_generator_in_chunks(policy, mesh, "simulate_staged_many")
+    return sharded_runs(
+        lambda sel: simulate_staged(take_runs_inputs(inputs, sel), dag, wan, policy, generator,
+                                    take_runs_scalar(scalar, sel, n_runs), telemetry, health,
+                                    link_health),
+        n_runs, mesh)
 
 
 def summarize_staged(outs: StagedOutputs) -> dict:

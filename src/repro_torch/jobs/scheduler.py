@@ -42,6 +42,7 @@ from torch import Tensor
 
 from repro_torch.core.baselines import _one_hot_nk
 from repro_torch.core.gmsa import drift_plus_penalty_scores
+from repro_torch.core.reduce import run_sum
 from repro_torch.jobs.dag import StageDag
 from repro_torch.placement.wan import WanModel, expected_pull
 
@@ -85,7 +86,7 @@ def flow_step(q_s: Tensor, f_s: Tensor, total_in: Tensor, mu_s: Tensor) -> tuple
     """
     n = q_s.shape[-2]
     done = torch.minimum(q_s + f_s * total_in.unsqueeze(-2), mu_s)    # (..., N, K)
-    total_done = done.sum(dim=-2)                                      # (..., K)
+    total_done = run_sum(done, -2)                                     # (..., K)
     tot = total_done[..., None]
     src = torch.where(tot > _EPS, done.mT / torch.clamp_min(tot, _EPS), 1.0 / n)
     return total_done, src

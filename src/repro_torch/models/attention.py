@@ -16,8 +16,6 @@ Masks come from absolute positions: causal, bidirectional (encoder) and
 sliding-window, in every path. Keys at a position below ``_PAD_LIMIT`` are
 padding and excluded by every mask mode. Query head ``h`` reads KV head
 ``h // groups`` (``_repeat_kv``'s order, the JAX package's).
-
-The JAX package's ``seq_sharded`` decode (a mesh feature) is not ported.
 """
 
 from __future__ import annotations
@@ -135,9 +133,14 @@ def _attend_blockwise_inner(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_po
 
 
 def attend_decode(q: Tensor, k_cache: Tensor, v_cache: Tensor, q_pos: Tensor,
-                  cache_pos: Tensor, window: int = 0) -> Tensor:
+                  cache_pos: Tensor, window: int = 0, seq_sharded: bool = False) -> Tensor:
     """Single-token attention against a KV cache, grouped-query form (the KV
     heads are never repeated).
+
+    ``seq_sharded``: the reference pins the scores' and probabilities' cache
+    dim to a mesh's model axis there (split-KV decode). That is a layout
+    constraint only; on one device it changes nothing, and the same
+    attention is computed either way.
 
     Args:
         q: (B, 1, H, d) query for the new token.

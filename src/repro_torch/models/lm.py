@@ -632,7 +632,8 @@ def _bits(x: Tensor) -> Tensor:
 
 
 def _attn_decode(lp: Params, h: Tensor, cfg: ModelConfig, k_cache: Tensor, v_cache: Tensor,
-                 pos: Tensor, sin: Tensor, cos: Tensor, uniform_pos: bool) -> Tensor:
+                 pos: Tensor, sin: Tensor, cos: Tensor, uniform_pos: bool,
+                 seq_sharded: bool = False) -> Tensor:
     """One attention layer's decode step. Writes the new token's K/V into
     its ring slot of ``k_cache``/``v_cache`` (this layer's (B, sc, Hkv, hd)
     views, updated in place) and returns the layer's output (B, 1, D)."""
@@ -650,7 +651,7 @@ def _attn_decode(lp: Params, h: Tensor, cfg: ModelConfig, k_cache: Tensor, v_cac
         else:
             dst[torch.arange(b, device=pos.device), torch.remainder(pos.long(), sc)] = src[:, 0]
     out = attend_decode(q, k_cache, v_cache, pos, _ring_positions(pos + 1, sc),
-                        window=cfg.sliding_window)
+                        window=cfg.sliding_window, seq_sharded=seq_sharded)
     return out.reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim) @ lp["wo"]
 
 
@@ -683,15 +684,23 @@ def _ssm_decode(lp: Params, h: Tensor, cfg: ModelConfig, conv_state: Tensor,
     return y @ lp["ssm_out"], state, conv_state
 
 
+KV_SHARDS = ("heads", "seq")
+
+
 def decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: Tensor,
-                uniform_pos: bool = True) -> tuple[Tensor, Params]:
+                uniform_pos: bool = True, kv_shard: str = "heads") -> tuple[Tensor, Params]:
     """One serving step: (B, 1) new tokens -> (B, 1, Vp) fp32 logits + a new
     cache (the old one is not modified).
 
     ``uniform_pos``: every row is at the same position (``pos[0]``), so the
     new K/V go to one ring slot for the whole batch; ``False`` writes one
-    slot per row (ragged batches).
+    slot per row (ragged batches). ``kv_shard``: the KV cache's layout over
+    a mesh's model axis, "heads" or "seq" (split-KV decode); on one device
+    both compute the same thing (:func:`repro_torch.models.attention
+    .attend_decode`'s ``seq_sharded``).
     """
+    if kv_shard not in KV_SHARDS:
+        raise ValueError(f"kv_shard must be one of {KV_SHARDS}, got {kv_shard!r}")
     pos = cache["pos"]                                     # (B,)
     h = params["embed"][tokens]                            # (B,1,D)
     new: Params = {}
@@ -704,7 +713,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: Tensor,
         lp = _layer(params, i)
         if cfg.has_attention:
             attn_out = _attn_decode(lp, h, cfg, new["k"][i], new["v"][i], pos, sin, cos,
-                                    uniform_pos)
+                                    uniform_pos, kv_shard == "seq")
         if cfg.has_ssm:
             ssm_out, state, conv_state = _ssm_decode(lp, h, cfg, cache["conv_state"][i],
                                                      cache["ssm_state"][i])

@@ -20,8 +20,12 @@ package's expert products are ``jnp.einsum`` outside any Pallas kernel):
 Buffers are built and read by gathers only (no scatter into a buffer, so
 no out-of-range index to drop): a buffer slot (e, b, c) is filled iff
 ``c < counts[b, e]``, from the pair at sorted position ``offsets[b, e] + c``.
-The mesh path (``shard_map`` over batch and model axes) comes with the
-distributed slice.
+
+The reference picks a ``shard_map`` branch over the batch and model axes
+from the ambient mesh (``get_abstract_mesh``); with those axes of size 1,
+or no mesh, it takes ``_moe_local``, the path computed here. The port runs
+at world size 1 and has no ambient mesh, so ``moe_ffn`` takes no mesh
+argument and is that path on every call.
 """
 
 from __future__ import annotations

@@ -50,9 +50,13 @@ from repro_torch.core.simulator import (
     _stacked_ring,
     build_runs,
     energy_row,
+    refuse_generator_in_chunks,
     slot_step,
+    take_runs_inputs,
+    take_runs_scalar,
 )
 from repro_torch.device import as_float32
+from repro_torch.distributed.mesh import sharded_runs
 from repro_torch.placement.replica import replica_read_assignment
 from repro_torch.placement.replica import sync_cost as replica_sync_cost
 from repro_torch.placement.wan import (
@@ -214,15 +218,31 @@ def _per_run_r(r: Tensor, batch: tuple[int, ...]) -> Tensor:
     return r
 
 
+def _per_run_matmul(r: Tensor, w: Tensor) -> Tensor:
+    """``Σ_j r[..., k, i, j] · w[t, j]`` -> (..., T, K, N) for a ratio tensor
+    with leading run dimensions, as one batched product per run (``bmm``):
+    each run's arithmetic is then the same whatever the number of runs,
+    where an einsum folds the runs into one matmul whose kernel, and sum
+    order, may change with it."""
+    lead, (k, n) = r.shape[:-3], r.shape[-3:-1]
+    rr = r.reshape(-1, k * n, n)
+    out = torch.bmm(rr, w.mT.expand(rr.shape[0], n, w.shape[0]))
+    return out.reshape(lead + (k, n, w.shape[0])).movedim(-1, -3)
+
+
 def epoch_energy_tables(
     r: Tensor, wpue: Tensor, pue: Tensor, p_it: Tensor
 ) -> tuple[Tensor, Tensor]:
     """(..., W, K, N) dispatch-cost and raw-energy tables of one epoch's W
     slots: ``r`` is the shared (K, N, N) ratio tensor or one per run,
-    (..., K, N, N); ``wpue`` / ``pue`` are (W, N). On a shared r these are
-    the simulator's ``energy_tables``, bitwise."""
-    e_cost = torch.einsum("...kij,tj->...tki", r, wpue)
-    e_raw = torch.einsum("...kij,tj->...tki", r, pue)
+    (..., K, N, N) (:func:`_per_run_matmul`);
+    ``wpue`` / ``pue`` are (W, N). On a shared r these are the simulator's
+    ``energy_tables``, bitwise."""
+    if r.ndim > 3:
+        e_cost, e_raw = _per_run_matmul(r, wpue), _per_run_matmul(r, pue)
+    else:
+        e_cost = torch.einsum("...kij,tj->...tki", r, wpue)
+        e_raw = torch.einsum("...kij,tj->...tki", r, pue)
     return e_cost * p_it[:, None], e_raw * p_it[:, None]
 
 
@@ -671,6 +691,7 @@ def simulate_placed_many(
     link_health: Tensor | None = None,
     regions: Tensor | None = None,
     device=None,
+    mesh=None,
 ) -> PlacedOutputs | tuple[PlacedOutputs, TelemetryFrame]:
     """Monte-Carlo replication of :func:`simulate_placed`: fresh stochastic
     traces + policy randomness per run, all runs in one batched controller.
@@ -681,14 +702,23 @@ def simulate_placed_many(
     ``device=None`` means CUDA; the generator and the built inputs must
     live on that device. With telemetry the frame's tensors carry the runs
     axis: index one run before decoding it.
+
+    ``mesh`` (:func:`repro_torch.distributed.mesh.runs_mesh`) runs the runs
+    axis in chunks after the one draw, bitwise the unchunked call. A policy
+    that consumes the generator raises there: the controller draws its
+    decisions epoch by epoch, after a recovery slot by slot, each draw
+    shaped by the batch.
     """
     inputs = build_runs(build_inputs, generator, n_runs, device)
-    return simulate_placed(
-        inputs, up, down, policy, rule, generator, cfg,
-        scalar=scalar, ingest=ingest, sizes_gb=sizes_gb, alive=alive,
-        move_budget=move_budget, telemetry=telemetry, health=health,
-        link_health=link_health, regions=regions,
-    )
+    refuse_generator_in_chunks(policy, mesh, "simulate_placed_many")
+    return sharded_runs(
+        lambda sel: simulate_placed(
+            take_runs_inputs(inputs, sel), up, down, policy, rule, generator, cfg,
+            scalar=take_runs_scalar(scalar, sel, n_runs), ingest=ingest, sizes_gb=sizes_gb,
+            alive=alive, move_budget=take_runs_scalar(move_budget, sel, n_runs),
+            telemetry=telemetry, health=health, link_health=link_health, regions=regions,
+        ),
+        n_runs, mesh)
 
 
 def summarize_placed(outs: PlacedOutputs) -> dict:

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
+from repro_torch.core.reduce import run_sum
 from repro_torch.device import as_float32
 
 #: WAN transfer energy per GB moved, in per-job IT-energy equivalents.
@@ -157,8 +158,12 @@ def evacuation_plan(
 
 def _matvec(x: Tensor, w: Tensor) -> Tensor:
     """``x @ w`` over the last axis with batch broadcasting:
-    (..., K, N) against (..., N) -> (..., K)."""
-    return torch.matmul(x, w[..., None])[..., 0]
+    (..., K, N) against (..., N) -> (..., K), as elementwise products summed
+    by :func:`repro_torch.core.reduce.run_sum`: each row's sum order is then
+    the same whatever the number of rows, where a matmul's kernel (and its
+    order) may change with it, so runs in chunks stay bitwise the unchunked
+    call."""
+    return run_sum(x * w[..., None, :], -1)
 
 
 def plan_cost(

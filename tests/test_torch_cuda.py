@@ -64,6 +64,8 @@ from repro_torch.telemetry import (
     cross_check,
 )
 from repro_torch.traces.stages import staged_mix_profile
+from repro_torch.distributed import compressed_psum_pod, runs_mesh, sync_tree
+from repro_torch.train.optimizer import leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -902,3 +904,78 @@ def test_mamba2_smoke_train_step_on_the_card_matches_the_cpu(cuda):
     for name in p_c["blocks"]:
         got, want = p_g["blocks"][name].cpu(), p_c["blocks"][name]
         assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max()), name
+
+
+def _tree_equal(got, want, what=""):
+    """Every tensor leaf of two like-structured output trees bitwise equal."""
+    if isinstance(want, torch.Tensor):
+        assert got.shape == want.shape and torch.equal(got, want), what
+    elif isinstance(want, dict):
+        for k in want:
+            _tree_equal(got[k], want[k], f"{what}.{k}")
+    else:
+        for name, a, b in zip(getattr(want, "_fields", range(len(want))), got, want):
+            _tree_equal(a, b, f"{what}.{name}")
+
+
+@pytest.mark.parametrize("chunks", [2, 3, 7, 21])
+def test_chunked_simulate_many_is_bitwise_on_the_card(cuda, chunks):
+    """simulate_many through the kernel policy, with histogram telemetry, at
+    R = 20 in ``chunks`` chunks (10, 7, 3 and 1 runs a chunk, the last two
+    padded) against one call: every output and telemetry leaf bitwise;
+    T launches per chunk."""
+    cfg = dataclasses.replace(FleetConfig(), n_sites=64, k_types=8, t_slots=48)
+    _, build = make_fleet_builder(cfg, device=cuda)
+    tel = TelemetryConfig(level=SUMMARY, hist=HistogramSpec())
+    run = lambda mesh: simulate_many(build, make_kernel_policy(None),
+                                     torch.Generator(device=cuda).manual_seed(2), 20, cfg.v,
+                                     telemetry=tel, mesh=mesh)
+    want = run(None)
+    before = gmsa_score_cuda.launches
+    got = run(runs_mesh(chunks))
+    torch.cuda.synchronize()
+    assert gmsa_score_cuda.launches == before + cfg.t_slots * chunks
+    _tree_equal(got, want, f"chunks={chunks}")
+
+
+@pytest.mark.parametrize("chunks", [3, 13])
+def test_chunked_staged_and_placed_are_bitwise_on_the_card(cuda, chunks):
+    """The staged fleet with the degraded-link bill and the placement
+    controller through the kernel policy (a site loss, per-run r after the
+    first boundary), R = 12 in ``chunks`` chunks against one call: every
+    output bitwise."""
+    cfg, build, dag, wan = _staged_fleet(cuda)
+    link = torch.ones(cfg.t_slots, cfg.n_sites, cfg.n_sites, device=cuda)
+    link[::3, 1, 2], link[1::4, 5, 0] = 0.5, 0.25
+    run = lambda mesh: simulate_staged_many(
+        build, dag, wan, stage_oblivious(make_kernel_policy(None), pin_map=True),
+        torch.Generator(device=cuda).manual_seed(6), 12, cfg.v, link_health=link, mesh=mesh)
+    _tree_equal(run(runs_mesh(chunks)), run(None), f"staged chunks={chunks}")
+    cfg, build, up, down, pcfg, ingest, alive = _small_placed(cuda)
+    rule = make_adaptive_rule(up)
+    run = lambda mesh: simulate_placed_many(
+        build, up, down, make_kernel_policy(None), rule,
+        torch.Generator(device=cuda).manual_seed(3), 12, pcfg, scalar=cfg.v, ingest=ingest,
+        alive=alive, mesh=mesh)
+    _tree_equal(run(runs_mesh(chunks)), run(None), f"placed chunks={chunks}")
+
+
+def test_compressed_psum_pod_on_cuda_matches_the_cpu(cuda):
+    """The int8 pod sum and sync_tree on the card against the same calls on
+    the CPU: bitwise (elementwise operations, and the owned sum added in pod
+    order on both), leaves whose sizes the pod count does not divide."""
+    gen = torch.Generator().manual_seed(0)
+    for n_pods in (2, 4):
+        grads = {"a": torch.randn(n_pods, 33, 7, generator=gen),
+                 "b": {"c": torch.randn(n_pods, 1001, generator=gen)}}
+        efb = {"a": 0.01 * torch.randn(n_pods, 33, 7, generator=gen),
+               "b": {"c": 0.01 * torch.randn(n_pods, 1001, generator=gen)}}
+        to = lambda tree: {k: (to(v) if isinstance(v, dict) else v.to(cuda))
+                           for k, v in tree.items()}
+        for got, want in zip(sync_tree(to(grads), n_pods, to(efb)),
+                             sync_tree(grads, n_pods, efb)):
+            for a, b in zip(leaves(got), leaves(want)):
+                assert torch.equal(a.cpu(), b), n_pods
+        total, resid = compressed_psum_pod(grads["a"].to(cuda), n_pods)
+        total_c, resid_c = compressed_psum_pod(grads["a"], n_pods)
+        assert torch.equal(total.cpu(), total_c) and torch.equal(resid.cpu(), resid_c)

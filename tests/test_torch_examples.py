@@ -18,8 +18,10 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import pytest
+import torch
 
 from repro_torch.benchmarks import common
 from repro_torch.benchmarks import run as orchestrator
@@ -107,7 +109,7 @@ def test_orchestrator_csv_contract_failures_skips_and_record(tmp_path, capsys):
     assert out[1:3] == ["good_bench,12.5,dev=cpu;k=1", "bad,-1,FAILED"]
     skipped = [line.split(",", 2) for line in out if ",-1,SKIPPED" in line]
     assert [s[0] for s in skipped] == list(orchestrator.SKIPPED) == \
-           ["kernel_bench", "shard_bench", "roofline"]
+           ["kernel_bench", "roofline"]
     assert all(s[2].startswith("SKIPPED ") and "," not in s[2] for s in skipped)
     history = json.loads(record.read_text())
     assert [h["label"] for h in history] == ["torch_partial"]
@@ -123,6 +125,15 @@ def test_orchestrator_csv_contract_failures_skips_and_record(tmp_path, capsys):
     assert (ROOT / "BENCH_sim.json").read_bytes() == bench_sim
     orchestrator.main(["--device", "cpu"], benches={"good": benches["good"]})
     assert len(json.loads(record.read_text())) == 2          # no --record: nothing written
+    # shard_bench runs under the orchestrator: its two CSV lines, bitwise.
+    capsys.readouterr()
+    shard = orchestrator.BENCHES["shard_bench"]
+    with mock.patch.object(common, "N_RUNS", 12):
+        lines = shard(torch.device("cpu"))
+    assert [r["name"] for r in lines] == ["shard_simulate_many_12runs_dev1",
+                                          "shard_simulate_many_12runs_dev8"]
+    assert lines[1]["derived"]["chunks"] == 8.0 and lines[1]["derived"]["bitwise"] == "True"
+    assert len(capsys.readouterr().out.strip().splitlines()) == 2
 
 
 def test_orchestrator_runs_a_real_bench_and_covers_the_reference_list(capsys):

@@ -41,6 +41,7 @@ from repro.train import optimizer as jopt
 from repro.train import step as jstep
 from repro_torch import configs as TC
 from repro_torch.bridge import batch_from_numpy, lm_params_from_numpy, opt_state_from_numpy
+from repro_torch.distributed.mesh import Mesh
 from repro_torch.examples import train_lm
 from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
@@ -348,8 +349,17 @@ def test_train_step_int8_sync_is_native_on_one_device_and_refusals():
         outs.append((met["loss"], leaves(q)))
     assert torch.equal(outs[0][0], outs[1][0])
     assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
-    with pytest.raises(NotImplementedError, match="8b"):
-        make_train_step(cfg, TrainStepConfig(), device="cpu", mesh=object())
+    # A mesh runs when only its "pod" axis has more than one part; the int8
+    # pod path is held against the reference in tests/test_torch_distributed.py.
+    pod_step, pod_efb = make_train_step(cfg, TrainStepConfig(grad_sync="int8"), device="cpu",
+                                        mesh=Mesh((2, 1, 1), ("pod", "data", "model")))
+    q = {k: ({kk: vv.clone() for kk, vv in v.items()} if isinstance(v, dict) else v.clone())
+         for k, v in p.items()}
+    _, _, met, efb = pod_step(q, adamw_init(q), batch_from_numpy(raw, device="cpu"), pod_efb(q))
+    assert torch.isfinite(met["loss"]) and all(e.shape[0] == 2 for e in leaves(efb))
+    with pytest.raises(NotImplementedError, match="one card"):
+        make_train_step(cfg, TrainStepConfig(), device="cpu",
+                        mesh=Mesh((1, 2), ("data", "model")))
     with pytest.raises(NotImplementedError, match="8b"):
         make_train_step(cfg, TrainStepConfig(unroll_layers=True), device="cpu")
     with pytest.raises(ValueError, match="grad_sync"):
