@@ -211,7 +211,9 @@ Phases, each printing one line or more; any failure exits non-zero:
              repro_torch.benchmarks.run --record build/bench_torch.json``
              with REPRO_BENCH_RUNS=100: exit 0, a CSV line with positive µs
              per call from every ported bench (shard_bench's two lines with
-             bitwise=True among them), the two SKIPPED lines, the
+             bitwise=True among them; kernel_bench's seven kernel rows, each
+             agreeing with the plain version), the roofline table's line
+             over at least phase 21 (a)'s cells, no SKIPPED line, the
              record labelled torch_full.
 19. train — training on the card (``repro_torch.train``, slice 8a): (a) the
              ``ssd_scan`` backward chain (``csrc/ssd_scan_bwd.cu``, five
@@ -266,7 +268,18 @@ Phases, each printing one line or more; any failure exits non-zero:
              width, 4 x 2048 prompts: prefill logits bitwise
              ``make_local_exec``'s, decode at ``kv_shard="heads"`` bitwise
              ``"seq"``.
-21. results — one JSON line of per-kernel numbers, then the device line.
+21. dryrun — the dry-run (``repro_torch.launch.dryrun``) against the card:
+             (a) before phase 18, one meta-device pass of each cell the
+             card measures in this run, at its shape and in fp32 (full-width
+             mamba2-2.7b and qwen2-0.5b training 4 x 2048 with phase 19's
+             microbatches and remat; their 4 x 2048 prefills, phases 8 and
+             15): FLOPs, bytes, argument and peak bytes, the H100
+             data-sheet roofline, each artifact written where the
+             orchestrator's roofline bench reads it, no kernel launched; (b)
+             after phase 20, every bound at or below the card's fastest
+             wall of that cell, the train cells' dry-run peaks within 15% of
+             ``max_memory_allocated``, each share of the roofline printed.
+22. results — one JSON line of per-kernel numbers, then the device line.
 
 Numbers are measured on whatever card runs this; the bound uses the H100
 SXM's published peaks (3.35 TB/s, 67 TFLOP/s fp32) at its 700 W limit.
@@ -483,8 +496,17 @@ ENTRY_EXAMPLES = ("quickstart", "staged_jobs", "adaptive_placement", "serve_geo"
 ENTRY_BENCH_RUNS = 100
 ENTRY_BENCHES = {"fig5": "fig5", "fig6": "fig6", "sim_bench": "sim_",
                  "placement_bench": "placement_", "jobs_bench": "jobs_",
+                 "kernel_bench": ("gmsa_dispatch_", "gmsa_matrix_", "fleet256_e2e_",
+                                  "ssd_chunked_", "ssd_matrix_"),
                  "serve_bench": "torch_serve_", "shard_bench": "shard_"}
-ENTRY_SKIPPED = ("kernel_bench", "roofline")
+#: kernel_bench's rows of the kernel arm (each agreeing with the plain
+#: version before it prints): three dispatch scales, the gmsa matrix, the
+#: fleet end to end, the SSD layer and the SSD matrix.
+ENTRY_KERNEL_ROWS = 7
+#: The roofline table's line (µs 0.0 by the reference's contract: derived,
+#: not timed), held by its ``cells=``: at least phase 21 (a)'s cells.
+ENTRY_ROOFLINE = "roofline_table_baseline"
+ENTRY_SKIPPED = ()
 ENTRY_RECORD = "build/bench_torch.json"
 #: Phase 19, training. (a) The ssd_scan backward chain against its plain
 #: versions, (B, S, H, P, N, chunk): the smoke model's shape (unit-normal
@@ -580,6 +602,23 @@ SUB_POD_LOSS_RTOL = 1e-2
 #: prompts: prefill logits bitwise make_local_exec's, decode "heads" bitwise
 #: "seq".
 SUB_SERVE_BATCH = (4, 2048)
+
+#: Phase 21, the dry-run against the card (repro_torch.launch.dryrun): the
+#: cells this run measures anyway, at their own shapes, fp32 params as the
+#: card runs them, counted on the meta device: (arch, kind, (B, S), the
+#: phase that measures it). Train cells take phase 19's microbatches and
+#: remat; prefill cells the serving steps' blockwise attention.
+DRY_CELLS = ((MAMBA_ARCH, "train", TRAIN_BATCH, "19 (b)"),
+             ("qwen2-0.5b", "train", TRAIN_BATCH, "19 (c)"),
+             (MAMBA_ARCH, "prefill", (4, 2048), "8"),
+             ("qwen2-0.5b", "prefill", (4, 2048), "15 (b)"))
+#: The train cells' dry-run peak (live storage bytes on meta) against
+#: torch.cuda.max_memory_allocated(): the caching allocator rounds each
+#: block up and keeps cuBLAS's workspace, the meta count neither.
+DRY_PEAK_RTOL = 0.15
+#: Host seconds the four meta passes are given (logged against, not gated:
+#: the host's speed varies between machines).
+DRY_HOST_BUDGET_S = 90
 
 
 def log(msg: str) -> None:
@@ -1996,7 +2035,7 @@ def phase_mamba2(dev, smi):
         f"time; top: {top}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[mamba2] {smi} | peak device memory {peak:.2f} GiB")
-    return counts["ssd_scan"]
+    return counts["ssd_scan"], pre
 
 
 def phase_sweep(dev, smi, cfg=None) -> int:
@@ -3058,7 +3097,9 @@ def attention_inputs(gen, b, s, h, hkv, d, dev):
 
 
 def phase_dense(dev, smi, variant: str = "full", attn_shapes=DENSE_ATTN_SHAPES,
-                batches=DENSE_BATCHES) -> int:
+                batches=DENSE_BATCHES) -> tuple[int, dict]:
+    """Phase 15. Returns (the serving run's gmsa_score launches, each
+    model's steady prefill walls in seconds at ``batches[0]``)."""
     import torch
     import torch.nn.functional as F
 
@@ -3105,6 +3146,7 @@ def phase_dense(dev, smi, variant: str = "full", attn_shapes=DENSE_ATTN_SHAPES,
 
     # (b) each model at its published widths and depth, served as the
     # reference's FleetEngine._execute_jobs runs a batch.
+    prefill_s = {}
     for arch, n_params in DENSE_ARCHS.items():
         cfg = get_arch(arch, variant)
         if variant == "full" and count_params(cfg) != n_params:
@@ -3184,6 +3226,7 @@ def phase_dense(dev, smi, variant: str = "full", attn_shapes=DENSE_ATTN_SHAPES,
             del cache, full, dec
 
         walls = [serve(0) for _ in range(2)]
+        prefill_s[arch] = [w[1] for w in walls]
         b, s, g = batches[0]
         log(f"[dense] {smi} | {arch} prefill wall per batch ({b} x {s}, calls 2-3): "
             f"{', '.join(f'{w[1] * 1e3:.1f}' for w in walls)} ms; decode wall per token "
@@ -3268,7 +3311,7 @@ def phase_dense(dev, smi, variant: str = "full", attn_shapes=DENSE_ATTN_SHAPES,
         + " | ".join(line.strip() for line in lines[:1] + lines[-3:]))
     if launch.returncode != 0:
         fail(f"dense: the launcher failed: {launch.stdout[-2000:]} {launch.stderr[-2000:]}")
-    return x_counts["gmsa_score"]
+    return x_counts["gmsa_score"], prefill_s
 
 
 def is_gemm_kernel(name: str) -> bool:
@@ -3886,7 +3929,9 @@ def phase_entry_points(dev, smi, device_args=(), example_runs=None,
     each exiting 0 only where its claim holds; then ``python -m
     repro_torch.benchmarks.run --record build/bench_torch.json`` at
     ``bench_runs`` runs: every ported bench with a CSV line of positive µs
-    per call, the SKIPPED lines, exit 0, the record labelled torch_full.
+    per call (kernel_bench's kernel rows each), the roofline line over at
+    least phase 21 (a)'s cells, no SKIPPED line, exit 0, the record
+    labelled torch_full.
     ``device_args=("--device", "cpu")`` and small counts rehearse it on the
     CPU."""
     import re
@@ -3936,13 +3981,22 @@ def phase_entry_points(dev, smi, device_args=(), example_runs=None,
            for bench, prefix in ENTRY_BENCHES.items()}
     skipped = [name for name, _, derived in lines if derived.startswith("SKIPPED")]
     failed = [name for name, _, derived in lines if derived == "FAILED"]
+    kernel_rows = [(float(us), derived) for name, us, derived in lines
+                   if name.startswith(ENTRY_BENCHES["kernel_bench"]) and "_kernel_" in name]
+    roof = [derived for name, _, derived in lines if name == ENTRY_ROOFLINE]
+    roof_cells = int(roof[0].split("cells=")[1].split(";")[0]) if roof else 0
     history = json.loads(record.read_text()) if record.exists() else []
     n_records = len(history[-1]["benches"]) if history else 0
     log(f"[entry] python -m repro_torch.benchmarks.run (REPRO_BENCH_RUNS={bench_runs}): exit "
         f"{run.returncode} in {wall:.1f} s; CSV lines per bench "
-        f"{ {k: len(v) for k, v in ran.items()} }; skipped {skipped}; failed {failed}; record "
-        f"{ENTRY_RECORD}: {[h['label'] for h in history]}, {n_records} records")
+        f"{ {k: len(v) for k, v in ran.items()} }; kernel_bench's kernel rows "
+        f"{[us for us, _ in kernel_rows]} µs; {ENTRY_ROOFLINE} {roof}; skipped {skipped}; "
+        f"failed {failed}; record {ENTRY_RECORD}: {[h['label'] for h in history]}, "
+        f"{n_records} records")
     if not (run.returncode == 0 and not failed and all(v and max(v) > 0.0 for v in ran.values())
+            and len(kernel_rows) == ENTRY_KERNEL_ROWS
+            and all(us > 0.0 and "skipped" not in d for us, d in kernel_rows)
+            and roof_cells >= len(DRY_CELLS)
             and sorted(skipped) == sorted(ENTRY_SKIPPED)
             and [h["label"] for h in history] == ["torch_full"]
             and n_records == len(lines) - len(skipped)):
@@ -4221,6 +4275,84 @@ def phase_substrate(dev, smi, cfg=None, runs: int = SUB_RUNS,
     return out
 
 
+def phase_dryrun(smi) -> dict:
+    """Phase 21 (a), before phase 18: ``lower_cell`` for each of
+    DRY_CELLS on the meta device, fp32, each artifact written to the
+    dry-run's default directory (variant ``baseline``), where the
+    orchestrator's ``roofline`` bench reads it. The counters are set to 0
+    before and read after: a meta pass launches no kernel. Returns the
+    records by (arch, kind)."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import MESHES, artifact_path, lower_cell
+    from repro_torch.train import TrainStepConfig
+
+    recs = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    for arch, kind, (b, s), phase in DRY_CELLS:
+        shape = ShapeConfig(f"card_{kind}_{b}x{s}", kind, s, b)
+        tcfg = (TrainStepConfig(microbatches=TRAIN_MICROBATCHES, remat=TRAIN_REMAT)
+                if kind == "train" else TrainStepConfig())
+        rec = lower_cell(arch, shape, False, tcfg, param_dtype=torch.float32)
+        path = artifact_path(arch, shape.name, MESHES[False][0], "baseline")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(rec, indent=1))
+        recs[(arch, kind)] = rec
+        rl, mem = rec["roofline"], rec["memory"]
+        log(f"[dryrun] {arch} {kind} {b} x {s} ({rec['variant']}, fp32; measured in phase "
+            f"{phase}): one meta pass of {rec['aten_ops']} ATen ops in "
+            f"{rec['compile_seconds']} s; {rec['flops']:.4e} FLOPs (matmul-class), "
+            f"{rec['bytes_accessed']:.4e} bytes; arguments {mem['argument_bytes'] / 2**30:.2f} "
+            f"GiB, peak {mem['peak_bytes'] / 2**30:.2f} GiB (fits one card "
+            f"{rec['fits_one_card']}); H100 data-sheet roofline: compute {rl['compute_s']:.4f} "
+            f"s, memory {rl['memory_s']:.4f} s, bound {rl['step_time_s']:.4f} s "
+            f"({rl['dominant']}); {path.relative_to(ROOT)}")
+    host = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"[dryrun] {len(DRY_CELLS)} cells in {host:.1f} s of host time (budget "
+        f"{DRY_HOST_BUDGET_S} s); launches {counts}")
+    if any(counts.values()):
+        fail(f"dryrun: a meta pass launched a kernel: {counts}")
+    return recs
+
+
+def phase_dryrun_against_card(smi, recs: dict, measured: dict) -> None:
+    """Phase 21 (b), after phase 19: each DRY_CELLS record against what the
+    card measured in this run. ``measured``: (arch, kind) -> (steady walls
+    in seconds, peak GiB or None). The roofline's bound must not exceed the
+    fastest wall (a bound above a wall means a wrong count or constant);
+    a train cell's dry-run peak must be within DRY_PEAK_RTOL of
+    ``max_memory_allocated``."""
+    bad = []
+    for arch, kind, (b, s), phase in DRY_CELLS:
+        rec = recs[(arch, kind)]
+        walls, peak_gib = measured[(arch, kind)]
+        rl = rec["roofline"]
+        wall = min(walls)
+        line = (f"[dryrun] {smi} | {arch} {kind} {b} x {s}: bound {rl['step_time_s']:.4f} s "
+                f"({rl['dominant']}; compute {rl['compute_s']:.4f} s at 67 TFLOP/s fp32, "
+                f"memory {rl['memory_s']:.4f} s at 3.35 TB/s) against phase {phase}'s walls "
+                f"{', '.join(f'{w:.4f}' for w in walls)} s: the fastest wall reaches "
+                f"{100 * rl['step_time_s'] / wall:.1f}% of the roofline (compute alone "
+                f"{100 * rl['compute_s'] / wall:.1f}%); roofline_fraction "
+                f"{rl['roofline_fraction']:.3f}, useful_flops_ratio "
+                f"{rl['useful_flops_ratio']:.3f}")
+        if rl["step_time_s"] > wall:
+            bad.append(f"{arch} {kind}: bound {rl['step_time_s']:.4f} s above the wall {wall:.4f}")
+        if peak_gib is not None:
+            dry_gib = rec["memory"]["peak_bytes"] / 2**30
+            rel = abs(dry_gib - peak_gib) / peak_gib
+            line += (f"; peak: dry-run {dry_gib:.2f} GiB, max_memory_allocated {peak_gib:.2f} "
+                     f"GiB, {100 * rel:.1f}% apart (tol {100 * DRY_PEAK_RTOL:.0f}%)")
+            if rel > DRY_PEAK_RTOL:
+                bad.append(f"{arch} {kind}: peak {dry_gib:.2f} GiB against {peak_gib:.2f}")
+        log(line)
+    if bad:
+        fail(f"dryrun against the card: {bad}")
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -4238,18 +4370,19 @@ def main() -> int:
     launches, _ = phase_end_to_end(dev)
     phase_paper(dev)
     ssd = phase_ssd_kernel(dev)
-    ssd_launches = phase_mamba2(dev, smi)
+    ssd_launches, mamba_prefill_s = phase_mamba2(dev, smi)
     sweep_launches = phase_sweep(dev, smi)
     phase_figures(dev, smi)
     tel_launches = phase_telemetry(dev, smi)
     staged_launches = phase_staged(dev, smi)
     placed = phase_placement(dev, smi)
     serve = phase_serve(dev, smi)
-    dense_launches = phase_dense(dev, smi)
+    dense_launches, dense_prefill_s = phase_dense(dev, smi)
     moe_hybrid = phase_moe_hybrid(dev, smi)
     t0 = time.perf_counter()
     front = phase_frontends(dev, smi)
     log(f"[frontends] phase 17 took {time.perf_counter() - t0:.1f} s")
+    dry = phase_dryrun(smi)
     t0 = time.perf_counter()
     phase_entry_points(dev, smi)
     log(f"[entry] phase 18 took {time.perf_counter() - t0:.1f} s")
@@ -4260,6 +4393,12 @@ def main() -> int:
     t0 = time.perf_counter()
     substrate = phase_substrate(dev, smi)
     log(f"[substrate] phase 20 took {time.perf_counter() - t0:.1f} s")
+    phase_dryrun_against_card(smi, dry, {
+        (MAMBA_ARCH, "train"): (train[MAMBA_ARCH]["walls"], train[MAMBA_ARCH]["peak_gib"]),
+        ("qwen2-0.5b", "train"): (train["qwen2-0.5b"]["walls"], train["qwen2-0.5b"]["peak_gib"]),
+        (MAMBA_ARCH, "prefill"): (mamba_prefill_s, None),
+        ("qwen2-0.5b", "prefill"): (dense_prefill_s["qwen2-0.5b"], None),
+    })
 
     entry = {
         "name": "gmsa_score",

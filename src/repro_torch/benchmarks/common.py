@@ -1,10 +1,12 @@
-"""Shared helpers of the port's benches: the CSV stdout contract, a timer,
+"""Shared helpers of the port's benches: the CSV stdout contract, timers,
 and a record writer.
 
 Unlike the JAX package's ``benchmarks/common.py`` this module makes no
 directory and writes no file on import, never touches ``BENCH_sim.json``
-(the JAX CPU history) or ``benchmarks/artifacts/``, and writes a record
-only to a path its caller names.
+(the JAX CPU history), and writes a record only to a path its caller
+names. Under ``benchmarks/artifacts/`` (:data:`ART`) only the dry-run's
+``dryrun_torch/`` records and the roofline's ``roofline_torch_*`` tables
+are written, by those two modules.
 """
 
 from __future__ import annotations
@@ -23,12 +25,29 @@ import torch
 N_RUNS = int(os.environ.get("REPRO_BENCH_RUNS", "1000"))
 
 _REPO = pathlib.Path(__file__).resolve().parents[3]
+#: The benches' artifact directory (the JAX package's ``benchmarks/common.ART``).
+ART = _REPO / "benchmarks" / "artifacts"
 
 
 def sync(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def timed(fn, device: torch.device, warmup: int = 1, iters: int = 3):
+    """Wall-time ``fn()``, each call ending in a synchronize on CUDA:
+    ``(result, µs per call)``, the mean of ``iters`` calls after
+    ``warmup`` (the JAX package's ``benchmarks.common.timed``)."""
+    result = None
+    for _ in range(warmup):
+        result = fn()
+        sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        result = fn()
+        sync(device)
+    return result, (time.perf_counter() - t0) / iters * 1e6
 
 
 def timed_compile_sweep(thunk, n_runs: int, device: torch.device, iters: int = 4):

@@ -9,9 +9,12 @@ contract of the JAX package's ``benchmarks/run.py``).
 
 Runs on CUDA unless ``--device cpu``. A bench that raises prints
 ``name,-1,FAILED`` and the run exits non-zero after the rest; a bench the
-port does not run prints ``name,-1,SKIPPED <reason>``. ``--record PATH``
-appends every CSV record under the label ``torch_full`` (``torch_partial``
-after a failure) to PATH; nothing else is written.
+port does not run would print ``name,-1,SKIPPED <reason>`` (none is left).
+``--record PATH`` appends every CSV record under the label ``torch_full``
+(``torch_partial`` after a failure) to PATH. ``roofline`` tabulates the
+dry-run's artifacts (``python -m repro_torch.launch.dryrun`` first: without
+them it fails, as the reference's does) and writes its two tables beside
+them; no other bench writes a file.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ from repro_torch.benchmarks import (
     fig5,
     fig6,
     jobs_bench,
+    kernel_bench,
     placement_bench,
+    roofline,
     serve_bench,
     shard_bench,
     sim_bench,
@@ -55,16 +60,17 @@ BENCHES = {
         placement_bench, placement_bench.run(common.N_RUNS, dev)),
     "jobs_bench": lambda dev: _verified(
         jobs_bench, jobs_bench.run(min(common.N_RUNS, StagedPaperConfig().n_runs), dev)),
+    "kernel_bench": lambda dev: kernel_bench.run(dev),
     "serve_bench": lambda dev: serve_bench.main(["--device", str(dev)]),
     "shard_bench": lambda dev: _verified(
         shard_bench, shard_bench.run(min(shard_bench.SHARD_RUNS, common.N_RUNS), 8, dev)),
+    # The dry-run's artifacts tabulated (written by repro_torch.launch.dryrun).
+    "roofline": lambda dev: [roofline.tabulate()[1]],
 }
 
-#: The JAX package's benches the port does not run, with the reason.
-SKIPPED = {
-    "kernel_bench": "not to port: chip_smoke.py phases 3 and 7 measure the ported kernels",
-    "roofline": "waits for the dry-run and roofline slice (ROADMAP.md slice 8)",
-}
+#: The JAX package's benches the port does not run, with the reason: none
+#: since the dry-run and kernel_bench were ported.
+SKIPPED: dict[str, str] = {}
 
 
 def run_benches(failures: list, device: torch.device, benches=None) -> list[dict]:

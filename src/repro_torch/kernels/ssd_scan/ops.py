@@ -5,14 +5,19 @@ less ``interpret=``. S is padded to a chunk multiple with dt = 0 steps
 (exp(0) = 1, zero update: exact no-ops) and y is sliced back. dt and a are
 cast to fp32. CUDA tensors go to the hand-written kernel — which launches
 or raises; there is no fallback — and CPU tensors to the plain sequential
-version.
+version. ``meta`` tensors (the dry-run's shapes, no data) take
+``ssd_scan_phases_ref``, the CUDA chain's own algorithm, so that a count
+of their ops is the kernel's work. Off the card each plain call runs
+through :func:`repro_torch.launch.cost.as_kernel`: under a cost count it
+counts as the kernel would (its FLOPs; its arguments and outputs as its
+bytes and memory), and otherwise it is the plain call.
 
 Under autograd (grad enabled and an operand requiring grad) the call goes
 through :class:`SsdScanFn`: on CUDA the forward chain, keeping its three
-workspaces, and the hand-written backward chain; on the CPU their plain
-phase-by-phase versions. The padding stays outside the Function, so the
-gradients of padded steps are dropped by ``F.pad``'s backward. Without
-grad the paths above are unchanged.
+workspaces, and the hand-written backward chain; on the CPU (and on
+``meta``) their plain phase-by-phase versions. The padding stays outside
+the Function, so the gradients of padded steps are dropped by ``F.pad``'s
+backward. Without grad the paths above are unchanged.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from repro_torch.kernels.ssd_scan.kernel import (
     ssd_scan_cuda,
 )
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref, ssd_scan_phases_ref, ssd_scan_ref
+from repro_torch.launch.cost import as_kernel
 
 
 class SsdScanFn(torch.autograd.Function):
@@ -46,7 +52,8 @@ class SsdScanFn(torch.autograd.Function):
         if x.is_cuda:
             y, h_final, cum, g, h_in = _ssd_scan_cuda_phases(x, dt, a, b_mat, c_mat, chunk)
         else:
-            y, h_final, cum, g, h_in = ssd_scan_phases_ref(x, dt, a, b_mat, c_mat, chunk)
+            y, h_final, cum, g, h_in = as_kernel(ssd_scan_phases_ref, x, dt, a, b_mat, c_mat,
+                                                 chunk)
         ctx.save_for_backward(x, dt, a, b_mat, c_mat, cum, g, h_in)
         ctx.chunk = chunk
         return y, h_final
@@ -59,9 +66,11 @@ class SsdScanFn(torch.autograd.Function):
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         if dh_final is None:
             dh_final = x.new_zeros((bsz, h, p, b_mat.shape[-1]))
-        bwd = ssd_scan_bwd_cuda if x.is_cuda else ssd_scan_bwd_ref
-        dx, ddt, da, db, dc = bwd(x, dt, a, b_mat, c_mat, dy, dh_final.contiguous(), cum, g,
-                                  h_in, ctx.chunk)
+        args = (x, dt, a, b_mat, c_mat, dy, dh_final.contiguous(), cum, g, h_in, ctx.chunk)
+        if x.is_cuda:
+            dx, ddt, da, db, dc = ssd_scan_bwd_cuda(*args)
+        else:
+            dx, ddt, da, db, dc = as_kernel(ssd_scan_bwd_ref, *args)
         return dx, ddt, da, db, dc, None
 
 
@@ -81,8 +90,8 @@ def ssd_scan(
         raise ValueError(f"ssd_scan operands span devices {sorted(map(str, devices))}")
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"ssd_scan runs on CUDA or the CPU, not {x.device}")
+    if x.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"ssd_scan runs on CUDA, the CPU or meta, not {x.device}")
     dt, a = dt.float(), a.float()
     s = x.shape[1]
     pad = (-s) % chunk
@@ -103,6 +112,8 @@ def ssd_scan(
             x.contiguous(), dt.contiguous(), a.contiguous(), b_mat.contiguous(),
             c_mat.contiguous(), chunk,
         )
+    elif x.is_meta:
+        y, h_final = as_kernel(ssd_scan_phases_ref, *ops, chunk)[:2]
     else:
-        y, h_final = ssd_scan_ref(x, dt, a, b_mat, c_mat)
+        y, h_final = as_kernel(ssd_scan_ref, *ops)
     return y[:, :s], h_final

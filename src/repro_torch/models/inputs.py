@@ -5,6 +5,10 @@ Frontend stubs: a vision (VLM) batch carries 256 precomputed 1024-dim patch
 embeddings per sample beside its text tokens; an audio batch carries one
 512-dim embedding per frame *instead of* tokens
 (:mod:`repro_torch.models.frontends`).
+
+``as_spec=True`` returns the same trees on the ``meta`` device: shapes and
+dtypes, no storage and no draw (the dry-run's inputs, as the reference's
+``as_spec`` gives ``jax.ShapeDtypeStruct`` stand-ins).
 """
 
 from __future__ import annotations
@@ -16,19 +20,32 @@ from repro_torch.device import resolve_device
 from repro_torch.models.frontends import AUDIO_STUB_DIM, VISION_STUB_DIM, VISION_TOKENS
 
 
-def make_batch(cfg: ModelConfig, shape: ShapeConfig, generator: torch.Generator,
-               device=None, embed_dtype=torch.bfloat16) -> dict:
+def _draw_device(generator: torch.Generator | None, device) -> torch.device:
+    if generator is None:
+        raise ValueError("the batch is drawn from a generator: pass one, or as_spec=True")
+    return resolve_device(device)
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeConfig, generator: torch.Generator | None = None,
+               device=None, embed_dtype=torch.bfloat16, as_spec: bool = False) -> dict:
     """Inputs for train/prefill kinds on ``device`` (``None``: CUDA): random
     token ids in [0, vocab_size) (int64, torch's index type); stub
     embeddings ``0.02 · N(0, 1)`` cast to ``embed_dtype``. Audio: frames
     (B, S, 512), no tokens. Vision: ``min(256, S // 2)`` patches (B, n_img,
     1024) and B x (S − n_img) tokens. Train cells add labels and a loss mask
-    over the text span (the frames, for audio)."""
-    dev = resolve_device(device)
+    over the text span (the frames, for audio). ``as_spec``: the same tree
+    on ``meta`` (``generator`` and ``device`` unused)."""
     b, s = shape.global_batch, shape.seq_len
-    tokens = lambda n: torch.randint(0, cfg.vocab_size, (b, n), generator=generator, device=dev)
-    stubs = lambda n, dim: (0.02 * torch.randn((b, n, dim), generator=generator, device=dev)
-                            ).to(embed_dtype)
+    if as_spec:
+        dev = torch.device("meta")
+        tokens = lambda n: torch.empty((b, n), dtype=torch.int64, device=dev)
+        stubs = lambda n, dim: torch.empty((b, n, dim), dtype=embed_dtype, device=dev)
+    else:
+        dev = _draw_device(generator, device)
+        tokens = lambda n: torch.randint(0, cfg.vocab_size, (b, n), generator=generator,
+                                         device=dev)
+        stubs = lambda n, dim: (0.02 * torch.randn((b, n, dim), generator=generator,
+                                                   device=dev)).to(embed_dtype)
     batch: dict = {}
     if cfg.frontend == "audio":
         s_text = s
@@ -49,12 +66,15 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, generator: torch.Generator,
     return batch
 
 
-def make_decode_tokens(cfg: ModelConfig, shape: ShapeConfig, generator: torch.Generator,
-                       device=None) -> torch.Tensor:
-    """(B, 1) next-token ids for a decode cell."""
-    dev = resolve_device(device)
-    return torch.randint(0, cfg.vocab_size, (shape.global_batch, 1), generator=generator,
-                         device=dev)
+def make_decode_tokens(cfg: ModelConfig, shape: ShapeConfig,
+                       generator: torch.Generator | None = None, device=None,
+                       as_spec: bool = False) -> torch.Tensor:
+    """(B, 1) next-token ids for a decode cell (``as_spec``: on ``meta``)."""
+    size = (shape.global_batch, 1)
+    if as_spec:
+        return torch.empty(size, dtype=torch.int64, device="meta")
+    return torch.randint(0, cfg.vocab_size, size, generator=generator,
+                         device=_draw_device(generator, device))
 
 
 def cache_spec(cfg: ModelConfig, shape: ShapeConfig, dtype=torch.bfloat16) -> dict:

@@ -36,6 +36,11 @@ over :func:`forward` with ``remat``, each layer the function
 policy says. Under autograd the SSD scan's gradient is the kernel's own
 backward (``SsdScanFn``); the layers' parameter views are ``unbind``-ed
 once per forward, so each stacked leaf's gradient is stacked once.
+
+``unroll_layers`` (``forward``, ``prefill_step``, ``loss_fn``,
+``decode_step``) is accepted and changes nothing: the reference unrolls its
+``lax.scan`` over layers so that XLA's cost analysis counts every layer,
+and the port's layers are always a Python loop.
 """
 
 from __future__ import annotations
@@ -207,6 +212,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float3
         params["blocks"][name] = _init_one(
             generator, (cfg.num_layers,) + shape, fan, kind, dtype, dev
         )
+    return params
+
+
+def param_structs(cfg: ModelConfig, dtype=torch.bfloat16) -> Params:
+    """``init_params``' tree on the ``meta`` device: every leaf's shape and
+    dtype (``a_log`` and ``dt_bias`` fp32, as init keeps them), no storage
+    and no generator. The dry-run's params, the counterpart of the
+    reference's ``jax.eval_shape`` of ``init_params``."""
+    def leaf(shape, kind):
+        kept = torch.float32 if kind in ("a_log", "dt_bias") else dtype
+        return torch.empty(shape, dtype=kept, device="meta")
+
+    params: Params = {name: leaf(shape, kind)
+                      for name, (shape, _, kind) in top_param_specs(cfg).items()}
+    params["blocks"] = {name: leaf((cfg.num_layers,) + shape, kind)
+                        for name, (shape, _, kind) in layer_param_specs(cfg).items()}
     return params
 
 
@@ -501,6 +522,7 @@ def forward(
     cache_dtype=torch.bfloat16,
     cache_len: int | None = None,
     remat: str = "none",
+    unroll_layers: bool = False,
 ) -> tuple[Tensor, Tensor] | tuple[Tensor, Tensor, Params]:
     """Full-sequence forward (train / prefill). Returns (logits fp32 (B,S,Vp), aux_loss) — plus
     the assembled decode cache when ``collect_cache`` (prefill). aux_loss
@@ -516,7 +538,9 @@ def forward(
     ``remat``: one of :data:`REMAT_POLICIES`, each layer through
     ``torch.utils.checkpoint`` (non-reentrant) as the JAX package's
     ``jax.checkpoint`` policies; ``collect_cache`` takes ``"none"`` only.
+    ``unroll_layers``: accepted, changes nothing (the module's docstring).
     """
+    del unroll_layers
     h, aux, cache = _trunk(params, cfg, tokens, prefix_embeds, attn_impl, collect_cache,
                            cache_dtype, cache_len, remat)
     logits = _logits(params, cfg, h)
@@ -533,6 +557,7 @@ def prefill_step(
     attn_impl: str = "blockwise",
     cache_dtype=torch.bfloat16,
     cache_len: int | None = None,
+    unroll_layers: bool = False,
 ) -> tuple[Tensor, Params]:
     """Serving prefill: run the prompt (a frontend's ``prefix_embeds`` in
     front, as :func:`forward`), return (last-token logits (B,1,Vp), cache).
@@ -541,7 +566,9 @@ def prefill_step(
     ``cache_len``: total KV capacity (prefix + prompt + generation
     headroom); defaults to the prefix + prompt length (ring eviction starts
     immediately). An SSM cache is O(1) in length and ignores it.
+    ``unroll_layers``: accepted, changes nothing.
     """
+    del unroll_layers
     h, _, cache = _trunk(params, cfg, tokens, prefix_embeds, attn_impl, True, cache_dtype,
                          cache_len)
     return _logits(params, cfg, h[:, -1:]), cache
@@ -555,16 +582,18 @@ def loss_fn(
     remat: str = "none",
     aux_coef: float = 0.01,
     z_coef: float = 1e-4,
+    unroll_layers: bool = False,
 ) -> tuple[Tensor, dict[str, Tensor]]:
     """Masked next-token cross-entropy + router aux + z-loss, as the JAX
     package's ``loss_fn``: padded vocab columns set to -1e30 before the
     logsumexp, a vision prefix's positions sliced off the logits, z-loss
     ``z_coef · Σ(logz · mask)² / denom``. Returns (total, {"ce", "z_loss",
     "aux"}), fp32 scalars. ``batch``: tokens (int64; absent for audio),
-    labels, loss_mask, optional prefix_embeds."""
+    labels, loss_mask, optional prefix_embeds. ``unroll_layers``: accepted,
+    changes nothing."""
     logits, aux = forward(params, cfg, batch.get("tokens"),
                           prefix_embeds=batch.get("prefix_embeds"), attn_impl=attn_impl,
-                          remat=remat)
+                          remat=remat, unroll_layers=unroll_layers)
     labels = batch["labels"]
     mask = batch["loss_mask"].float()
     if cfg.frontend == "vision" and batch.get("prefix_embeds") is not None:
@@ -688,7 +717,8 @@ KV_SHARDS = ("heads", "seq")
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: Tensor,
-                uniform_pos: bool = True, kv_shard: str = "heads") -> tuple[Tensor, Params]:
+                unroll_layers: bool = False, uniform_pos: bool = True,
+                kv_shard: str = "heads") -> tuple[Tensor, Params]:
     """One serving step: (B, 1) new tokens -> (B, 1, Vp) fp32 logits + a new
     cache (the old one is not modified).
 
@@ -697,8 +727,10 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: Tensor,
     slot per row (ragged batches). ``kv_shard``: the KV cache's layout over
     a mesh's model axis, "heads" or "seq" (split-KV decode); on one device
     both compute the same thing (:func:`repro_torch.models.attention
-    .attend_decode`'s ``seq_sharded``).
+    .attend_decode`'s ``seq_sharded``). ``unroll_layers``: accepted,
+    changes nothing.
     """
+    del unroll_layers
     if kv_shard not in KV_SHARDS:
         raise ValueError(f"kv_shard must be one of {KV_SHARDS}, got {kv_shard!r}")
     pos = cache["pos"]                                     # (B,)

@@ -12,6 +12,8 @@ steps for any (arch × mesh). They return ``(fn, pspecs, shardings_for)`` as
 the reference does; the specs are the port's (tuples per leaf,
 :mod:`repro_torch.distributed.sharding`) and nothing is moved by them: one
 card is a world of size 1, so ``fn`` computes the whole batch on the device.
+Both take the reference's ``unroll_layers``, which changes nothing (the
+port's layers are a Python loop).
 """
 
 from __future__ import annotations
@@ -55,8 +57,8 @@ def make_local_exec(cfg: ModelConfig, gen_len: int, device=None):
     return prefill_fn, decode_fn
 
 
-def make_decode_step(cfg: ModelConfig, mesh, uniform_pos: bool = True, kv_shard: str = "auto",
-                     device=None):
+def make_decode_step(cfg: ModelConfig, mesh, unroll_layers: bool = False,
+                     uniform_pos: bool = True, kv_shard: str = "auto", device=None):
     """``(fn, pspecs, shardings_for)`` for the single-token decode step on
     ``device`` (``None``: CUDA).
 
@@ -73,8 +75,8 @@ def make_decode_step(cfg: ModelConfig, mesh, uniform_pos: bool = True, kv_shard:
 
     def fn(params, cache, tokens):
         with torch.inference_mode():
-            return decode_step(params, cfg, cache, tokens.to(dev), uniform_pos=uniform_pos,
-                               kv_shard=kv_shard)
+            return decode_step(params, cfg, cache, tokens.to(dev), unroll_layers=unroll_layers,
+                               uniform_pos=uniform_pos, kv_shard=kv_shard)
 
     def shardings_for(cache_tree, batch_size: int):
         cspecs = cache_pspecs(cache_tree, cfg, mesh, batch_size, kv_shard=kv_shard)
@@ -84,7 +86,8 @@ def make_decode_step(cfg: ModelConfig, mesh, uniform_pos: bool = True, kv_shard:
     return fn, pspecs, shardings_for
 
 
-def make_prefill_step(cfg: ModelConfig, mesh, attn_impl: str = "blockwise", device=None):
+def make_prefill_step(cfg: ModelConfig, mesh, attn_impl: str = "blockwise",
+                      unroll_layers: bool = False, device=None):
     """``(fn, pspecs, shardings_for)`` for the prompt-prefill step on
     ``device`` (``None``: CUDA).
 
@@ -102,7 +105,7 @@ def make_prefill_step(cfg: ModelConfig, mesh, attn_impl: str = "blockwise", devi
         with torch.inference_mode():
             return prefill_step(params, cfg, on_dev(batch.get("tokens")),
                                 prefix_embeds=on_dev(batch.get("prefix_embeds")),
-                                attn_impl=attn_impl)
+                                attn_impl=attn_impl, unroll_layers=unroll_layers)
 
     def shardings_for(batch_tree, batch_size: int):
         return pspecs, batch_pspecs(batch_tree, mesh, batch_size)

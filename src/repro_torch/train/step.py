@@ -16,6 +16,9 @@ and its metrics (loss, ce, z_loss, aux, grad_norm, lr):
 * AdamW in place (:func:`repro_torch.train.optimizer.adamw_update`): the
   returned params and state are the tensors passed in, updated.
 
+``unroll_layers`` is accepted and changes nothing: the port's layers are
+always a Python loop (:mod:`repro_torch.models.lm`).
+
 ``grad_sync`` "native" and "int8" are the same without a pod axis, as in
 the reference. With a ``mesh`` that has a ``"pod"`` axis and
 ``grad_sync="int8"`` the step is the reference's multi-pod one, its pods
@@ -54,7 +57,7 @@ class TrainStepConfig:
     remat: str = "dots"              # none | dots | full | full_recompute
     attn_impl: str = "blockwise"
     grad_sync: str = "native"        # native | int8 (the same without a pod axis)
-    unroll_layers: bool = False      # the dry-run's; not on one device
+    unroll_layers: bool = False      # the reference's dry-run flag; changes nothing here
     optimizer: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
 
 
@@ -85,9 +88,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, device=None, mesh=N
     :class:`repro_torch.distributed.mesh.Mesh`, whose ``"pod"`` axis runs
     the int8 cross-pod sync under ``grad_sync="int8"``. Returns (step,
     init_error_fb)."""
-    if tcfg.unroll_layers:
-        raise NotImplementedError("unroll_layers is the dry-run's; it waits for slice 8b's "
-                                  "dry-run item")
     if tcfg.grad_sync not in GRAD_SYNCS:
         raise ValueError(f"grad_sync must be one of {GRAD_SYNCS}, got {tcfg.grad_sync!r}")
     if tcfg.remat not in REMAT_POLICIES:
@@ -109,7 +109,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, device=None, mesh=N
         acc: list[torch.Tensor | None] = [None] * len(flat)
         losses, metricses = [], []
         for mb in (_split_microbatches(batch, n) if n > 1 else [batch]):
-            loss, metrics = loss_fn(params, cfg, mb, attn_impl=tcfg.attn_impl, remat=tcfg.remat)
+            loss, metrics = loss_fn(params, cfg, mb, attn_impl=tcfg.attn_impl, remat=tcfg.remat,
+                                    unroll_layers=tcfg.unroll_layers)
             loss.backward()
             losses.append(loss.detach())
             metricses.append({k: metrics[k].detach() for k in METRIC_KEYS})

@@ -42,7 +42,7 @@ from repro_torch.kernels.ssd_scan.kernel import (
 )
 from repro_torch.models import lm
 from repro_torch.serve.step import make_local_exec
-from repro_torch.benchmarks import serve_bench
+from repro_torch.benchmarks import kernel_bench, serve_bench
 from repro_torch.serve.engine import FleetConfig as ServeFleetConfig
 from repro_torch.serve.engine import FleetEngine, RequestClass
 from repro_torch.placement import (
@@ -65,6 +65,8 @@ from repro_torch.telemetry import (
 )
 from repro_torch.traces.stages import staged_mix_profile
 from repro_torch.distributed import compressed_psum_pod, runs_mesh, sync_tree
+from repro_torch.launch import dryrun
+from repro_torch.train import TrainStepConfig, adamw_init, make_train_step
 from repro_torch.train.optimizer import leaves
 
 pytestmark = pytest.mark.cuda
@@ -979,3 +981,48 @@ def test_compressed_psum_pod_on_cuda_matches_the_cpu(cuda):
         total, resid = compressed_psum_pod(grads["a"].to(cuda), n_pods)
         total_c, resid_c = compressed_psum_pod(grads["a"], n_pods)
         assert torch.equal(total.cpu(), total_c) and torch.equal(resid.cpu(), resid_c)
+
+
+def test_kernel_bench_kernel_arm_agrees_with_plain(cuda):
+    """kernel_bench on the card: every kernel row timed (µs > 0), each
+    having agreed with the plain version (argmins off near-ties, the SSD
+    within 3e-4) before it printed; run() raises otherwise."""
+    rows = {r["name"]: r for r in kernel_bench.run(cuda)}
+    kernel = {n: r for n, r in rows.items() if "_kernel_" in n}
+    assert len(kernel) == 7
+    for name, r in kernel.items():
+        assert r["us_per_call"] > 0.0 and "status" not in r["derived"], name
+    assert rows["fleet256_e2e_kernel_T48"]["derived"]["dispatch_agreement"] > 0.999
+
+
+@pytest.mark.parametrize("arch,batch", [("qwen2-0.5b", (32, 1024)), ("mamba2-2.7b", (64, 1024))])
+def test_dryrun_peak_of_a_smoke_train_step_matches_the_card(cuda, arch, batch):
+    """A smoke train step (fp32, two microbatches, full remat) counted on
+    the meta device against the same step on the card: the dry-run's peak
+    within 15% of max_memory_allocated above what was held before (the
+    caching allocator rounds each block up and may add cuBLAS's
+    workspace; the meta count does neither)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models.inputs import make_batch
+
+    cfg = get_arch(arch, "smoke")
+    b, s = batch
+    shape = ShapeConfig("smoke_train", "train", s, b)
+    tcfg = TrainStepConfig(microbatches=2, remat="full")
+    mode, out, _ = dryrun._run_one(cfg, shape, dryrun.MESHES[False][1], tcfg, torch.float32,
+                                   "auto", torch.bfloat16)
+    dry = mode.memory(out)["peak_bytes"]
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = lm.init_params(cfg, gen, torch.float32, cuda)
+    step, init_efb = make_train_step(cfg, tcfg, device=cuda)
+    opt, efb = adamw_init(params), init_efb(params)
+    batch_t = make_batch(cfg, shape, gen, device=cuda)
+    step(params, opt, batch_t, efb)
+    torch.cuda.synchronize()
+    card = torch.cuda.max_memory_allocated() - base
+    assert abs(dry - card) <= 0.15 * card, (dry / 2**20, card / 2**20)

@@ -108,8 +108,7 @@ def test_orchestrator_csv_contract_failures_skips_and_record(tmp_path, capsys):
     assert out[0] == "name,us_per_call,derived"
     assert out[1:3] == ["good_bench,12.5,dev=cpu;k=1", "bad,-1,FAILED"]
     skipped = [line.split(",", 2) for line in out if ",-1,SKIPPED" in line]
-    assert [s[0] for s in skipped] == list(orchestrator.SKIPPED) == \
-           ["kernel_bench", "roofline"]
+    assert [s[0] for s in skipped] == list(orchestrator.SKIPPED) == []
     assert all(s[2].startswith("SKIPPED ") and "," not in s[2] for s in skipped)
     history = json.loads(record.read_text())
     assert [h["label"] for h in history] == ["torch_partial"]

@@ -360,8 +360,16 @@ def test_train_step_int8_sync_is_native_on_one_device_and_refusals():
     with pytest.raises(NotImplementedError, match="one card"):
         make_train_step(cfg, TrainStepConfig(), device="cpu",
                         mesh=Mesh((1, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="8b"):
-        make_train_step(cfg, TrainStepConfig(unroll_layers=True), device="cpu")
+    # unroll_layers (the reference's dry-run flag) is accepted and changes
+    # nothing: the same step as the native one above, bitwise.
+    q = {k: ({kk: vv.clone() for kk, vv in v.items()} if isinstance(v, dict) else v.clone())
+         for k, v in p.items()}
+    unrolled, unrolled_efb = make_train_step(cfg, TrainStepConfig(unroll_layers=True),
+                                             device="cpu")
+    q, _, met, _ = unrolled(q, adamw_init(q), batch_from_numpy(raw, device="cpu"),
+                            unrolled_efb(q))
+    assert torch.equal(met["loss"], outs[0][0])
+    assert all(torch.equal(a, b) for a, b in zip(leaves(q), outs[0][1]))
     with pytest.raises(ValueError, match="grad_sync"):
         make_train_step(cfg, TrainStepConfig(grad_sync="fp8"), device="cpu")
     step, _ = make_train_step(cfg, TrainStepConfig(microbatches=3), device="cpu")
