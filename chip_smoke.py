@@ -224,14 +224,22 @@ Phases, each printing one line or more; any failure exits non-zero:
              each with a nonzero gradient of the final state: every
              gradient within SSD_BWD_TOL of its max, bitwise-repeatable
              launches, the wrapper's ``SsdScanFn`` bitwise the direct calls;
-             device time at mamba2-2.7b's training microbatch (2 x 2048) and
+             each shape again with bf16 x, B, C and dy (the bf16 chain; dx,
+             dB, dC within one bf16 ulp + SSD_BWD_TOL of the max); device
+             time, in fp32 and bf16, at mamba2-2.7b's training microbatch (2 x 2048) and
              hymba's 4 x 2048 beside the forward chain, the plain version
-             and the fp32 and 3xTF32 bounds, each kernel's time alone (CUDA
-             events) beside its own bounds; (b) full-width, full-depth
-             mamba2-2.7b (random fp32 weights) trained through
-             ``make_train_step``: 4 x 2048 tokens per step from the token
-             stream, two microbatches, full remat, the launcher's AdamW; a
-             warm-up step and three timed ones, each with exactly 256
+             and two bounds (fp32 operands: at the fp32 rate and as
+             3xTF32; bf16: mixed products as 2xTF32 with the bf16 pairs at
+             the bf16 rate, and as TF32 only; ssd_bwd_bound_ms), each
+             kernel's time alone (CUDA events) beside its own bounds; (b)
+             full-width, full-depth mamba2-2.7b trained through
+             ``make_train_step``, in fp32 (random fp32 weights; a warm-up
+             step and two timed ones), then in bf16 (the same draws
+             rounded: bf16 params, fp32 moments and gradient sums, the bf16
+             chain; a warm-up step and three timed ones, step 1's loss
+             within 1e-2 of fp32's): 4 x 2048 tokens per step from the
+             token stream, two microbatches, full remat, the launcher's
+             AdamW; each step with exactly 256
              forward and 128 backward chain launches, finite loss and grad
              norm > 0; layer 0's real SSD operands and upstream gradient
              through the backward chain against the plain version; step
@@ -269,15 +277,18 @@ Phases, each printing one line or more; any failure exits non-zero:
              ``make_local_exec``'s, decode at ``kv_shard="heads"`` bitwise
              ``"seq"``.
 21. dryrun — the dry-run (``repro_torch.launch.dryrun``) against the card:
-             (a) before phase 18, one meta-device pass of each cell the
-             card measures in this run, at its shape and in fp32 (full-width
-             mamba2-2.7b and qwen2-0.5b training 4 x 2048 with phase 19's
-             microbatches and remat; their 4 x 2048 prefills, phases 8 and
-             15): FLOPs, bytes, argument and peak bytes, the H100
+             (a) in a process of its own that needs no card, started after
+             phase 1 and collected before phase 18, one meta-device pass of
+             each cell the card measures in this run, at its shape, in fp32
+             and in bf16 (full-width mamba2-2.7b and qwen2-0.5b training 4
+             x 2048 with phase 19's microbatches and remat; their 4 x 2048
+             prefills): FLOPs, bytes, argument and peak bytes, the H100
              data-sheet roofline, each artifact written where the
              orchestrator's roofline bench reads it, no kernel launched; (b)
-             after phase 20, every bound at or below the card's fastest
-             wall of that cell, the train cells' dry-run peaks within 15% of
+             after phase 20, the bf16 prefill step timed at full width,
+             then every bound at or below the card's fastest wall of that
+             cell (fp32 prefills: phases 8 and 15; training: phase 19 (b) /
+             (c)), the train cells' dry-run peaks within 15% of
              ``max_memory_allocated``, each share of the roofline printed.
 22. results — one JSON line of per-kernel numbers, then the device line.
 
@@ -300,9 +311,10 @@ ROOT = Path(__file__).resolve().parent
 
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12
-#: Dense TF32 on the H100 SXM tensor cores (peak rate), for the
-#: 3xTF32 bound of the SSD backward chain (three TF32 products per fp32 one).
+#: Dense TF32 and bf16 on the H100 SXM tensor cores (peak rates), for the
+#: SSD backward chain's tensor-core bounds (ssd_bwd_bound_ms).
 H100_TF32_FLOPS = 495e12
+H100_BF16_FLOPS = 989e12
 
 #: (R runs or None, K, N, r per run): the test shape set, the fleet
 #: main-path shape, the largest kernel-bench shape, the fleet V-sweep's (7 V
@@ -541,15 +553,26 @@ SSD_BWD_TIMED = {(2, 2048, 80, 64, 128, 256): ("train", 3, 4),
 #: (b) and (c): full-width training through make_train_step, the
 #: launcher's AdamW (lr 3e-3, no warm-up at these few steps): 4 x 2048
 #: tokens per step from the synthetic token stream (seed 0), two
-#: microbatches, full remat; one warm-up step, then TRAIN_TIMED_STEPS.
+#: microbatches, full remat; one warm-up step, then TRAIN_TIMED_STEPS (an
+#: fp32 arm TRAIN_TIMED_STEPS_FP32: it is the slower and only a reference
+#: for bf16's step 1), the schedule set for TRAIN_TIMED_STEPS in both.
 #: mamba2-2.7b at full depth (64 layers: 64 x 2 x 2 = 256 forward chains
 #: and 64 x 2 = 128 backward chains per step), then the launcher's default
-#: arch, qwen2-0.5b (no kernel on its path).
+#: arch, qwen2-0.5b (no kernel on its path). Each in fp32, then in bf16
+#: (the JAX package's training precision: bf16 params, fp32 moments and
+#: gradient sums; mamba2's SSD gradients through the bf16 chain) from the
+#: same draws rounded: the bf16 step-1 loss within TRAIN_BF16_LOSS_RTOL of
+#: fp32's (the same params to bf16's 8 bits, the same batch). Phase 21 (b)
+#: times the dry-run's bf16 prefill step PREFILL_TIMED_CALLS times after a
+#: warm-up call (prefill_walls).
 TRAIN_ARCHS = (MAMBA_ARCH, "qwen2-0.5b")
 TRAIN_BATCH = (4, 2048)
 TRAIN_MICROBATCHES = 2
 TRAIN_REMAT = "full"
 TRAIN_TIMED_STEPS = 3
+TRAIN_TIMED_STEPS_FP32 = 2
+TRAIN_BF16_LOSS_RTOL = 1e-2
+PREFILL_TIMED_CALLS = 2
 #: (d) the entry points: the example (its claim through the failure at
 #: 150) and the smoke launcher with a failure, as subprocesses; then the
 #: same smoke run in process with and without the failure. Where the two
@@ -604,10 +627,12 @@ SUB_POD_LOSS_RTOL = 1e-2
 SUB_SERVE_BATCH = (4, 2048)
 
 #: Phase 21, the dry-run against the card (repro_torch.launch.dryrun): the
-#: cells this run measures anyway, at their own shapes, fp32 params as the
-#: card runs them, counted on the meta device: (arch, kind, (B, S), the
-#: phase that measures it). Train cells take phase 19's microbatches and
-#: remat; prefill cells the serving steps' blockwise attention.
+#: cells this run measures anyway, at their own shapes, counted on the meta
+#: device in each of DRY_DTYPES: (arch, kind, (B, S), the phase that
+#: measures its fp32 walls). Train cells take phase 19's microbatches and
+#: remat; prefill cells the serving steps' blockwise attention. bf16 (the
+#: dry-run's own dtype, as the reference's): the train steps of phase 19
+#: (b) / (c)'s bf16 arms, the prefill step timed in phase 21 (b).
 DRY_CELLS = ((MAMBA_ARCH, "train", TRAIN_BATCH, "19 (b)"),
              ("qwen2-0.5b", "train", TRAIN_BATCH, "19 (c)"),
              (MAMBA_ARCH, "prefill", (4, 2048), "8"),
@@ -616,8 +641,10 @@ DRY_CELLS = ((MAMBA_ARCH, "train", TRAIN_BATCH, "19 (b)"),
 #: torch.cuda.max_memory_allocated(): the caching allocator rounds each
 #: block up and keeps cuBLAS's workspace, the meta count neither.
 DRY_PEAK_RTOL = 0.15
-#: Host seconds the four meta passes are given (logged against, not gated:
-#: the host's speed varies between machines).
+DRY_DTYPES = ("float32", "bfloat16")
+#: Host seconds the eight meta passes are given (logged against, not gated:
+#: the host's speed varies between machines). They run in a process of
+#: their own beside phases 2-17 (start_dryrun), which needs no card.
 DRY_HOST_BUDGET_S = 90
 
 
@@ -788,10 +815,11 @@ def kernel_name(mangled: str) -> str:
     template argument)."""
     import re
 
-    short = re.search(r"\d+((?:ssd_scan|ssd_bwd|gmsa)\w*?_kernel)(I((?:L[bi]\d+E)+)E)?", mangled)
+    short = re.search(r"\d+((?:ssd_scan|ssd_bwd|gmsa)\w*?_kernel)(I((?:L[bi]\d+E|f|\d+__nv_bfloat16)+)E)?",
+                      mangled)
     name = short.group(1) if short else mangled
-    if short and short.group(2):
-        args = re.findall(r"L([bi])(\d+)E", short.group(3))
+    args = re.findall(r"L([bi])(\d+)E", short.group(3)) if short and short.group(2) else []
+    if args:
         name += "<" + ", ".join(("false", "true")[int(v)] if t == "b" else v for t, v in args) + ">"
     return name + ("<bf16>" if "bfloat16" in mangled else "")
 
@@ -1420,41 +1448,66 @@ def tc_bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def ssd_bwd_work(b: int, s: int, h: int, p: int, n: int, q: int) -> tuple[int, int]:
-    """Bytes and fp32 operations of one ssd_scan backward call: its inputs
+def ssd_bwd_work(b: int, s: int, h: int, p: int, n: int, q: int,
+                 elt: int = 4) -> tuple[int, dict[str, int]]:
+    """Bytes and operations of one ssd_scan backward call: its inputs
     (x, dt, a, B, C, dy, dh_final and the forward's cum, CBᵀ and entering
-    states) read once and dx, ddt, da, dB, dC written once; the work the
+    states) read once and dx, ddt, da, dB, dC written once, x, B, C, dy, dx,
+    dB and dC at ``elt`` bytes an element (4 fp32, 2 bf16); the work the
     gradient needs — the four (P, N) products per (b, h, step) (D_c, G_c
     B_s, the state terms of dB and dC, h_inᵀ dy once per head serving dC and
     ∂cum), the causal halves of (L ⊙ CB)ᵀ dy and of dy xᵀ per head, R C and
-    R B once per (b, chunk), and h_inᵀ dy against C_t."""
+    R B once per (b, chunk), and h_inᵀ dy against C_t — by the class of its
+    operands: "pair", products of two of x, B, C, dy (dy xᵀ, its decay
+    applied to the product); "mixed", products of one of them and an fp32
+    intermediate (a state term's per-(step, head) scale applied to each
+    head's product); "vector", fp32 elementwise work."""
     full, rem = divmod(s, q)
     pairs = full * q * (q + 1) // 2 + rem * (rem + 1) // 2
     nc = -(-s // q)
-    nbytes = (4 * (3 * b * s * h * p + 2 * b * s * h + 2 * h + 4 * b * s * n + b * h * p * n
-                   + b * nc * q * q + b * nc * h * p * n) + 8 * b * h * s)
-    flops = 8 * b * s * h * p * n + 4 * pairs * b * h * p + 4 * pairs * b * n + 2 * b * s * h * n
-    return nbytes, flops
+    nbytes = (elt * (3 * b * s * h * p + 4 * b * s * n)
+              + 4 * (2 * b * s * h + 2 * h + b * h * p * n + b * nc * q * q + b * nc * h * p * n)
+              + 8 * b * h * s)
+    causal = 2 * pairs * b * h * p
+    return nbytes, {"pair": causal,
+                    "mixed": 8 * b * s * h * p * n + causal + 4 * pairs * b * n,
+                    "vector": 2 * b * s * h * n}
 
 
-def ssd_bwd_bound_ms(b: int, s: int, h: int, p: int, n: int, q: int) -> tuple[float, str]:
-    """Least time for one ssd_scan backward call (fp32): ssd_bwd_work
-    against the H100's memory rate and fp32 rate."""
-    return bound_ms(*ssd_bwd_work(b, s, h, p, n, q))
+def ssd_bwd_bound_ms(nbytes: int, flops: dict[str, int], elt: int,
+                     tc: bool) -> tuple[float, str]:
+    """The least time of ssd_bwd_work's (or one kernel's) work, in ms, and
+    whether bytes or operations set it. fp32 operands (``elt`` 4): every
+    operation at the fp32 rate (bound_ms), or as 3xTF32 (``tc``,
+    tc_bound_ms). bf16 operands, at fp32 accuracy: a mixed product as two
+    TF32 products (a bf16 value is exact in TF32, so its small part in the
+    3xTF32 split is zero) and a pair as one bf16 product at the bf16 rate
+    (``tc``: as one TF32 product), both on the tensor cores, beside the
+    vector work at the fp32 rate on the CUDA cores."""
+    if elt == 4:
+        return (tc_bound_ms if tc else bound_ms)(nbytes, sum(flops.values()))
+    t_tc = (flops["pair"] / (H100_TF32_FLOPS if tc else H100_BF16_FLOPS)
+            + 2 * flops["mixed"] / H100_TF32_FLOPS)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, max(t_tc, flops["vector"] / H100_FP32_FLOPS)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def ssd_bwd_phase_work(b: int, s: int, h: int, p: int, n: int, q: int) -> dict[str, tuple[int, int]]:
-    """Bytes and fp32 operations of each kernel of the backward chain alone,
-    each of its inputs read once and outputs written once (S a multiple of
-    Q): chunk_dstate reads dy, C, x, dt, cum and writes D_c and R's
-    head-group partials, forming D_c and the causal half of dy xᵀ per head;
-    dstate_pass reads D_c, dh_final, A_c and the partials and writes G_c and
-    R, summing the partials; chunk_bwd reads x, dy, dt, a, B, C, cum,
-    CBᵀ, h_in and G_c and writes dx, ddt, the da partials and the two scales,
-    forming dy xᵀ and (L ⊙ CB)ᵀ dy on the causal half, G_c B_s and h_inᵀ C_t
-    per head; chunk_dbc reads x, dy, the scales, G_c, h_in, R, B and C and
-    writes the partials, forming the heads' state terms and R C, R B;
-    dbc_sum reads the partials and the da partials and writes dB, dC, da."""
+def ssd_bwd_phase_work(b: int, s: int, h: int, p: int, n: int, q: int,
+                       elt: int = 4) -> dict[str, tuple[int, dict[str, int]]]:
+    """Bytes and operations (by class, as ssd_bwd_work's) of each kernel of
+    the backward chain alone, each of its inputs read once and outputs
+    written once (S a multiple of Q): chunk_dstate reads dy, C, x, dt, cum
+    and writes D_c and R's head-group partials, forming D_c (mixed) and the
+    causal half of dy xᵀ per head (pair); dstate_pass reads D_c, dh_final,
+    A_c and the partials and writes G_c and R, summing the partials
+    (vector); chunk_bwd reads x, dy, dt, a, B, C, cum, CBᵀ, h_in and G_c and
+    writes dx, ddt, the da partials and the two scales, forming dy xᵀ
+    (pair) and (L ⊙ CB)ᵀ dy on the causal half, G_c B_s and h_inᵀ C_t per
+    head (mixed); chunk_dbc reads x, dy, the scales, G_c, h_in, R, B and C
+    and writes the partials, forming the heads' state terms and R C, R B
+    (mixed); dbc_sum reads the partials and the da partials and writes dB,
+    dC, da (vector). x, B, C, dy, dx, dB and dC at ``elt`` bytes an
+    element."""
     from repro_torch.kernels.ssd_scan.ref import DBC_HEAD_GROUP, DSTATE_HEAD_GROUP
 
     nc = s // q
@@ -1462,16 +1515,20 @@ def ssd_bwd_phase_work(b: int, s: int, h: int, p: int, n: int, q: int) -> dict[s
     slots, groups = 1 + -(-h // DBC_HEAD_GROUP), -(-h // DSTATE_HEAD_GROUP)
     bshp, bsh, bsn, st = b * s * h * p, b * s * h, b * s * n, b * nc * h * p * n
     bshpn, causal = b * s * h * p * n, 2 * pairs * b * h * p
+    ops = lambda pair=0, mixed=0, vector=0: {"pair": pair, "mixed": mixed, "vector": vector}
     return {
-        "chunk_dstate": (4 * (2 * bshp + bsn + bsh + st + groups * b * nc * q * q)
-                         + 8 * b * h * s, 2 * bshpn + causal),
+        "chunk_dstate": (elt * (2 * bshp + bsn) + 4 * (bsh + st + groups * b * nc * q * q)
+                         + 8 * b * h * s, ops(pair=causal, mixed=2 * bshpn)),
         "dstate_pass": (4 * (2 * st + b * h * p * n + (groups + 1) * b * nc * q * q)
-                        + 8 * b * h * nc, 2 * st + (groups - 1) * b * nc * q * q),
-        "chunk_bwd": (4 * (3 * bshp + 4 * bsh + h + 2 * bsn + b * nc * q * q + 2 * st
-                           + b * nc * h) + 8 * b * h * s, 2 * causal + 4 * bshpn),
-        "chunk_dbc": (4 * (2 * bshp + 2 * bsh + 2 * st + b * nc * q * q + 2 * bsn
-                           + 2 * slots * bsn), 4 * bshpn + 4 * pairs * b * n),
-        "dbc_sum": (4 * (2 * slots * bsn + b * nc * h + 2 * bsn + h), 2 * slots * bsn),
+                        + 8 * b * h * nc, ops(vector=2 * st + (groups - 1) * b * nc * q * q)),
+        "chunk_bwd": (elt * (3 * bshp + 2 * bsn) + 4 * (4 * bsh + h + b * nc * q * q + 2 * st
+                                                        + b * nc * h) + 8 * b * h * s,
+                      ops(pair=causal, mixed=causal + 4 * bshpn)),
+        "chunk_dbc": (elt * (2 * bshp + 2 * bsn) + 4 * (2 * bsh + 2 * st + b * nc * q * q
+                                                        + 2 * slots * bsn),
+                      ops(mixed=4 * bshpn + 4 * pairs * b * n)),
+        "dbc_sum": (elt * 2 * bsn + 4 * (2 * slots * bsn + b * nc * h + h),
+                    ops(vector=2 * slots * bsn)),
     }
 
 
@@ -1492,6 +1549,29 @@ def ssd_bwd_inputs(gen, shape, dev, model_like: bool):
     return ops, F.pad(dy, (0, 0, 0, 0, 0, pad)), dhf
 
 
+def bf16_excess(got, want) -> float:
+    """A bf16 gradient against its plain version: the largest amount by
+    which an element's |got - want| passes one bf16 ulp (of the larger of
+    the two), over want's largest |value|. At most SSD_BWD_TOL passes: the
+    two sum in other fp32 orders, then each rounds once to bf16, which may
+    fall either side. inf on a NaN."""
+    import torch
+
+    got, want = got.double(), want.double()
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    err = float(((got - want).abs() - ulp).max() / want.abs().max().clamp_min(1e-30))
+    return err if err == err else math.inf
+
+
+def grad_err(got, want) -> float:
+    """A gradient against its plain version: rel_err_max for an fp32 one,
+    bf16_excess for a bf16 one; either passes at most SSD_BWD_TOL."""
+    import torch
+
+    return (bf16_excess if got.dtype == torch.bfloat16 else rel_err_max)(got, want)
+
+
 def phase_ssd_bwd(dev) -> dict:
     """Phase 19 (a): the backward chain against ssd_scan_bwd_phases_ref (on
     the chain's own forward workspaces; every workspace too) and against
@@ -1499,122 +1579,173 @@ def phase_ssd_bwd(dev) -> dict:
     shape; bitwise-repeatable launches; the wrapper's autograd path
     (SsdScanFn) bitwise the direct calls; then device times at
     SSD_BWD_TIMED beside the forward chain, the plain version and both
-    bounds, and each kernel's time alone (CUDA events) beside its own."""
+    bounds, and each kernel's time alone (CUDA events) beside its own.
+    Each shape again with bf16 x, B, C and dy (the bf16 chain): against the
+    plain version on the same bf16 operands (bf16_excess for dx, dB, dC),
+    bitwise repeatable, SsdScanFn bitwise the direct calls, timed as
+    above at SSD_BWD_TIMED."""
     import torch
 
-    from repro_torch.kernels.ssd_scan.kernel import (
-        _ssd_scan_bwd_cuda_phase,
-        _ssd_scan_bwd_cuda_phases,
-        _ssd_scan_cuda_phases,
-        ssd_scan_bwd_cuda,
-        ssd_scan_cuda,
-    )
+    from repro_torch.kernels.ssd_scan.kernel import _ssd_scan_bwd_cuda_phases, _ssd_scan_cuda_phases
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_phases_ref, ssd_scan_ref
 
     names = SSD_BWD_OUTPUTS[:5]
     gen = torch.Generator(device=dev).manual_seed(19)
-    worst, out = {"plain": 0.0, "autograd": 0.0}, {}
+    worst = {"plain": 0.0, "autograd": 0.0, "plain_bf16": 0.0}
+    out = {}
+    t0 = time.perf_counter()
+    bf16_s = 0.0
     for shape in list(SSD_BWD_SHAPES) + list(SSD_BWD_TIMED):
         b, s, h, p, n, q = shape
         timed = shape in SSD_BWD_TIMED
-        ops, dy, dhf = ssd_bwd_inputs(gen, shape, dev, model_like=shape != SSD_BWD_SHAPES[0])
-        _, _, cum, g, h_in = _ssd_scan_cuda_phases(*ops, q)
-        got = _ssd_scan_bwd_cuda_phases(*ops, dy, dhf, cum, g, h_in, q)
-        again = _ssd_scan_bwd_cuda_phases(*ops, dy, dhf, cum, g, h_in, q)
-        torch.cuda.synchronize()
-        tag = f"B={b} S={s} H={h} P={p} N={n} chunk={q}"
-        tri = torch.ones(q, q, dtype=torch.bool, device=dev).tril()
-        # R and its partials above the diagonal: unspecified.
-        valid = lambda nm, u: u[..., tri] if nm in ("R", "R_part") else u
-        if not all(torch.equal(valid(nm, u), valid(nm, v))
-                   for nm, u, v in zip(SSD_BWD_OUTPUTS, got, again)):
-            fail(f"ssd_scan backward launches differ bitwise at {tag}")
-        del again
-        if timed:
-            reps, iters = SSD_BWD_TIMED[shape][1:]
-            t_b = device_time_ms(lambda: ssd_scan_bwd_cuda(*ops, dy, dhf, cum, g, h_in, q),
-                                 reps=reps, iters=iters)
-            t_f = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=reps, iters=iters)
-            # Each kernel alone on a copy of the filled workspaces (the phase
-            # launches overwrite them; ``got`` is compared below).
-            ws = tuple(t.clone() for t in got)
-            phase = {ph: device_time_ms(
-                lambda ph=ph: _ssd_scan_bwd_cuda_phase(ph, *ops, dy, dhf, cum, g, h_in, q, ws),
-                reps=reps, iters=iters) for ph in SSD_BWD_PHASES}
-            del ws
-            _, events = device_profile(lambda: ssd_scan_bwd_phases_ref(*ops, dy, dhf, cum, g, h_in, q))
-            t_p = sum(us for _, us, _ in events) / 1e3
-            work = ssd_bwd_work(b, s, h, p, n, q)
-            bound, bound_by = bound_ms(*work)
-            tc_bound, tc_by = tc_bound_ms(*work)
-            phase_work = ssd_bwd_phase_work(b, s, h, p, n, q)
-            phase_bound = {ph: bound_ms(*w)[0] for ph, w in phase_work.items()}
-            phase_tc_bound = {ph: tc_bound_ms(*w)[0] for ph, w in phase_work.items()}
-            want = ssd_scan_bwd_phases_ref(*ops, dy, dhf, cum, g, h_in, q)
-            err = max(rel_err_max(u, v) for u, v in zip(got[:5], want[:5]))
-            abs_err = max(float((u - v).abs().max()) for u, v in zip(got[:5], want[:5]))
-            key = SSD_BWD_TIMED[shape][0]
-            log(f"[train] ssd_scan backward {tag}: device: backward chain {t_b:.3f} ms, forward "
-                f"chain {t_f:.3f} ms, plain phase version {t_p:.3f} ms (profiler device sum), "
-                f"bound {bound:.3f} ms (fp32 rate, {bound_by}; chain at "
-                f"{100 * bound / t_b:.1f}% of it), 3xTF32 bound {tc_bound:.3f} ms ({tc_by}; "
-                f"{100 * tc_bound / t_b:.1f}%); vs plain max err {err:.3e} of the max")
-            log(f"[train] ssd_scan backward {tag}: each kernel alone (CUDA events, on filled "
-                "workspaces): " + ", ".join(
-                    f"{ph} {ms:.4f} ms (bound {phase_bound[ph]:.4f} fp32 / "
-                    f"{phase_tc_bound[ph]:.4f} 3xTF32)" for ph, ms in phase.items())
-                + f"; sum {sum(phase.values()):.4f} ms")
-            if err > SSD_BWD_TOL:
-                fail(f"ssd_scan backward off its plain version at {tag}: {err:.3e}")
-            out[key] = {"ms": t_b, "fwd_ms": t_f, "plain_ms": t_p, "bound_ms": bound,
-                        "bound_by": bound_by, "bound_ms_tc": tc_bound, "bound_by_tc": tc_by,
-                        "phase_ms": phase, "phase_bound_ms": phase_bound,
-                        "phase_bound_ms_tc": phase_tc_bound, "max_abs_err": abs_err,
-                        "max_rel_err": err}
-            del want, got, ops, dy, dhf, cum, g, h_in
+        ops32, dy32, dhf = ssd_bwd_inputs(gen, shape, dev, model_like=shape != SSD_BWD_SHAPES[0])
+        for dtype in (torch.float32, torch.bfloat16):
+            t_arm = time.perf_counter()
+            # bf16: x, B, C and dy as a bf16 model's layer gives them.
+            ops = tuple(t.to(dtype) if i in (0, 3, 4) else t for i, t in enumerate(ops32))
+            dy = dy32.to(dtype)
+            tag = f"B={b} S={s} H={h} P={p} N={n} chunk={q} {str(dtype).removeprefix('torch.')}"
+            _, _, cum, g, h_in = _ssd_scan_cuda_phases(*ops, q)
+            got = _ssd_scan_bwd_cuda_phases(*ops, dy, dhf, cum, g, h_in, q)
+            again = _ssd_scan_bwd_cuda_phases(*ops, dy, dhf, cum, g, h_in, q)
+            torch.cuda.synchronize()
+            tri = torch.ones(q, q, dtype=torch.bool, device=dev).tril()
+            # R and its partials above the diagonal: unspecified.
+            valid = lambda nm, u: u[..., tri] if nm in ("R", "R_part") else u
+            if not all(torch.equal(valid(nm, u), valid(nm, v))
+                       for nm, u, v in zip(SSD_BWD_OUTPUTS, got, again)):
+                fail(f"ssd_scan backward launches differ bitwise at {tag}")
+            if [u.dtype for u in got[:5]] != [dtype, torch.float32, torch.float32, dtype, dtype]:
+                fail(f"ssd_scan backward at {tag}: gradient dtypes {[u.dtype for u in got[:5]]}")
+            del again
+            if timed:
+                out[SSD_BWD_TIMED[shape][0] + ("" if dtype == torch.float32 else "_bf16")] = \
+                    time_ssd_bwd(shape, ops, dy, dhf, cum, g, h_in, got, tag)
+            else:
+                want = ssd_scan_bwd_phases_ref(*ops, dy, dhf, cum, g, h_in, q)
+                errs = {nm: grad_err(u[:, :s] if u.dim() > 1 else u, v[:, :s] if v.dim() > 1 else v)
+                        for nm, u, v in zip(names, got[:5], want[:5])}
+                errs.update({nm: rel_err_max(valid(nm, u), valid(nm, v))
+                             for nm, u, v in zip(SSD_BWD_OUTPUTS[5:], got[5:], want[5:])})
+                leaves = [t[:, :s].clone().requires_grad_() if t.dim() > 1
+                          else t.clone().requires_grad_() for t in ops]
+                auto = {}
+                if dtype == torch.float32:
+                    # Autograd through the sequential recurrence, unpadded.
+                    y_r, h_r = ssd_scan_ref(*leaves)
+                    torch.autograd.backward([y_r, h_r], [dy[:, :s], dhf])
+                    auto = {nm: rel_err_max(u[:, :s] if u.dim() > 1 else u, t.grad)
+                            for nm, u, t in zip(names, got[:5], leaves)}
+                    del y_r, h_r
+                # The wrapper under autograd: SsdScanFn with the same launches.
+                wl = [t.detach().clone().requires_grad_() for t in leaves]
+                y_w, h_w = ssd_scan(*wl, chunk=q)
+                torch.autograd.backward([y_w, h_w], [dy[:, :s], dhf])
+                torch.cuda.synchronize()
+                same = all(torch.equal(u[:, :s] if u.dim() > 1 else u, t.grad)
+                           for u, t in zip(got[:5], wl))
+                log(f"[train] ssd_scan backward {tag}: max err of the max vs "
+                    "ssd_scan_bwd_phases_ref " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                    + (" (bf16 gradients: past one bf16 ulp)" if dtype == torch.bfloat16 else "")
+                    + ("; vs autograd through ssd_scan_ref "
+                       + ", ".join(f"{k} {v:.2e}" for k, v in auto.items()) if auto else "")
+                    + f" (tol {SSD_BWD_TOL:g}); bitwise repeatable; the wrapper's SsdScanFn "
+                    f"bitwise the direct calls: {same}")
+                if (max(errs.values()) > SSD_BWD_TOL or max(auto.values(), default=0.0)
+                        > SSD_BWD_TOL or not same):
+                    fail(f"ssd_scan backward at {tag}: plain {errs}, autograd {auto}, "
+                         f"wrapper same {same}")
+                key = "plain" if dtype == torch.float32 else "plain_bf16"
+                worst[key] = max(worst[key], *errs.values())
+                if auto:
+                    worst["autograd"] = max(worst["autograd"], *auto.values())
+                del want, leaves, wl, y_w, h_w
+            del got, ops, dy, cum, g, h_in
             torch.cuda.empty_cache()
-            continue
-        want = ssd_scan_bwd_phases_ref(*ops, dy, dhf, cum, g, h_in, q)
-        errs = {nm: rel_err_max(u[:, :s] if u.dim() > 1 else u, v[:, :s] if v.dim() > 1 else v)
-                for nm, u, v in zip(names, got[:5], want[:5])}
-        errs.update({nm: rel_err_max(valid(nm, u), valid(nm, v))
-                     for nm, u, v in zip(SSD_BWD_OUTPUTS[5:], got[5:], want[5:])})
-        # Autograd through the sequential recurrence, on the unpadded operands.
-        leaves = [t[:, :s].clone().requires_grad_() if t.dim() > 1 else t.clone().requires_grad_()
-                  for t in ops]
-        y_r, h_r = ssd_scan_ref(*leaves)
-        torch.autograd.backward([y_r, h_r], [dy[:, :s], dhf])
-        auto = {nm: rel_err_max(u[:, :s] if u.dim() > 1 else u, t.grad)
-                for nm, u, t in zip(names, got[:5], leaves)}
-        # The wrapper under autograd: SsdScanFn with the same launches.
-        wl = [t.detach().clone().requires_grad_() for t in leaves]
-        y_w, h_w = ssd_scan(*wl, chunk=q)
-        torch.autograd.backward([y_w, h_w], [dy[:, :s], dhf])
-        torch.cuda.synchronize()
-        same = all(torch.equal(u[:, :s] if u.dim() > 1 else u, t.grad)
-                   for u, t in zip(got[:5], wl))
-        log(f"[train] ssd_scan backward {tag}: max err of the max vs ssd_scan_bwd_phases_ref "
-            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-            + "; vs autograd through ssd_scan_ref " + ", ".join(f"{k} {v:.2e}" for k, v in auto.items())
-            + f" (tol {SSD_BWD_TOL:g}); bitwise repeatable; the wrapper's SsdScanFn bitwise "
-            f"the direct calls: {same}")
-        if max(errs.values()) > SSD_BWD_TOL or max(auto.values()) > SSD_BWD_TOL or not same:
-            fail(f"ssd_scan backward at {tag}: plain {errs}, autograd {auto}, wrapper same {same}")
-        worst["plain"] = max(worst["plain"], *errs.values())
-        worst["autograd"] = max(worst["autograd"], *auto.values())
-        del got, want, leaves, wl, y_r, h_r, y_w, h_w, ops, dy, dhf, cum, g, h_in
-        torch.cuda.empty_cache()
+            if dtype == torch.bfloat16:
+                bf16_s += time.perf_counter() - t_arm
+        del ops32, dy32, dhf
     out["max_rel_err_plain"], out["max_rel_err_autograd"] = worst["plain"], worst["autograd"]
+    out["max_excess_plain_bf16"] = worst["plain_bf16"]
+    out["seconds"], out["bf16_seconds"] = time.perf_counter() - t0, bf16_s
+    log(f"[train] phase 19 (a) took {out['seconds']:.1f} s, its bf16 arms {bf16_s:.1f} s")
     return out
 
 
-def train_step_record(arch: str, variant: str, dev, batch, layers=None) -> dict:
+def time_ssd_bwd(shape, ops, dy, dhf, cum, g, h_in, got, tag) -> dict:
+    """Phase 19 (a) at an SSD_BWD_TIMED shape: the chain's device time, the
+    forward chain's, the plain phase version's, each kernel alone on a copy
+    of the filled workspaces, the bounds at the operands' element size; the
+    gradients ``got`` against the plain version."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.kernel import (
+        _ssd_scan_bwd_cuda_phase,
+        ssd_scan_bwd_cuda,
+        ssd_scan_cuda,
+    )
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_phases_ref
+
+    b, s, h, p, n, q = shape
+    elt = ops[0].element_size()
+    reps, iters = SSD_BWD_TIMED[shape][1:]
+    t_b = device_time_ms(lambda: ssd_scan_bwd_cuda(*ops, dy, dhf, cum, g, h_in, q),
+                         reps=reps, iters=iters)
+    t_f = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=reps, iters=iters)
+    # Each kernel alone on a copy of the filled workspaces (the phase
+    # launches overwrite them; ``got`` is compared below).
+    ws = tuple(t.clone() for t in got)
+    phase = {ph: device_time_ms(
+        lambda ph=ph: _ssd_scan_bwd_cuda_phase(ph, *ops, dy, dhf, cum, g, h_in, q, ws),
+        reps=reps, iters=iters) for ph in SSD_BWD_PHASES}
+    del ws
+    _, events = device_profile(lambda: ssd_scan_bwd_phases_ref(*ops, dy, dhf, cum, g, h_in, q))
+    t_p = sum(us for _, us, _ in events) / 1e3
+    work = ssd_bwd_work(b, s, h, p, n, q, elt)
+    bound, bound_by = ssd_bwd_bound_ms(*work, elt, tc=False)
+    tc_bound, tc_by = ssd_bwd_bound_ms(*work, elt, tc=True)
+    phase_work = ssd_bwd_phase_work(b, s, h, p, n, q, elt)
+    phase_bound = {ph: ssd_bwd_bound_ms(*w, elt, tc=False)[0] for ph, w in phase_work.items()}
+    phase_tc_bound = {ph: ssd_bwd_bound_ms(*w, elt, tc=True)[0] for ph, w in phase_work.items()}
+    want = ssd_scan_bwd_phases_ref(*ops, dy, dhf, cum, g, h_in, q)
+    err = max(grad_err(u, v) for u, v in zip(got[:5], want[:5]))
+    abs_err = max(float((u.float() - v.float()).abs().max()) for u, v in zip(got[:5], want[:5]))
+    # What each bound prices (ssd_bwd_bound_ms): fp32 operands at the fp32
+    # rate / as 3xTF32; bf16 ones with their pairs at the bf16 rate / as one
+    # TF32 product, mixed products as two TF32 products either way.
+    rates = ("fp32 rate", "3xTF32") if elt == 4 else ("mixed 2xTF32 + pairs bf16", "TF32 only")
+    short = ("fp32", "3xTF32") if elt == 4 else ("2xTF32+bf16", "TF32")
+    flops = ", ".join(f"{k} {v / 1e9:.2f}" for k, v in work[1].items())
+    log(f"[train] ssd_scan backward {tag}: device: backward chain {t_b:.3f} ms, forward "
+        f"chain {t_f:.3f} ms, plain phase version {t_p:.3f} ms (profiler device sum), "
+        f"bound {bound:.3f} ms ({work[0] / 1e6:.1f} MB, GFLOP {flops}; {rates[0]}, {bound_by}; "
+        f"chain at {100 * bound / t_b:.1f}% of it), {rates[1]} bound {tc_bound:.3f} ms "
+        f"({tc_by}; {100 * tc_bound / t_b:.1f}%); vs plain max err {err:.3e} of the max"
+        + (" past one bf16 ulp" if ops[0].dtype == torch.bfloat16 else ""))
+    log(f"[train] ssd_scan backward {tag}: each kernel alone (CUDA events, on filled "
+        "workspaces): " + ", ".join(
+            f"{ph} {ms:.4f} ms (bound {phase_bound[ph]:.4f} {short[0]} / "
+            f"{phase_tc_bound[ph]:.4f} {short[1]})" for ph, ms in phase.items())
+        + f"; sum {sum(phase.values()):.4f} ms")
+    if err > SSD_BWD_TOL:
+        fail(f"ssd_scan backward off its plain version at {tag}: {err:.3e}")
+    return {"ms": t_b, "fwd_ms": t_f, "plain_ms": t_p, "bound_ms": bound,
+            "bound_by": bound_by, "bound_ms_tc": tc_bound, "bound_by_tc": tc_by,
+            "phase_ms": phase, "phase_bound_ms": phase_bound,
+            "phase_bound_ms_tc": phase_tc_bound, "max_abs_err": abs_err,
+            "max_rel_err": err, "bytes": work[0]}
+
+
+def train_step_record(arch: str, variant: str, dev, batch, layers=None, dtype=None,
+                      timed: int = TRAIN_TIMED_STEPS) -> dict:
     """Phase 19 (b) / (c): ``arch`` at ``variant`` (``layers``: a depth cut,
-    None for full depth) with random fp32 weights from a seeded generator,
-    trained through make_train_step on TRAIN_BATCH-shaped steps from the
-    synthetic token stream: one warm-up step, then TRAIN_TIMED_STEPS timed
-    ones, the launch counters set to 0 before each step and read after it.
+    None for full depth) with random weights of ``dtype`` (None: fp32; the
+    draws are fp32's, rounded) from a seeded generator, trained through
+    make_train_step on TRAIN_BATCH-shaped steps from the
+    synthetic token stream: one warm-up step, then ``timed`` steps (the
+    schedule set for TRAIN_TIMED_STEPS), the launch counters set to 0
+    before each step and read after it.
     Records the walls, tokens/s, peak memory, one profiled step's busy share
     and its kernels by name, the optimizer alone; for an SSM model the
     warm-up step's layer-0 backward call (its real operands and upstream
@@ -1636,13 +1767,15 @@ def train_step_record(arch: str, variant: str, dev, batch, layers=None) -> dict:
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     b, s = batch
-    steps = 1 + TRAIN_TIMED_STEPS
-    ocfg = AdamWConfig(lr=3e-3, total_steps=steps, warmup_steps=min(20, steps // 5))
+    steps = 1 + timed
+    ocfg = AdamWConfig(lr=3e-3, total_steps=1 + TRAIN_TIMED_STEPS,
+                       warmup_steps=min(20, (1 + TRAIN_TIMED_STEPS) // 5))
     tcfg = TrainStepConfig(microbatches=TRAIN_MICROBATCHES, remat=TRAIN_REMAT, optimizer=ocfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.float32, dev)
+    dtype = dtype or torch.float32
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype, dev)
     opt = adamw_init(params)
     step, init_efb = make_train_step(cfg, tcfg, device=dev)
     efb = init_efb(params)
@@ -1747,6 +1880,93 @@ def attention_train_ms(cfg, b: int, s: int, dev) -> tuple[float, float]:
     return t_f, t_fb
 
 
+def train_arm(arch: str, variant: str, dev, batch, dtype, smi, fp32_rec=None) -> dict:
+    """Phase 19 (b) / (c), one arm: train_step_record at ``dtype`` and its
+    gates: the launch counts of every step, finite losses and grad norms,
+    for mamba2-2.7b layer 0's real backward call against the plain version,
+    for qwen2-0.5b (fp32) attention's share of the step. A bf16 arm's step-1
+    loss within TRAIN_BF16_LOSS_RTOL of ``fp32_rec``'s (the same draws,
+    rounded). An fp32 arm takes TRAIN_TIMED_STEPS_FP32 timed steps."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+
+    name = str(dtype).removeprefix("torch.")
+    rec = train_step_record(arch, variant, dev, batch, dtype=dtype,
+                            timed=TRAIN_TIMED_STEPS_FP32 if dtype == torch.float32
+                            else TRAIN_TIMED_STEPS)
+    L = rec["layers"]
+    want = ({"ssd_scan": 2 * TRAIN_MICROBATCHES * L, "ssd_scan_bwd": TRAIN_MICROBATCHES * L}
+            if arch == MAMBA_ARCH else {"ssd_scan": 0, "ssd_scan_bwd": 0})
+    want["gmsa_score"] = 0
+    log(f"[train] {smi} | {arch} ({variant}, {rec['params']:,} params, {L} layers, random "
+        f"{name} weights), {batch[0]} x {batch[1]} tokens per step, {TRAIN_MICROBATCHES} "
+        f"microbatches, remat {TRAIN_REMAT}: set-up {rec['setup_s']:.1f} s, warm-up step "
+        f"{rec['warmup_s']:.2f} s; timed steps {', '.join(f'{w:.3f}' for w in rec['walls'])} s, "
+        f"median {rec['wall_s']:.3f} s, {rec['tokens_per_s']:.0f} tokens/s; launches per "
+        f"step {rec['counts']}; loss {[round(x, 4) for x in rec['losses']]}, grad norm "
+        f"{[round(x, 4) for x in rec['grad_norms']]}; peak device memory "
+        f"{rec['peak_gib']:.2f} GiB")
+    busy = ("not measured" if rec["busy_share"] is None else
+            f"{rec['device_busy_ms']:.1f} ms of {rec['profiled_wall_s'] * 1e3:.1f} ms "
+            f"({100 * rec['busy_share']:.1f}%)")
+    log(f"[train] {arch} {name}: one profiled step: device busy {busy}; ssd_scan forward "
+        f"chains {100 * (rec['fwd_share'] or 0):.1f}% and backward chains "
+        f"{100 * (rec['bwd_share'] or 0):.1f}% of step device time (backward kernels, mean "
+        f"per launch: " + ", ".join(f"{ph} " + ("none" if ms is None else f"{ms:.4f} ms")
+                                    for ph, ms in rec["bwd_phase_ms"].items())
+        + f"); the optimizer alone "
+        f"{rec['optimizer_s'] * 1e3:.1f} ms; top kernels: "
+        + ", ".join(f"{k} {ms:.1f} ms x{c}" for k, ms, c in rec["top"]))
+    if any(c != want for c in rec["counts"]):
+        fail(f"train {arch} {name}: launches per step {rec['counts']}, expected {want}")
+    if not all(math.isfinite(x) for x in rec["losses"]) or not all(
+            math.isfinite(g) and g > 0 for g in rec["grad_norms"]):
+        fail(f"train {arch} {name}: loss {rec['losses']}, grad norm {rec['grad_norms']}")
+    if fp32_rec is not None:
+        gap = abs(rec["losses"][0] - fp32_rec["losses"][0]) / abs(fp32_rec["losses"][0])
+        rec["step1_loss_rel_gap"] = gap
+        log(f"[train] {arch} {name}: step-1 loss {rec['losses'][0]:.5f} against fp32's "
+            f"{fp32_rec['losses'][0]:.5f} from the same draws: {gap:.3e} relative (tol "
+            f"{TRAIN_BF16_LOSS_RTOL:g})")
+        if gap > TRAIN_BF16_LOSS_RTOL:
+            fail(f"train {arch} {name}: step-1 loss {rec['losses'][0]} against fp32's "
+                 f"{fp32_rec['losses'][0]}")
+    if arch == MAMBA_ARCH:
+        args = rec.pop("layer0")
+        got = ssd_scan_bwd_cuda(*args)
+        ref = ssd_scan_bwd_ref(*args)
+        torch.cuda.synchronize()
+        errs = {nm: grad_err(u, v) for nm, u, v in zip(("dx", "ddt", "da", "dB", "dC"), got, ref)}
+        rec["layer0_err"] = max(errs.values())
+        rec["layer0_abs_err"] = max(float((u.float() - v.float()).abs().max())
+                                    for u, v in zip(got, ref))
+        log(f"[train] {arch} {name}: layer 0's real SSD operands and upstream gradient "
+            f"(x {tuple(args[0].shape)} {args[0].dtype}): backward chain vs ssd_scan_bwd_ref, "
+            "max err of the max " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + (" (bf16 gradients: past one bf16 ulp)" if dtype == torch.bfloat16 else "")
+            + f" (tol {SSD_BWD_TOL:g})")
+        if rec["layer0_err"] > SSD_BWD_TOL:
+            fail(f"train {arch} {name}: layer 0's backward off the plain version: {errs}")
+        del args, got, ref
+    else:
+        rec.pop("layer0")
+    if arch != MAMBA_ARCH and dtype == torch.float32:
+        from repro_torch.configs import get_arch
+
+        cfg = get_arch(arch, variant)
+        t_f, t_fb = attention_train_ms(cfg, batch[0] // TRAIN_MICROBATCHES, batch[1], dev)
+        per_step = TRAIN_MICROBATCHES * cfg.num_layers * (t_f + t_fb)
+        rec["attn_share"] = per_step / rec["device_busy_ms"] if rec["device_busy_ms"] else None
+        log(f"[train] {arch}: blockwise attention per layer and microbatch: forward "
+            f"{t_f:.3f} ms, forward + backward {t_fb:.3f} ms; x {TRAIN_MICROBATCHES} x "
+            f"{cfg.num_layers} layers (forward, then remat's recompute and the backward) = "
+            f"{per_step:.1f} ms of the profiled step's {rec['device_busy_ms']:.1f} ms device "
+            f"time ({100 * (rec['attn_share'] or 0):.1f}%)")
+    return rec
+
+
 def phase_train(dev, smi, variant: str = "full", batch=TRAIN_BATCH, smoke_steps=None,
                 device_args=(), example_steps=None) -> dict:
     """Phase 19 (b)-(d); (a) is phase_ssd_bwd. ``variant="smoke"`` with a
@@ -1757,73 +1977,19 @@ def phase_train(dev, smi, variant: str = "full", batch=TRAIN_BATCH, smoke_steps=
 
     import torch
 
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_cuda
-    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
     import repro_torch.launch.train as launch_train
 
     out = {}
-    # (b) mamba2-2.7b, (c) qwen2-0.5b.
+    # (b) mamba2-2.7b, (c) qwen2-0.5b, each in fp32, then in bf16.
     for arch in TRAIN_ARCHS:
-        rec = train_step_record(arch, variant, dev, batch)
-        L = rec["layers"]
-        want = ({"ssd_scan": 2 * TRAIN_MICROBATCHES * L, "ssd_scan_bwd": TRAIN_MICROBATCHES * L}
-                if arch == MAMBA_ARCH else {"ssd_scan": 0, "ssd_scan_bwd": 0})
-        want["gmsa_score"] = 0
-        log(f"[train] {smi} | {arch} ({variant}, {rec['params']:,} params, {L} layers, random "
-            f"fp32 weights), {batch[0]} x {batch[1]} tokens per step, {TRAIN_MICROBATCHES} "
-            f"microbatches, remat {TRAIN_REMAT}: set-up {rec['setup_s']:.1f} s, warm-up step "
-            f"{rec['warmup_s']:.2f} s; timed steps {', '.join(f'{w:.3f}' for w in rec['walls'])} s, "
-            f"median {rec['wall_s']:.3f} s, {rec['tokens_per_s']:.0f} tokens/s; launches per "
-            f"step {rec['counts']}; loss {[round(x, 4) for x in rec['losses']]}, grad norm "
-            f"{[round(x, 4) for x in rec['grad_norms']]}; peak device memory "
-            f"{rec['peak_gib']:.2f} GiB")
-        busy = ("not measured" if rec["busy_share"] is None else
-                f"{rec['device_busy_ms']:.1f} ms of {rec['profiled_wall_s'] * 1e3:.1f} ms "
-                f"({100 * rec['busy_share']:.1f}%)")
-        log(f"[train] {arch}: one profiled step: device busy {busy}; ssd_scan forward chains "
-            f"{100 * (rec['fwd_share'] or 0):.1f}% and backward chains "
-            f"{100 * (rec['bwd_share'] or 0):.1f}% of step device time (backward kernels, mean "
-            f"per launch: " + ", ".join(f"{ph} " + ("none" if ms is None else f"{ms:.4f} ms")
-                                        for ph, ms in rec["bwd_phase_ms"].items())
-            + f"); the optimizer alone "
-            f"{rec['optimizer_s'] * 1e3:.1f} ms; top kernels: "
-            + ", ".join(f"{k} {ms:.1f} ms x{c}" for k, ms, c in rec["top"]))
-        if any(c != want for c in rec["counts"]):
-            fail(f"train {arch}: launches per step {rec['counts']}, expected {want}")
-        if not all(math.isfinite(x) for x in rec["losses"]) or not all(
-                math.isfinite(g) and g > 0 for g in rec["grad_norms"]):
-            fail(f"train {arch}: loss {rec['losses']}, grad norm {rec['grad_norms']}")
-        if arch == MAMBA_ARCH:
-            args = rec.pop("layer0")
-            got = ssd_scan_bwd_cuda(*args)
-            ref = ssd_scan_bwd_ref(*args)
-            torch.cuda.synchronize()
-            errs = {nm: rel_err_max(u, v) for nm, u, v in zip(("dx", "ddt", "da", "dB", "dC"),
-                                                             got, ref)}
-            rec["layer0_err"] = max(errs.values())
-            rec["layer0_abs_err"] = max(float((u - v).abs().max()) for u, v in zip(got, ref))
-            log(f"[train] {arch}: layer 0's real SSD operands and upstream gradient "
-                f"(x {tuple(args[0].shape)}): backward chain vs ssd_scan_bwd_ref, max err of the "
-                "max " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-                + f" (tol {SSD_BWD_TOL:g})")
-            if rec["layer0_err"] > SSD_BWD_TOL:
-                fail(f"train {arch}: layer 0's backward off the plain version: {errs}")
-            del args, got, ref
-        else:
-            rec.pop("layer0")
-            from repro_torch.configs import get_arch
-
-            cfg = get_arch(arch, variant)
-            t_f, t_fb = attention_train_ms(cfg, batch[0] // TRAIN_MICROBATCHES, batch[1], dev)
-            per_step = TRAIN_MICROBATCHES * cfg.num_layers * (t_f + t_fb)
-            rec["attn_share"] = per_step / rec["device_busy_ms"] if rec["device_busy_ms"] else None
-            log(f"[train] {arch}: blockwise attention per layer and microbatch: forward "
-                f"{t_f:.3f} ms, forward + backward {t_fb:.3f} ms; x {TRAIN_MICROBATCHES} x "
-                f"{cfg.num_layers} layers (forward, then remat's recompute and the backward) = "
-                f"{per_step:.1f} ms of the profiled step's {rec['device_busy_ms']:.1f} ms device "
-                f"time ({100 * (rec['attn_share'] or 0):.1f}%)")
-        out[arch] = rec
-        torch.cuda.empty_cache()
+        for dtype in (torch.float32, torch.bfloat16):
+            t_arm = time.perf_counter()
+            out[arch if dtype == torch.float32 else f"{arch} bf16"] = rec = train_arm(
+                arch, variant, dev, batch, dtype, smi, out.get(arch))
+            rec["seconds"] = time.perf_counter() - t_arm
+            log(f"[train] {arch} {str(dtype).removeprefix('torch.')}: the arm took "
+                f"{rec['seconds']:.1f} s")
+            torch.cuda.empty_cache()
 
     # (d) the entry points as subprocesses, at once.
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -3930,7 +4096,7 @@ def phase_entry_points(dev, smi, device_args=(), example_runs=None,
     repro_torch.benchmarks.run --record build/bench_torch.json`` at
     ``bench_runs`` runs: every ported bench with a CSV line of positive µs
     per call (kernel_bench's kernel rows each), the roofline line over at
-    least phase 21 (a)'s cells, no SKIPPED line, exit 0, the record
+    least phase 21 (a)'s cells (both dtypes), no SKIPPED line, exit 0, the record
     labelled torch_full.
     ``device_args=("--device", "cpu")`` and small counts rehearse it on the
     CPU."""
@@ -3996,7 +4162,7 @@ def phase_entry_points(dev, smi, device_args=(), example_runs=None,
     if not (run.returncode == 0 and not failed and all(v and max(v) > 0.0 for v in ran.values())
             and len(kernel_rows) == ENTRY_KERNEL_ROWS
             and all(us > 0.0 and "skipped" not in d for us, d in kernel_rows)
-            and roof_cells >= len(DRY_CELLS)
+            and roof_cells >= len(DRY_CELLS) * len(DRY_DTYPES)
             and sorted(skipped) == sorted(ENTRY_SKIPPED)
             and [h["label"] for h in history] == ["torch_full"]
             and n_records == len(lines) - len(skipped)):
@@ -4275,13 +4441,14 @@ def phase_substrate(dev, smi, cfg=None, runs: int = SUB_RUNS,
     return out
 
 
-def phase_dryrun(smi) -> dict:
-    """Phase 21 (a), before phase 18: ``lower_cell`` for each of
-    DRY_CELLS on the meta device, fp32, each artifact written to the
-    dry-run's default directory (variant ``baseline``), where the
-    orchestrator's ``roofline`` bench reads it. The counters are set to 0
-    before and read after: a meta pass launches no kernel. Returns the
-    records by (arch, kind)."""
+def phase_dryrun() -> dict:
+    """Phase 21 (a): ``lower_cell`` for each of DRY_CELLS on the meta
+    device, in each of DRY_DTYPES, each artifact written to the dry-run's
+    default directory (variant ``baseline``; shape
+    ``card_<kind>_<B>x<S>_<dtype>``), where the orchestrator's ``roofline``
+    bench reads it. The counters are set to 0 before and read after: a meta
+    pass launches no kernel. Returns the records by (arch, kind, dtype).
+    start_dryrun runs it in a process of its own."""
     import torch
 
     from repro_torch.configs import ShapeConfig
@@ -4291,18 +4458,19 @@ def phase_dryrun(smi) -> dict:
     recs = {}
     reset_counts()
     t0 = time.perf_counter()
-    for arch, kind, (b, s), phase in DRY_CELLS:
-        shape = ShapeConfig(f"card_{kind}_{b}x{s}", kind, s, b)
+    for (arch, kind, (b, s), phase), dname in ((c, d) for c in DRY_CELLS for d in DRY_DTYPES):
+        shape = ShapeConfig(f"card_{kind}_{b}x{s}_{dname}", kind, s, b)
         tcfg = (TrainStepConfig(microbatches=TRAIN_MICROBATCHES, remat=TRAIN_REMAT)
                 if kind == "train" else TrainStepConfig())
-        rec = lower_cell(arch, shape, False, tcfg, param_dtype=torch.float32)
+        rec = lower_cell(arch, shape, False, tcfg, param_dtype=getattr(torch, dname))
         path = artifact_path(arch, shape.name, MESHES[False][0], "baseline")
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(rec, indent=1))
-        recs[(arch, kind)] = rec
+        recs[(arch, kind, dname)] = rec
         rl, mem = rec["roofline"], rec["memory"]
-        log(f"[dryrun] {arch} {kind} {b} x {s} ({rec['variant']}, fp32; measured in phase "
-            f"{phase}): one meta pass of {rec['aten_ops']} ATen ops in "
+        where = phase if kind == "train" or dname == "float32" else "21 (b)"
+        log(f"[dryrun] {arch} {kind} {b} x {s} ({rec['variant']}, {dname}; measured in phase "
+            f"{where}): one meta pass of {rec['aten_ops']} ATen ops in "
             f"{rec['compile_seconds']} s; {rec['flops']:.4e} FLOPs (matmul-class), "
             f"{rec['bytes_accessed']:.4e} bytes; arguments {mem['argument_bytes'] / 2**30:.2f} "
             f"GiB, peak {mem['peak_bytes'] / 2**30:.2f} GiB (fits one card "
@@ -4311,43 +4479,127 @@ def phase_dryrun(smi) -> dict:
             f"({rl['dominant']}); {path.relative_to(ROOT)}")
     host = time.perf_counter() - t0
     counts = read_counts()
-    log(f"[dryrun] {len(DRY_CELLS)} cells in {host:.1f} s of host time (budget "
+    log(f"[dryrun] {len(recs)} cells in {host:.1f} s of host time (budget "
         f"{DRY_HOST_BUDGET_S} s); launches {counts}")
     if any(counts.values()):
         fail(f"dryrun: a meta pass launched a kernel: {counts}")
     return recs
 
 
+def dryrun_cells(out: Path) -> int:
+    """``python3 chip_smoke.py --dryrun-cells OUT``: phase_dryrun alone,
+    its records written to OUT as JSON by ``arch|kind|dtype``."""
+    recs = phase_dryrun()
+    out.write_text(json.dumps({"|".join(k): v for k, v in recs.items()}))
+    return 0
+
+
+def start_dryrun() -> tuple[subprocess.Popen, Path, Path]:
+    """Phase 21 (a) in a process of its own, started before the build: the
+    meta passes need no card (its CUDA_VISIBLE_DEVICES is empty) and take
+    one host core, so they run beside the build and the phases after it.
+    Returns the process, its log and its records' path (under build/)."""
+    where = ROOT / "build"
+    where.mkdir(exist_ok=True)
+    log_path, out = where / "dryrun_cells.log", where / "dryrun_cells.json"
+    out.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    with open(log_path, "w") as sink:
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dryrun-cells",
+                                 str(out)], stdout=sink, stderr=subprocess.STDOUT, cwd=ROOT,
+                                env=env)
+    return proc, log_path, out
+
+
+def collect_dryrun(proc: subprocess.Popen, log_path: Path, out: Path, started: float) -> dict:
+    """Wait for start_dryrun's process, relay its log, fail if it failed;
+    returns phase_dryrun's records."""
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=600)
+    waited = time.perf_counter() - t0
+    for line in log_path.read_text().splitlines():
+        log(line)
+    if rc != 0:
+        fail(f"dryrun: the meta passes' process exited {rc}")
+    log(f"[dryrun] phase 21 (a) ran in its own process beside phases 2-17; phase 18 waited "
+        f"{waited:.1f} s for it ({t0 + waited - started:.1f} s after it started)")
+    return {tuple(k.split("|")): v for k, v in json.loads(out.read_text()).items()}
+
+
+def prefill_walls(arch: str, dtype, dev, batch=TRAIN_BATCH, variant: str = "full") -> list[float]:
+    """Phase 21 (b)'s walls of the dry-run's prefill step
+    (make_prefill_step, blockwise attention) for ``arch`` at ``variant``
+    with random ``dtype`` weights (init_params, seed 0), on the synthetic token
+    stream's first batch of ``batch`` tokens: a warm-up call, then
+    PREFILL_TIMED_CALLS, each ended by a synchronize."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import MESHES
+    from repro_torch.launch.train import token_batch
+    from repro_torch.models.lm import init_params
+    from repro_torch.serve.step import make_prefill_step
+    from repro_torch.traces.tokens import SyntheticTokenStream, TokenPipelineConfig, lm_inputs
+
+    cfg = get_arch(arch, variant)
+    b, s = batch
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype, dev)
+    pipe = SyntheticTokenStream(TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=s + 1,
+                                                    global_batch=b, seed=0))
+    tokens = token_batch(lm_inputs(pipe.batch(0)), dev)["tokens"]
+    prefill, _, _ = make_prefill_step(cfg, MESHES[False][1], "blockwise", device=dev)
+    walls = []
+    for i in range(1 + PREFILL_TIMED_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, tokens=tokens)
+        torch.cuda.synchronize()
+        if i:
+            walls.append(time.perf_counter() - t0)
+    del params, tokens
+    torch.cuda.empty_cache()
+    return walls
+
+
 def phase_dryrun_against_card(smi, recs: dict, measured: dict) -> None:
-    """Phase 21 (b), after phase 19: each DRY_CELLS record against what the
-    card measured in this run. ``measured``: (arch, kind) -> (steady walls
-    in seconds, peak GiB or None). The roofline's bound must not exceed the
-    fastest wall (a bound above a wall means a wrong count or constant);
-    a train cell's dry-run peak must be within DRY_PEAK_RTOL of
-    ``max_memory_allocated``."""
+    """Phase 21 (b), after phase 19: each DRY_CELLS record, in each of
+    DRY_DTYPES, against what the card measured in this run. ``measured``:
+    (arch, kind, dtype) -> (steady walls in seconds, peak GiB or None). The
+    roofline's bound must not exceed the fastest wall (a bound above a wall
+    means a wrong count or constant); a train cell's dry-run peak must be
+    within DRY_PEAK_RTOL of ``max_memory_allocated``."""
+    import torch
+
+    from repro_torch.launch.roofline import peak_flops_for
+
     bad = []
-    for arch, kind, (b, s), phase in DRY_CELLS:
-        rec = recs[(arch, kind)]
-        walls, peak_gib = measured[(arch, kind)]
+    for (arch, kind, (b, s), phase), dname in ((c, d) for c in DRY_CELLS for d in DRY_DTYPES):
+        rec = recs[(arch, kind, dname)]
+        walls, peak_gib = measured[(arch, kind, dname)]
         rl = rec["roofline"]
         wall = min(walls)
-        line = (f"[dryrun] {smi} | {arch} {kind} {b} x {s}: bound {rl['step_time_s']:.4f} s "
-                f"({rl['dominant']}; compute {rl['compute_s']:.4f} s at 67 TFLOP/s fp32, "
-                f"memory {rl['memory_s']:.4f} s at 3.35 TB/s) against phase {phase}'s walls "
+        where = phase if kind == "train" or dname == "float32" else "21 (b)"
+        peak = peak_flops_for(getattr(torch, rec["param_dtype"]))
+        line = (f"[dryrun] {smi} | {arch} {kind} {b} x {s} {dname}: bound "
+                f"{rl['step_time_s']:.4f} s ({rl['dominant']}; compute {rl['compute_s']:.4f} s "
+                f"at {peak / 1e12:.0f} TFLOP/s {rec['param_dtype']}, memory "
+                f"{rl['memory_s']:.4f} s at 3.35 TB/s) against phase {where}'s walls "
                 f"{', '.join(f'{w:.4f}' for w in walls)} s: the fastest wall reaches "
                 f"{100 * rl['step_time_s'] / wall:.1f}% of the roofline (compute alone "
                 f"{100 * rl['compute_s'] / wall:.1f}%); roofline_fraction "
                 f"{rl['roofline_fraction']:.3f}, useful_flops_ratio "
                 f"{rl['useful_flops_ratio']:.3f}")
         if rl["step_time_s"] > wall:
-            bad.append(f"{arch} {kind}: bound {rl['step_time_s']:.4f} s above the wall {wall:.4f}")
+            bad.append(f"{arch} {kind} {dname}: bound {rl['step_time_s']:.4f} s above the wall "
+                       f"{wall:.4f}")
         if peak_gib is not None:
             dry_gib = rec["memory"]["peak_bytes"] / 2**30
             rel = abs(dry_gib - peak_gib) / peak_gib
             line += (f"; peak: dry-run {dry_gib:.2f} GiB, max_memory_allocated {peak_gib:.2f} "
                      f"GiB, {100 * rel:.1f}% apart (tol {100 * DRY_PEAK_RTOL:.0f}%)")
             if rel > DRY_PEAK_RTOL:
-                bad.append(f"{arch} {kind}: peak {dry_gib:.2f} GiB against {peak_gib:.2f}")
+                bad.append(f"{arch} {kind} {dname}: peak {dry_gib:.2f} GiB against "
+                           f"{peak_gib:.2f}")
         log(line)
     if bad:
         fail(f"dryrun against the card: {bad}")
@@ -4355,15 +4607,34 @@ def phase_dryrun_against_card(smi, recs: dict, measured: dict) -> None:
 
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:2] == ["--dryrun-cells"]:
+        return dryrun_cells(Path(sys.argv[2]))
     import torch
 
-    from repro_torch.kernels._build import SOURCES
+    from repro_torch.kernels._build import SOURCES  # noqa: F401 (fails outside the repo)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     smi = phase_device()
+    started = time.perf_counter()
+    dry_run = start_dryrun()
+    try:
+        return run_phases(dev, smi, dry_run, started)
+    finally:
+        if dry_run[0].poll() is None:
+            dry_run[0].kill()
+            dry_run[0].wait()
+
+
+def run_phases(dev, smi, dry_run, started) -> int:
+    """Phases 2-22; ``dry_run``: start_dryrun's process, collected before
+    phase 18."""
+    import torch
+
+    from repro_torch.kernels._build import SOURCES
+
     mma = phase_build()
     main_shape = phase_kernels(dev)
     mism, lock_rel = phase_lockstep(dev)
@@ -4382,7 +4653,7 @@ def main() -> int:
     t0 = time.perf_counter()
     front = phase_frontends(dev, smi)
     log(f"[frontends] phase 17 took {time.perf_counter() - t0:.1f} s")
-    dry = phase_dryrun(smi)
+    dry = collect_dryrun(*dry_run, started)
     t0 = time.perf_counter()
     phase_entry_points(dev, smi)
     log(f"[entry] phase 18 took {time.perf_counter() - t0:.1f} s")
@@ -4393,12 +4664,21 @@ def main() -> int:
     t0 = time.perf_counter()
     substrate = phase_substrate(dev, smi)
     log(f"[substrate] phase 20 took {time.perf_counter() - t0:.1f} s")
+    bf = {arch: train[f"{arch} bf16"] for arch in TRAIN_ARCHS}
+    t0 = time.perf_counter()
+    bf16_prefill = {arch: prefill_walls(arch, torch.bfloat16, dev) for arch in TRAIN_ARCHS}
     phase_dryrun_against_card(smi, dry, {
-        (MAMBA_ARCH, "train"): (train[MAMBA_ARCH]["walls"], train[MAMBA_ARCH]["peak_gib"]),
-        ("qwen2-0.5b", "train"): (train["qwen2-0.5b"]["walls"], train["qwen2-0.5b"]["peak_gib"]),
-        (MAMBA_ARCH, "prefill"): (mamba_prefill_s, None),
-        ("qwen2-0.5b", "prefill"): (dense_prefill_s["qwen2-0.5b"], None),
+        (MAMBA_ARCH, "train", "float32"): (train[MAMBA_ARCH]["walls"],
+                                           train[MAMBA_ARCH]["peak_gib"]),
+        ("qwen2-0.5b", "train", "float32"): (train["qwen2-0.5b"]["walls"],
+                                             train["qwen2-0.5b"]["peak_gib"]),
+        (MAMBA_ARCH, "prefill", "float32"): (mamba_prefill_s, None),
+        ("qwen2-0.5b", "prefill", "float32"): (dense_prefill_s["qwen2-0.5b"], None),
+        **{(arch, "train", "bfloat16"): (bf[arch]["walls"], bf[arch]["peak_gib"])
+           for arch in TRAIN_ARCHS},
+        **{(arch, "prefill", "bfloat16"): (bf16_prefill[arch], None) for arch in TRAIN_ARCHS},
     })
+    log(f"[dryrun] phase 21 (b) took {time.perf_counter() - t0:.1f} s")
 
     entry = {
         "name": "gmsa_score",
@@ -4490,8 +4770,9 @@ def main() -> int:
         "bound_by_hybrid": ssd["bound_by_hybrid"],
         "launches_train": train[MAMBA_ARCH]["counts"][1]["ssd_scan"],
         "launches_train_dense": train["qwen2-0.5b"]["counts"][1]["ssd_scan"],
+        "launches_train_bf16": train[f"{MAMBA_ARCH} bf16"]["counts"][1]["ssd_scan"],
     }
-    mamba = train[MAMBA_ARCH]
+    mamba, mamba_bf16 = train[MAMBA_ARCH], train[f"{MAMBA_ARCH} bf16"]
     bwd_entry = {
         "name": "ssd_scan_bwd",
         "route": "cuda",
@@ -4528,7 +4809,31 @@ def main() -> int:
         "phase_bound_ms_tc_hybrid": ssd_bwd["hybrid"]["phase_bound_ms_tc"],
         "train_step_s": mamba["wall_s"],
         "train_tokens_per_s": mamba["tokens_per_s"],
+        "launches_bf16": mamba_bf16["counts"][1]["ssd_scan_bwd"],
+        "max_abs_err_bf16": ssd_bwd["train_bf16"]["max_abs_err"],
+        "max_excess_bf16": max(ssd_bwd["train_bf16"]["max_rel_err"],
+                               ssd_bwd["max_excess_plain_bf16"]),
+        "ms_bf16": ssd_bwd["train_bf16"]["ms"],
+        "fwd_ms_bf16": ssd_bwd["train_bf16"]["fwd_ms"],
+        "plain_ms_bf16": ssd_bwd["train_bf16"]["plain_ms"],
+        "bound_ms_bf16": ssd_bwd["train_bf16"]["bound_ms"],
+        "bound_by_bf16": ssd_bwd["train_bf16"]["bound_by"],
+        "bound_ms_tc_bf16": ssd_bwd["train_bf16"]["bound_ms_tc"],
+        "phase_ms_bf16": ssd_bwd["train_bf16"]["phase_ms"],
+        "bound_by_tc_bf16": ssd_bwd["train_bf16"]["bound_by_tc"],
+        "phase_bound_ms_bf16": ssd_bwd["train_bf16"]["phase_bound_ms"],
+        "phase_bound_ms_tc_bf16": ssd_bwd["train_bf16"]["phase_bound_ms_tc"],
+        "phase_ms_in_step_bf16": mamba_bf16["bwd_phase_ms"],
+        "layer0_excess_bf16": mamba_bf16["layer0_err"],
+        "ms_hybrid_bf16": ssd_bwd["hybrid_bf16"]["ms"],
+        "plain_ms_hybrid_bf16": ssd_bwd["hybrid_bf16"]["plain_ms"],
+        "bound_ms_hybrid_bf16": ssd_bwd["hybrid_bf16"]["bound_ms"],
+        "bound_by_hybrid_bf16": ssd_bwd["hybrid_bf16"]["bound_by"],
+        "phase_ms_hybrid_bf16": ssd_bwd["hybrid_bf16"]["phase_ms"],
+        "train_step_s_bf16": mamba_bf16["wall_s"],
+        "train_tokens_per_s_bf16": mamba_bf16["tokens_per_s"],
     }
+    log(f"[device] phases 2-21 took {time.perf_counter() - started:.1f} s")
     log(f"[device] {smi}")
     print(json.dumps({"kernels": [entry, ssd_entry, bwd_entry]}))
     print(json.dumps({"ok": True, "device": {

@@ -55,8 +55,11 @@
 // What bounds it on this card: operations. At mamba2-2.7b's training
 // microbatch (B = 2, S = 2048, H = 80, P = 64, N = 128, Q = 256, fp32) the
 // gradient needs ≈ 32.6 GFLOP (≈ 0.49 ms on the fp32 CUDA cores, ≈ 0.20 ms as
-// 3xTF32 on the tensor cores; chip_smoke.py's ssd_bwd_work under bound_ms
-// and tc_bound_ms) against 0.32 GB of HBM traffic (0.09 ms). The chain
+// 3xTF32 on the tensor cores; chip_smoke.py's ssd_bwd_work under
+// ssd_bwd_bound_ms) against 0.32 GB of HBM traffic (0.09 ms); with bf16 x,
+// B, C and dy, ≈ 0.115 ms at fp32 accuracy (27.1 GFLOP of bf16 x fp32
+// products as two TF32 products each, the 5.4 GFLOP dy xᵀ at the bf16 rate)
+// against 0.19 GB (0.06 ms). The chain
 // executes ≈ 47.3 GFLOP of fp32 products, all on the tensor cores as three
 // TF32 products each (≈ 142 TF32 GFLOP): chunk_dstate 5.4 (D) + 6.7 (R: M
 // per head and causal tile pair), chunk_bwd 24.2 (M, the (L ⊙ CB)ᵀ dy tiles,
@@ -135,11 +138,27 @@
 //   * every global offset is 64-bit.
 // Limits: as the forward's: P <= 64, N <= 128, Q <= 1024, every grid under
 // 2^31 blocks; the launcher refuses others.
+//
+// Element types: x, B, C, dy and the gradients dx, dB, dC share one type T,
+// fp32 or bf16 (the forward's y is in x's dtype, so dy is too); dt, a, ddt,
+// da, dh_final and every workspace are fp32 (cum fp64) in both. A bf16
+// operand is staged in shared memory as it is in global memory (cp.async
+// copies bytes: 8 bf16 a 16-byte chunk, where fp32 takes 4) and widened to
+// fp32 as a fragment element is loaded; dx, dB and dC are rounded to bf16
+// once, from the fp32 value the fp32 chain would store. A bf16 value is
+// exact in TF32, so its small part in the 3xTF32 split is zero: a product
+// whose operand is an unscaled bf16 tile skips the tensor-core product
+// that would read that small part, with the same sum: two TF32 products
+// where fp32 takes three, and one for M = dy_t x_sᵀ, whose two operands
+// are.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -170,6 +189,28 @@ static_assert(kPlane >= kMK * (kT + 8), "a k-major plane fits");
 static_assert(kBwdStages * kPlane <= kT * kLdT && kBwdStages * kPlane <= kT * kWLd &&
               kT * kLdH <= kTilesWords, "chunk_bwd's rings and h_in fit its tiles");
 static_assert(kThreads == 2 * kT, "chunk_dstate's R: one thread per cum_t, cum_s copy");
+
+// The element types of x, B, C, dy and dx, dB, dC.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+template <typename T>
+constexpr bool IsBf16 = false;
+template <>
+constexpr bool IsBf16<__nv_bfloat16> = true;
+
+// Elements of T per copied chunk: 16 bytes (kV), else one element.
+template <typename T, bool kV>
+constexpr int kChunk = kV ? 16 / (int)sizeof(T) : 1;
+// Row strides, in elements of T, of an m-major plane and of the dy_t and x_s
+// tiles: a 16-byte chunk of bf16 needs rows a multiple of 8 elements apart.
+template <typename T>
+constexpr int kLdMOf = IsBf16<T> ? kMK + 8 : kLdM;
+template <typename T>
+constexpr int kLdTOf = IsBf16<T> ? kT + 8 : kLdT;
+static_assert(kT * kLdMOf<__nv_bfloat16> / 2 <= kPlane && kT * kLdTOf<__nv_bfloat16> / 2 <= kT * kLdT,
+              "a bf16 plane or tile fits an fp32 one's words");
 
 // ---- The tensor-core routine (chunk_dstate, chunk_bwd, chunk_dbc) ---------
 //
@@ -222,26 +263,31 @@ __device__ __forceinline__ void zero(float (&acc)[2][NI][4]) {
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 }
 
-// Where element (m, k) of a slab of `rows` rows lies in its plane: m-major
-// (rows kLdM apart) when the source runs along k, else k-major (rows of
-// rows + 8). Either way a fragment load's 32 lanes hit 32 banks, and the
-// stores, consecutive along the source, at most two to a bank.
-template <bool kAlongK, int kRows>
+// Where element (m, k) of a slab of `rows` rows of T lies in its plane:
+// m-major (rows kLdMOf<T> apart) when the source runs along k, else k-major
+// (rows of rows + 8). Either way a fp32 fragment load's 32 lanes hit 32
+// banks, and the stores, consecutive along the source, at most two to a
+// bank.
+template <bool kAlongK, int kRows, typename T>
 __device__ __forceinline__ int plane_at(int m, int k) {
-  return kAlongK ? m * kLdM + k : k * (kRows + 8) + m;
+  return kAlongK ? m * kLdMOf<T> + k : k * (kRows + 8) + m;
 }
 
-// Asynchronous copy of kW floats (4, 8 or 16 bytes, as aligned) from global
-// to shared memory (cp.async), and its group bookkeeping.
-template <int kW>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+// Copy of kBytes (16, 8 or 4 bytes, as aligned) from global to shared
+// memory by cp.async, and its group bookkeeping. cp.async has no 2-byte
+// form: a lone bf16 element is copied by a load and a store, landed before
+// the barrier that follows the group's wait.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (kW == 4)
+  if constexpr (kBytes == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src) : "memory");
-  else if constexpr (kW == 2)
+  else if constexpr (kBytes == 8)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" :: "r"(d), "l"(src) : "memory");
-  else
+  else if constexpr (kBytes == 4)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src) : "memory");
+  else
+    *static_cast<unsigned short*>(dst) = *static_cast<const unsigned short*>(src);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -281,32 +327,41 @@ struct NoSource {
   __device__ const float* operator()(int, int) const { return nullptr; }
 };
 
-// Zero-fills kW floats of shared memory (where a copy has no source).
-template <int kW>
-__device__ __forceinline__ void zero_chunk(float* dst) {
-  if constexpr (kW == 4) *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-  else *dst = 0.f;
+// Zero-fills kBytes of shared memory (where a copy has no source).
+template <int kBytes>
+__device__ __forceinline__ void zero_chunk(void* dst) {
+  static_assert(kBytes == 16 || kBytes == 8 || kBytes == 4 || kBytes == 2,
+                "zero_chunk: a chunk is 16, 8, 4 or 2 bytes");
+  if constexpr (kBytes == 16) *static_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  else if constexpr (kBytes == 8) *static_cast<float2*>(dst) = make_float2(0.f, 0.f);
+  else if constexpr (kBytes == 4) *static_cast<float*>(dst) = 0.f;
+  else *static_cast<unsigned short*>(dst) = 0;
 }
 
 // One 8-deep step of k of the block's 64 x 16·NI product, both operands in
 // shared memory, the step at A's depth ka and B's kb: A(m, k) at A[m * lda +
 // k] (kAk) or A[k * lda + m], B(k, n) at B[n * ldb + k] (kBk) or B[k * ldb +
-// n]. Each fragment element is split
+// n], each widened to fp32 as it is read. Each fragment element is split
 // into big = rna_tf32(v) and small = rna_tf32(v - big) as it is loaded, A's
 // rows scaled by xa(m, kabs) first (kabs the step's depth in the whole
 // product; with a PerK xa, element k of A's rows by xa(m, kabs + k)), B's
-// columns by xb(n, kabs), and a tile takes big·small + small·big + big·big. With the row
-// strides used here (20, 68, 72, 132, 16·NI + 8) no two lanes of a
-// fragment load hit one bank, but for a k-major B at stride 68 (two).
-template <bool kAk, bool kBk, int NI, typename XA, typename XB = NoScale>
-__device__ __forceinline__ void mma_step(float (&acc)[2][NI][4], const float* __restrict__ A,
-                                         int lda, int ka, const float* __restrict__ B, int ldb,
+// columns by xb(n, kabs), and a tile takes big·small + small·big + big·big;
+// an unscaled bf16 operand's small part is zero, and the product that reads
+// it is skipped. With the fp32 row strides used here (20, 68, 72, 132, 16·NI
+// + 8) no two lanes of a fragment load hit one bank, but for a k-major B at
+// stride 68 (two).
+template <bool kAk, bool kBk, int NI, typename TA, typename TB, typename XA,
+          typename XB = NoScale>
+__device__ __forceinline__ void mma_step(float (&acc)[2][NI][4], const TA* __restrict__ A,
+                                         int lda, int ka, const TB* __restrict__ B, int ldb,
                                          int kb, XA xa, int kabs, XB xb = XB()) {
+  constexpr bool kAExact = IsBf16<TA> && std::is_same_v<XA, NoScale>;
+  constexpr bool kBExact = IsBf16<TB> && std::is_same_v<XB, NoScale>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
   const int wr = (warp >> 1) * 32, wc = (warp & 1) * 8 * NI;
-  auto a_at = [&](int m, int kk) { return kAk ? A[m * lda + kk] : A[kk * lda + m]; };
-  auto b_at = [&](int kk, int n) { return kBk ? B[n * ldb + kk] : B[kk * ldb + n]; };
+  auto a_at = [&](int m, int kk) { return to_f32(kAk ? A[m * lda + kk] : A[kk * lda + m]); };
+  auto b_at = [&](int kk, int n) { return to_f32(kBk ? B[n * ldb + kk] : B[kk * ldb + n]); };
   uint32_t bb[NI][2], bs[NI][2];
 #pragma unroll
   for (int ni = 0; ni < NI; ++ni) {
@@ -333,8 +388,8 @@ __device__ __forceinline__ void mma_step(float (&acc)[2][NI][4], const float* __
     split_tf32(sc[3] * a_at(m + 8, ka + q + 4), ab[3], as[3]);
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni) {
-      mma_tf32(acc[mi][ni], ab, bs[ni][0], bs[ni][1]);
-      mma_tf32(acc[mi][ni], as, bb[ni][0], bb[ni][1]);
+      if constexpr (!kBExact) mma_tf32(acc[mi][ni], ab, bs[ni][0], bs[ni][1]);
+      if constexpr (!kAExact) mma_tf32(acc[mi][ni], as, bb[ni][0], bb[ni][1]);
       mma_tf32(acc[mi][ni], ab, bb[ni][0], bb[ni][1]);
     }
   }
@@ -344,27 +399,29 @@ __device__ __forceinline__ void mma_step(float (&acc)[2][NI][4], const float* __
 // memory (layouts as mma_step's), A's rows scaled by xa(m, k) and B's
 // columns by xb(n, k), each uniform over an 8-deep step. No barrier: the
 // caller makes them ready.
-template <bool kAk, bool kBk, int NI, typename XA = NoScale, typename XB = NoScale>
-__device__ __forceinline__ void mma_resident(float (&acc)[2][NI][4], const float* A, int lda,
-                                             const float* B, int ldb, int depth, XA xa = XA(),
+template <bool kAk, bool kBk, int NI, typename XA = NoScale, typename XB = NoScale, typename TA,
+          typename TB>
+__device__ __forceinline__ void mma_resident(float (&acc)[2][NI][4], const TA* A, int lda,
+                                             const TB* B, int ldb, int depth, XA xa = XA(),
                                              XB xb = XB()) {
   for (int k = 0; k < depth; k += 8)
     mma_step<kAk, kBk, NI>(acc, A, lda, k, B, ldb, k, xa, k, xb);
 }
 
-// This thread's share of a rows x cols tile copied by cp.async into dst
-// (rows ld apart) in chunks of kW floats along the columns (cols a multiple
-// of kW); src(r, c) gives the chunk's address, nullptr for zeros. The
-// caller commits and waits.
-template <int kW, typename F>
-__device__ __forceinline__ void load_tile(float* dst, int ld, int rows, int cols, F src) {
-  const int per_row = cols / kW, dr = kThreads / per_row, dc = kThreads % per_row;
+// This thread's share of a rows x cols tile of T copied by cp.async into
+// dst (rows ld elements apart) in chunks of kE elements along the columns
+// (cols a multiple of kE); src(r, c) gives the chunk's address, nullptr for
+// zeros. The caller commits and waits.
+template <int kE, typename T, typename F>
+__device__ __forceinline__ void load_tile(T* dst, int ld, int rows, int cols, F src) {
+  constexpr int kBytes = kE * (int)sizeof(T);
+  const int per_row = cols / kE, dr = kThreads / per_row, dc = kThreads % per_row;
   int r = threadIdx.x / per_row, cc = threadIdx.x % per_row;
   while (r < rows) {
-    const int col = cc * kW;
-    const float* from = src(r, col);
-    if (from) cp_async<kW>(dst + r * ld + col, from);
-    else zero_chunk<kW>(dst + r * ld + col);
+    const int col = cc * kE;
+    const T* from = src(r, col);
+    if (from) cp_async<kBytes>(dst + r * ld + col, from);
+    else zero_chunk<kBytes>(dst + r * ld + col);
     r += dr;
     cc += dc;
     if (cc >= per_row) cc -= per_row, ++r;
@@ -376,63 +433,65 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, int rows, int cols
 // k (NoScale() where there is none), or A's columns by a KScale's w[k] (w
 // read up to the last slab's end).
 //
-// Operands come from global memory in chunks of kW floats along the
-// dimension their source runs along (kAk / kBk: along k; else along m / n):
-// sa(m, k) (sb(k, n)) gives the address of the chunk that starts at the
-// element, nullptr where the chunk is zero; consecutive threads take
-// consecutive chunks, so the copies are coalesced. With kARes, A is no copy
-// but resident in shared memory at a_res over the whole depth (rows lda
-// apart, layout as mma_step's). depth is a multiple of kW.
+// Operands come from global memory in chunks of 16 bytes (kV; else one
+// element) along the dimension their source runs along (kAk / kBk: along k;
+// else along m / n): sa(m, k) (sb(k, n)) gives the address of the chunk
+// that starts at the element, nullptr where the chunk is zero; consecutive
+// threads take consecutive chunks, so the copies are coalesced. A's elements
+// are TA, B's TB (fp32 or bf16). With kARes, A is no copy but resident in
+// shared memory at a_res over the whole depth (rows lda apart, layout as
+// mma_step's). depth is a multiple of a chunk's elements.
 //
 // The copies run by cp.async into rings of kS planes for A (ring_a) and for
 // B (ring_b), kS - 1 slabs ahead of the products, so no register holds a
 // load in flight. A plane holds its slab as it is in memory: m-major (rows
-// kLdM apart) when the source runs along k, else k-major (rows of
-// 64 + 8 or 16·NI + 8), so neither the chunk stores nor the fragment loads
-// hit a bank twice. A barrier precedes the first read of the planes and of
-// a_res, so the caller may write a_res right before the call; the call ends
-// with a barrier, so the caller may write it right after.
-template <int kS, int kW, bool kAk, bool kBk, bool kARes, int NI, typename SA, typename SB,
-          typename XA>
+// kLdMOf apart) when the source runs along k, else k-major (rows of
+// 64 + 8 or 16·NI + 8), so neither the chunk stores nor the fp32 fragment
+// loads hit a bank twice. A barrier precedes the first read of the planes
+// and of a_res, so the caller may write a_res right before the call; the
+// call ends with a barrier, so the caller may write it right after.
+template <int kS, bool kV, bool kAk, bool kBk, bool kARes, int NI, typename TA, typename TB,
+          typename SA, typename SB, typename XA>
 __device__ __forceinline__ void mma_tile(float (&acc)[2][NI][4], float* __restrict__ ring_a,
                                          float* __restrict__ ring_b, int depth, SA sa, SB sb,
-                                         XA xa, const float* __restrict__ a_res = nullptr,
+                                         XA xa, const TA* __restrict__ a_res = nullptr,
                                          int lda = 0) {
   constexpr int kTN = 16 * NI;
-  constexpr int kChunksA = kARes ? 0 : kT * kMK / kW;
-  constexpr int kChunksB = kTN * kMK / kW;
-  constexpr int kLdA = kAk ? kLdM : kT + 8, kLdB = kBk ? kLdM : kTN + 8;
+  constexpr int kEA = kChunk<TA, kV>, kEB = kChunk<TB, kV>;
+  constexpr int kChunksA = kARes ? 0 : kT * kMK / kEA;
+  constexpr int kChunksB = kTN * kMK / kEB;
+  constexpr int kLdA = kAk ? kLdMOf<TA> : kT + 8, kLdB = kBk ? kLdMOf<TB> : kTN + 8;
   const int nslabs = (depth + kMK - 1) / kMK;
   // This thread's chunks of slab t into stage t % kS, one group.
   auto issue = [&](int t) {
     if (t < nslabs) {
-      float* const a_st = ring_a + (t % kS) * kPlane;
-      float* const b_st = ring_b + (t % kS) * kPlane;
+      TA* const a_st = reinterpret_cast<TA*>(ring_a + (t % kS) * kPlane);
+      TB* const b_st = reinterpret_cast<TB*>(ring_b + (t % kS) * kPlane);
       const int k0 = t * kMK;
 #pragma unroll
       for (int i = 0; i < (kChunksA + kThreads - 1) / kThreads; ++i) {
         const int c = threadIdx.x + i * kThreads;
-        constexpr int kPerLine = kAk ? kMK / kW : kT / kW;
-        const int k = kAk ? c % kPerLine * kW : c / kPerLine;
-        const int m = kAk ? c / kPerLine : c % kPerLine * kW;
+        constexpr int kPerLine = kAk ? kMK / kEA : kT / kEA;
+        const int k = kAk ? c % kPerLine * kEA : c / kPerLine;
+        const int m = kAk ? c / kPerLine : c % kPerLine * kEA;
         if (c < kChunksA) {
-          float* dst = a_st + plane_at<kAk, kT>(m, k);
-          const float* src = k0 + k < depth ? sa(m, k0 + k) : nullptr;
-          if (src) cp_async<kW>(dst, src);
-          else zero_chunk<kW>(dst);
+          TA* dst = a_st + plane_at<kAk, kT, TA>(m, k);
+          const TA* src = k0 + k < depth ? sa(m, k0 + k) : nullptr;
+          if (src) cp_async<kEA * (int)sizeof(TA)>(dst, src);
+          else zero_chunk<kEA * (int)sizeof(TA)>(dst);
         }
       }
 #pragma unroll
       for (int i = 0; i < (kChunksB + kThreads - 1) / kThreads; ++i) {
         const int c = threadIdx.x + i * kThreads;
-        constexpr int kPerLine = kBk ? kMK / kW : kTN / kW;
-        const int k = kBk ? c % kPerLine * kW : c / kPerLine;
-        const int n = kBk ? c / kPerLine : c % kPerLine * kW;
+        constexpr int kPerLine = kBk ? kMK / kEB : kTN / kEB;
+        const int k = kBk ? c % kPerLine * kEB : c / kPerLine;
+        const int n = kBk ? c / kPerLine : c % kPerLine * kEB;
         if (c < kChunksB) {
-          float* dst = b_st + plane_at<kBk, kTN>(n, k);
-          const float* src = k0 + k < depth ? sb(k0 + k, n) : nullptr;
-          if (src) cp_async<kW>(dst, src);
-          else zero_chunk<kW>(dst);
+          TB* dst = b_st + plane_at<kBk, kTN, TB>(n, k);
+          const TB* src = k0 + k < depth ? sb(k0 + k, n) : nullptr;
+          if (src) cp_async<kEB * (int)sizeof(TB)>(dst, src);
+          else zero_chunk<kEB * (int)sizeof(TB)>(dst);
         }
       }
     }
@@ -447,12 +506,12 @@ __device__ __forceinline__ void mma_tile(float (&acc)[2][NI][4], float* __restri
     const int k0 = t * kMK;
 #pragma unroll
     for (int kk = 0; kk < kMK; kk += 8) {
+      const TB* b_st = reinterpret_cast<const TB*>(ring_b + (t % kS) * kPlane);
       if constexpr (kARes)
-        mma_step<kAk, kBk, NI>(acc, a_res, lda, k0 + kk, ring_b + (t % kS) * kPlane, kLdB, kk,
-                               xa, k0 + kk);
+        mma_step<kAk, kBk, NI>(acc, a_res, lda, k0 + kk, b_st, kLdB, kk, xa, k0 + kk);
       else
-        mma_step<kAk, kBk, NI>(acc, ring_a + (t % kS) * kPlane, kLdA, kk,
-                               ring_b + (t % kS) * kPlane, kLdB, kk, xa, k0 + kk);
+        mma_step<kAk, kBk, NI>(acc, reinterpret_cast<const TA*>(ring_a + (t % kS) * kPlane),
+                               kLdA, kk, b_st, kLdB, kk, xa, k0 + kk);
     }
   }
   cp_async_wait<0>();          // only empty groups remain
@@ -514,11 +573,11 @@ constexpr size_t dstate_smem_bytes() {
 // the heads [16·group, 16·group + 16) for the tile (it, js) into r_part[b,
 // c, group]; blocks [nr, nr + nd): ((b * nc + c) * H + h) * ncols + col:
 // D_c[p][n] for the column tile col of 16·NI. Operands copied in chunks of
-// kW floats.
-template <int NI, int kW>
+// 16 bytes (kV) or one element; x, C and dy are T.
+template <int NI, bool kV, typename T>
 __global__ void __launch_bounds__(kThreads, 3)
-ssd_bwd_chunk_dstate_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                            const float* __restrict__ cm, const float* __restrict__ dy,
+ssd_bwd_chunk_dstate_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                            const T* __restrict__ cm, const T* __restrict__ dy,
                             const double* __restrict__ cum, float* __restrict__ gstates,
                             float* __restrict__ r_part, int64_t S, int H, int P, int N, int Q,
                             int64_t nr) {
@@ -537,11 +596,11 @@ ssd_bwd_chunk_dstate_kernel(const float* __restrict__ x, const float* __restrict
     const double* cu = cum + (b * H + h) * S + (bc - b * nc) * Q;
     for (int t = threadIdx.x; t < (Q + kMK - 1) / kMK * kMK; t += kThreads)
       w[t] = t < Q ? expf((float)cu[t]) : 0.f;
-    const float* dyb = dy + bc * Q * HP + (int64_t)h * P;   // step t at dyb + t * HP
-    const float* crow = cm + bc * Q * N;
+    const T* dyb = dy + bc * Q * HP + (int64_t)h * P;   // step t at dyb + t * HP
+    const T* crow = cm + bc * Q * N;
     float acc[2][NI][4];
     zero(acc);
-    mma_tile<kRingStages, kW, false, false, false, NI>(acc, ring_a, ring_b, Q,
+    mma_tile<kRingStages, kV, false, false, false, NI, T, T>(acc, ring_a, ring_b, Q,
         [&](int p, int t) { return p < P ? dyb + (int64_t)t * HP + p : nullptr; },
         [&](int t, int n) { return n0 + n < N ? crow + (int64_t)t * N + n0 + n : nullptr; },
         KScale{w});
@@ -560,27 +619,29 @@ ssd_bwd_chunk_dstate_kernel(const float* __restrict__ x, const float* __restrict
   const int t0 = it * kT, s0 = js * kT, P8 = (P + 7) / 8 * 8, tid = threadIdx.x;
   const double* cub = cum + b * H * S + (bc - b * nc) * Q;   // head h's at cub + h * S
   float* const stages = reinterpret_cast<float*>(smem);
+  constexpr int kLd = kLdTOf<T>;
   // Head h0 + hh's operands into stage hh % 2, one group: the dy_t and x_s
-  // tiles (columns past P zero), cum_t and cum_s (thread i < 64 copies
-  // cum_{t0+i}, thread 64 + i cum_{s0+i} and dt_{s0+i}).
+  // tiles of T (columns past P zero; each in an fp32 tile's words), cum_t
+  // and cum_s (thread i < 64 copies cum_{t0+i}, thread 64 + i cum_{s0+i} and
+  // dt_{s0+i}).
   auto issue = [&](int hh) {
-    float* const dyt = stages + (hh & 1) * kRStageWords;
-    float* const xs = dyt + kT * kLdT;
-    double* const cts = reinterpret_cast<double*>(xs + kT * kLdT);
+    float* const st = stages + (hh & 1) * kRStageWords;
+    T* const dyt = reinterpret_cast<T*>(st);
+    T* const xs = reinterpret_cast<T*>(st + kT * kLdT);
+    double* const cts = reinterpret_cast<double*>(st + kTilesWords);
     const int h = h0 + hh;
-    const float* dyb = dy + row0 * HP + (int64_t)h * P;
-    const float* xb = x + row0 * HP + (int64_t)h * P;
-    load_tile<kW>(dyt, kLdT, kT, P8, [&](int r, int c) {
+    const T* dyb = dy + row0 * HP + (int64_t)h * P;
+    const T* xb = x + row0 * HP + (int64_t)h * P;
+    load_tile<kChunk<T, kV>>(dyt, kLd, kT, P8, [&](int r, int c) {
       return t0 + r < Q && c < P ? dyb + (int64_t)(t0 + r) * HP + c : nullptr;
     });
-    load_tile<kW>(xs, kLdT, kT, P8, [&](int r, int c) {
+    load_tile<kChunk<T, kV>>(xs, kLd, kT, P8, [&](int r, int c) {
       return s0 + r < Q && c < P ? xb + (int64_t)(s0 + r) * HP + c : nullptr;
     });
     const int i = tid % kT, u = (tid < kT ? t0 : s0) + i;
     if (u < Q) {
-      cp_async<2>(reinterpret_cast<float*>(cts + tid),
-                  reinterpret_cast<const float*>(cub + (int64_t)h * S + u));
-      if (tid >= kT) cp_async<1>(reinterpret_cast<float*>(cts + 2 * kT) + i, dt + (row0 + u) * H + h);
+      cp_async<8>(cts + tid, cub + (int64_t)h * S + u);
+      if (tid >= kT) cp_async<4>(reinterpret_cast<float*>(cts + 2 * kT) + i, dt + (row0 + u) * H + h);
     }
     cp_async_commit();
   };
@@ -627,15 +688,16 @@ ssd_bwd_chunk_dstate_kernel(const float* __restrict__ x, const float* __restrict
     }
     // Everyone's have; whether any exponent of the factored form is > 0.
     const bool per_element = __syncthreads_or(rises);
-    const float* dyt = stages + (hh & 1) * kRStageWords;
-    const float* xs = dyt + kT * kLdT;
-    const double* ct = reinterpret_cast<const double*>(xs + kT * kLdT);
+    const float* st = stages + (hh & 1) * kRStageWords;
+    const T* dyt = reinterpret_cast<const T*>(st);
+    const T* xs = reinterpret_cast<const T*>(st + kT * kLdT);
+    const double* ct = reinterpret_cast<const double*>(st + kTilesWords);
     const double* cs = ct + kT;
     const float* ds = reinterpret_cast<const float*>(cs + kT);
     const float* sa = ds + kT;
     const float* sb = sa + kT;
     if (!per_element) {
-      mma_resident<true, true, 4>(acc, dyt, kLdT, xs, kLdT, P8,
+      mma_resident<true, true, 4>(acc, dyt, kLd, xs, kLd, P8,
                                   [&](int m, int) { return sa[m]; },
                                   [&](int n, int) { return sb[n]; });
     } else {
@@ -644,7 +706,7 @@ ssd_bwd_chunk_dstate_kernel(const float* __restrict__ x, const float* __restrict
       // unset).
       float m[2][4][4];
       zero(m);
-      mma_resident<true, true, 4>(m, dyt, kLdT, xs, kLdT, P8);
+      mma_resident<true, true, 4>(m, dyt, kLd, xs, kLd, P8);
       each_frag<4>([&](int mi, int ni, int e, int r, int c) {
         if (t0 + r < Q && s0 + c <= t0 + r)
           acc[mi][ni][e] = fmaf(ds[c] * expf((float)(ct[r] - cs[c])), m[mi][ni][e], acc[mi][ni][e]);
@@ -753,28 +815,30 @@ constexpr size_t dbc_smem_bytes() {
   return sizeof(float) * (2 * kRingStages * kPlane + kT * kHeadGroup);
 }
 
-// Phase 3. Block (b * nc + c) * H + h; operands copied in chunks of kW
-// floats. Per tile pair (s tile js, t tile it >= js) the dy_t tile, the CB
-// tile and (first pair of js) the x_s tile arrive in one batch of copies and
-// stay in shared memory; (L ⊙ CB) is formed in place of CB, and M = dy_t
-// x_sᵀ and dx += (L ⊙ CB)ᵀ dy_t read them there.
-template <int kW>
+// Phase 3. Block (b * nc + c) * H + h; operands copied in chunks of 16
+// bytes (kV) or one element; x, B, C, dy and dx are T. Per tile pair (s tile
+// js, t tile it >= js) the dy_t tile, the CB tile and (first pair of js) the
+// x_s tile arrive in one batch of copies and stay in shared memory; (L ⊙ CB)
+// is formed in place of CB, and M = dy_t x_sᵀ and dx += (L ⊙ CB)ᵀ dy_t read
+// them there.
+template <bool kV, typename T>
 __global__ void __launch_bounds__(kThreads, 3)
-ssd_bwd_chunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                         const float* __restrict__ a, const float* __restrict__ bm,
-                         const float* __restrict__ cm, const float* __restrict__ dy,
+ssd_bwd_chunk_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                         const float* __restrict__ a, const T* __restrict__ bm,
+                         const T* __restrict__ cm, const T* __restrict__ dy,
                          const double* __restrict__ cum, const float* __restrict__ g,
                          const float* __restrict__ h_in, const float* __restrict__ gstates,
-                         float* __restrict__ dx, float* __restrict__ ddt,
+                         T* __restrict__ dx, float* __restrict__ ddt,
                          float* __restrict__ da_part, float* __restrict__ scale_out,
                          float* __restrict__ scale_in, int64_t S, int H, int P, int N, int Q) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // tiles: dy_t and x_s (rows kLdT apart); the state-term product's rings take
-  // dy_t's and (L ⊙ CB)'s place, and h_in (rows kLdH apart) the tiles' in the
-  // inter-chunk products.
+  // tiles: dy_t and x_s of T (rows kLd apart, each in an fp32 tile's words);
+  // the state-term product's rings take dy_t's and (L ⊙ CB)'s place, and
+  // h_in (rows kLdH apart) the tiles' in the inter-chunk products.
+  constexpr int kLd = kLdTOf<T>, kE = kChunk<T, kV>, kEF = kChunk<float, kV>;
   float* tiles = reinterpret_cast<float*>(smem);
-  float* dyt = tiles;
-  float* xs = tiles + kT * kLdT;
+  T* dyt = reinterpret_cast<T*>(tiles);
+  T* xs = reinterpret_cast<T*>(tiles + kT * kLdT);
   float* wt = tiles + kTilesWords;   // CB, then (L ⊙ CB)[t][s], rows kWLd apart
   float* red = wt + kT * kWLd;       // row, then column partials
   double* cums = reinterpret_cast<double*>(red + 4 * kT);
@@ -803,10 +867,10 @@ ssd_bwd_chunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
     ddir[u] = 0.f;
     vs[u] = 0.f;
   }
-  const float* xb = x + row0 * HP + (int64_t)h * P;       // step s at xb + s * HP
-  const float* dyb = dy + row0 * HP + (int64_t)h * P;
-  const float* brow = bm + row0 * N;                      // step s at brow + s * N
-  const float* crow = cm + row0 * N;
+  const T* xb = x + row0 * HP + (int64_t)h * P;           // step s at xb + s * HP
+  const T* dyb = dy + row0 * HP + (int64_t)h * P;
+  const T* brow = bm + row0 * N;                          // step s at brow + s * N
+  const T* crow = cm + row0 * N;
   const float* gb = g + bc * (int64_t)Q * Q;              // CB[t][s] at gb + t * Q + s
   const float* gc = gstates + (bc * H + h) * PN;          // G_c[p][n] at gc + p * N + n
   const float* hb = h_in + (bc * H + h) * PN;
@@ -823,13 +887,13 @@ ssd_bwd_chunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
       // The pair's tiles, columns past P (past Q for CB) zero. The barrier
       // at the end of the last pair (or mma_tile's) freed the buffers.
       if (it == js)
-        load_tile<kW>(xs, kLdT, kT, kT, [&](int r, int c) {
+        load_tile<kE>(xs, kLd, kT, kT, [&](int r, int c) {
           return s0 + r < Q && c < P ? xb + (int64_t)(s0 + r) * HP + c : nullptr;
         });
-      load_tile<kW>(dyt, kLdT, kT, kT, [&](int r, int c) {
+      load_tile<kE>(dyt, kLd, kT, kT, [&](int r, int c) {
         return t0 + r < Q && c < P ? dyb + (int64_t)(t0 + r) * HP + c : nullptr;
       });
-      load_tile<kW>(wt, kWLd, kT, kT, [&](int r, int c) {
+      load_tile<kEF>(wt, kWLd, kT, kT, [&](int r, int c) {
         return t0 + r < Q && s0 + c < Q ? gb + (int64_t)(t0 + r) * Q + s0 + c : nullptr;
       });
       cp_async_commit();
@@ -846,7 +910,7 @@ ssd_bwd_chunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
       // M[t][s] = dy_t · x_s over P (rows t, columns s).
       float m[2][4][4];
       zero(m);
-      mma_resident<true, true, 4>(m, dyt, kLdT, xs, kLdT, P8);
+      mma_resident<true, true, 4>(m, dyt, kLd, xs, kLd, P8);
       // P1 = (L ⊙ CB) ⊙ M: ∂cum_t += Σ_s dt_s P1[t][s]; ddt_s += Σ_t P1[t][s],
       // ∂cum_s -= dt_s Σ_t P1[t][s].
       auto p1 = [&](int mi, int ni, int e) {
@@ -872,27 +936,28 @@ ssd_bwd_chunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
       }
       // dx[s][p] += Σ_t (L ⊙ CB)[t][s] dy_t[p] over this t tile (rows past Q
       // zero in both).
-      mma_resident<false, false, 4>(dxa, wt, kWLd, dyt, kLdT, kT);
+      mma_resident<false, false, 4>(dxa, wt, kWLd, dyt, kLd, kT);
       __syncthreads();   // the tiles and the partials are consumed
     }
     // The state term: inter[s][p] = (G_c B_s)[p] over N, its rings in place of
     // dy_t and (L ⊙ CB), so that x_s stays.
     float in[2][4][4];
     zero(in);
-    mma_tile<kBwdStages, kW, true, true, false, 4>(in, dyt, wt, N,
+    mma_tile<kBwdStages, kV, true, true, false, 4, T, float>(in, tiles, wt, N,
         [&](int j, int n) { return s0 + j < Q ? brow + (int64_t)(s0 + j) * N + n : nullptr; },
         [&](int n, int p) { return p < P ? gc + (int64_t)p * N + n : nullptr; }, NoScale());
     each_frag<4>([&](int mi, int ni, int e, int r, int p) {
       const int s = s0 + r;
       if (s < Q && p < P)
-        dx[(row0 + s) * HP + (int64_t)h * P + p] = dts[s] * fmaf(eo[s], in[mi][ni][e], dxa[mi][ni][e]);
+        put(dx + (row0 + s) * HP + (int64_t)h * P + p,
+            dts[s] * fmaf(eo[s], in[mi][ni][e], dxa[mi][ni][e]));
     });
     // xi_s = x_s · (G_c B_s): the direct ddt gets exp(A - cum_s) xi_s, ∂cum_s
     // loses V_s = exp(A - cum_s) dt_s xi_s, which ∂cum_Q gets back below.
     row_partials<4>([&](int mi, int ni, int e) {
       int r, p;
       frag_rc<4>(mi, ni, e, r, p);
-      return xs[r * kLdT + p] * in[mi][ni][e];
+      return to_f32(xs[r * kLd + p]) * in[mi][ni][e];
     }, red);
     __syncthreads();
     if (tid < kT && s0 + tid < Q) {
@@ -906,7 +971,7 @@ ssd_bwd_chunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   // The inter-chunk ∂cum term: exp(cum_t) dy_t · (h_in C_t), per t tile, as
   // yiᵀ[p][t] = Σ_n h_in[p][n] C_t[n] with h_in resident in the tiles (zero
   // up to mma_tile's last slab).
-  load_tile<kW>(tiles, kLdH, kT, N16, [&](int r, int c) {
+  load_tile<kEF>(tiles, kLdH, kT, N16, [&](int r, int c) {
     return r < P && c < N ? hb + (int64_t)r * N + c : nullptr;
   });
   cp_async_commit();
@@ -915,11 +980,11 @@ ssd_bwd_chunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
     const int t0 = it * kT;
     float dyv[2][4][4];   // dy_t at this thread's accumulator positions, read first
     each_frag<4>([&](int mi, int ni, int e, int p, int c) {
-      dyv[mi][ni][e] = t0 + c < Q && p < P ? dyb[(int64_t)(t0 + c) * HP + p] : 0.f;
+      dyv[mi][ni][e] = t0 + c < Q && p < P ? to_f32(dyb[(int64_t)(t0 + c) * HP + p]) : 0.f;
     });
     float yi[2][4][4];
     zero(yi);
-    mma_tile<kBwdStages, kW, true, true, true, 4>(yi, nullptr, wt, N, NoSource(),
+    mma_tile<kBwdStages, kV, true, true, true, 4, float, T>(yi, nullptr, wt, N, NoSource(),
         [&](int n, int j) { return t0 + j < Q ? crow + (int64_t)(t0 + j) * N + n : nullptr; },
         NoScale(), tiles, kLdH);
     col_partials<4>([&](int mi, int ni, int e) { return dyv[mi][ni][e] * yi[mi][ni][e]; }, red);
@@ -964,11 +1029,12 @@ ssd_bwd_chunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
 // Phase 4. Block (((((b * nc + c) * 2 + kind) * nrows + tile) * nslots +
 // slot) * ncols + col), kind 0 dB for the s tile, kind 1 dC for the t tile,
 // columns in tiles of 16·NI: the slot's partial of the (tile, col) output
-// tile into part[b, c, kind, slot]; operands copied in chunks of kW floats.
-template <int NI, int kW>
-__global__ void __launch_bounds__(kThreads, kW == 4 ? 4 : 2)
-ssd_bwd_chunk_dbc_kernel(const float* __restrict__ x, const float* __restrict__ bm,
-                         const float* __restrict__ cm, const float* __restrict__ dy,
+// tile into part[b, c, kind, slot]; operands copied in chunks of 16 bytes
+// (kV) or one element; x, B, C and dy are T.
+template <int NI, bool kV, typename T>
+__global__ void __launch_bounds__(kThreads, kV ? 4 : 2)
+ssd_bwd_chunk_dbc_kernel(const T* __restrict__ x, const T* __restrict__ bm,
+                         const T* __restrict__ cm, const T* __restrict__ dy,
                          const float* __restrict__ h_in, const float* __restrict__ gstates,
                          const float* __restrict__ r, const float* __restrict__ scale_out,
                          const float* __restrict__ scale_in, float* __restrict__ part,
@@ -992,19 +1058,20 @@ ssd_bwd_chunk_dbc_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int64_t bc = rest >> 1, row0 = bc * Q;
   const int r0 = tile * kT, n0 = col * kTN;
   const float* rb = r + bc * (int64_t)Q * Q;              // R[t][s] at rb + t * Q + s
-  const float* brow = bm + row0 * N;
-  const float* crow = cm + row0 * N;
+  const T* brow = bm + row0 * N;
+  const T* crow = cm + row0 * N;
   float acc[2][NI][4];
   zero(acc);
   if (slot == 0 && kind == 0) {
     // dB[s][n] = Σ_{t >= s} R[t][s] C_t[n]: t from the s tile's first row.
-    mma_tile<kRingStages, kW, false, false, false, NI>(acc, ring_a, ring_b, Q - r0,
+    mma_tile<kRingStages, kV, false, false, false, NI, float, T>(acc, ring_a, ring_b, Q - r0,
         [&](int j, int k) { return r0 + j < Q ? rb + (int64_t)(r0 + k) * Q + r0 + j : nullptr; },
         [&](int k, int n) { return n0 + n < N ? crow + (int64_t)(r0 + k) * N + n0 + n : nullptr; },
         NoScale());
   } else if (slot == 0) {
     // dC[t][n] = Σ_{s <= t} R[t][s] B_s[n]: s up to the t tile's last row.
-    mma_tile<kRingStages, kW, true, false, false, NI>(acc, ring_a, ring_b, min(Q, r0 + kT),
+    mma_tile<kRingStages, kV, true, false, false, NI, float, T>(acc, ring_a, ring_b,
+                                                               min(Q, r0 + kT),
         [&](int i, int k) { return r0 + i < Q ? rb + (int64_t)(r0 + i) * Q + k : nullptr; },
         [&](int k, int n) { return n0 + n < N ? brow + (int64_t)k * N + n0 + n : nullptr; },
         NoScale());
@@ -1016,13 +1083,13 @@ ssd_bwd_chunk_dbc_kernel(const float* __restrict__ x, const float* __restrict__ 
     const int h0 = (slot - 1) * kHeadGroup, nh = min(kHeadGroup, H - h0);
     const int Pp = (P + kMK - 1) / kMK * kMK;
     const float* sc = kind == 0 ? scale_out : scale_in;
-    const float* src = (kind == 0 ? x : dy) + (row0 + r0) * HP + (int64_t)h0 * P;
+    const T* src = (kind == 0 ? x : dy) + (row0 + r0) * HP + (int64_t)h0 * P;
     const float* st = (kind == 0 ? gstates : h_in) + (bc * H + h0) * PN;   // [k][n], k = (h - h0) P + p
     for (int e = threadIdx.x; e < kT * kHeadGroup; e += kThreads) {
       const int i = e / kHeadGroup, hh = e % kHeadGroup;
       scs[e] = r0 + i < Q && hh < nh ? sc[(row0 + r0 + i) * H + h0 + hh] : 0.f;
     }
-    mma_tile<kRingStages, kW, true, false, false, NI>(acc, ring_a, ring_b, nh * Pp,
+    mma_tile<kRingStages, kV, true, false, false, NI, T, float>(acc, ring_a, ring_b, nh * Pp,
         [&](int i, int k) {
           const int hh = k / Pp, p = k - hh * Pp;
           return r0 + i < Q && p < P ? src + (int64_t)i * HP + hh * P + p : nullptr;
@@ -1040,10 +1107,12 @@ ssd_bwd_chunk_dbc_kernel(const float* __restrict__ x, const float* __restrict__ 
 }
 
 // Phase 5. Blocks [0, nsum): one output element of dB or dC per thread, the
-// slots' partials summed in slot order; one last block sums da.
+// slots' partials summed in slot order, rounded once to T; one last block
+// sums da.
+template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
 ssd_bwd_dbc_sum_kernel(const float* __restrict__ part, const float* __restrict__ da_part,
-                       float* __restrict__ db, float* __restrict__ dc, float* __restrict__ da,
+                       T* __restrict__ db, T* __restrict__ dc, float* __restrict__ da,
                        int64_t BC, int H, int N, int Q, int nslots, int64_t nsum) {
   if (blockIdx.x >= nsum) {
     // da_h = Σ_{b, c} da_part[b, c, h], in order.
@@ -1060,7 +1129,7 @@ ssd_bwd_dbc_sum_kernel(const float* __restrict__ part, const float* __restrict__
   const float* p = part + bk * nslots * QN + e;
   float sum = p[0];
   for (int k = 1; k < nslots; ++k) sum += p[k * QN];
-  ((bk & 1) ? dc : db)[bc * QN + e] = sum;
+  put(((bk & 1) ? dc : db) + bc * QN + e, sum);
 }
 
 int blocks_for(int64_t n, int64_t per, unsigned* out) {
@@ -1070,91 +1139,102 @@ int blocks_for(int64_t n, int64_t per, unsigned* out) {
   return 0;
 }
 
+// The chain's operands; x, B, C, dy and dx, dB, dC of element type T.
+template <typename T>
 struct Chain {
-  const float *x, *dt, *a, *b, *c, *dy, *dh_final;
+  const T *x, *b, *c, *dy;
+  const float *dt, *a, *dh_final;
   const double* cum;
   const float *g, *h_in;
-  float *dx, *ddt, *da, *db, *dc, *gstates, *r, *da_part, *scale_out, *scale_in, *part, *r_part;
+  T *dx, *db, *dc;
+  float *ddt, *da, *gstates, *r, *da_part, *scale_out, *scale_in, *part, *r_part;
   int64_t B, S, H, P, N, Q;
 };
 
 // Whether every copied operand of chunk_dstate, chunk_bwd and chunk_dbc moves
-// in 16-byte chunks and dstate_pass in 16-byte vectors: P, N and Q multiples
-// of 4 and every base 16-byte aligned.
-bool chunks_of_4(const Chain& k) {
-  const float* const bases[] = {k.x, k.dy, k.b, k.c, k.h_in, k.gstates, k.r, k.dh_final,
-                                k.r_part};
-  for (const float* p : bases)
+// in 16-byte chunks and dstate_pass in 16-byte vectors: P and N multiples of
+// a chunk's elements of T (4 fp32, 8 bf16), Q a multiple of 4 and every base
+// 16-byte aligned.
+template <typename T>
+bool chunks_of_16(const Chain<T>& k) {
+  const void* const bases[] = {k.x, k.dy, k.b, k.c, k.h_in, k.gstates, k.r, k.dh_final,
+                               k.r_part};
+  for (const void* p : bases)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  return k.P % 4 == 0 && k.N % 4 == 0 && k.Q % 4 == 0;
+  constexpr int kE = kChunk<T, true>;
+  return k.P % kE == 0 && k.N % kE == 0 && k.Q % 4 == 0;
 }
 
-template <int NI, int kW>
-void launch_dstate(const Chain& k, unsigned grid, int64_t nr, cudaStream_t st) {
-  ssd_bwd_chunk_dstate_kernel<NI, kW><<<grid, kThreads, dstate_smem_bytes(), st>>>(
+template <int NI, bool kV, typename T>
+void launch_dstate(const Chain<T>& k, unsigned grid, int64_t nr, cudaStream_t st) {
+  ssd_bwd_chunk_dstate_kernel<NI, kV, T><<<grid, kThreads, dstate_smem_bytes(), st>>>(
       k.x, k.dt, k.c, k.dy, k.cum, k.gstates, k.r_part, k.S, (int)k.H, (int)k.P, (int)k.N,
       (int)k.Q, nr);
 }
 
-template <int kW>
-void launch_dstate(const Chain& k, int ni, unsigned grid, int64_t nr, cudaStream_t st) {
-  if (ni == 1) launch_dstate<1, kW>(k, grid, nr, st);
-  else if (ni == 2) launch_dstate<2, kW>(k, grid, nr, st);
-  else launch_dstate<4, kW>(k, grid, nr, st);
+template <bool kV, typename T>
+void launch_dstate(const Chain<T>& k, int ni, unsigned grid, int64_t nr, cudaStream_t st) {
+  if (ni == 1) launch_dstate<1, kV>(k, grid, nr, st);
+  else if (ni == 2) launch_dstate<2, kV>(k, grid, nr, st);
+  else launch_dstate<4, kV>(k, grid, nr, st);
 }
 
-template <int kV>
-void launch_pass(const Chain& k, unsigned grid, int64_t npass, int ngroups, cudaStream_t st) {
+template <int kV, typename T>
+void launch_pass(const Chain<T>& k, unsigned grid, int64_t npass, int ngroups, cudaStream_t st) {
   ssd_bwd_dstate_pass_kernel<kV><<<grid, kPassThreads, 0, st>>>(
       k.gstates, k.dh_final, k.cum, k.r_part, k.r, k.S, (int)k.H, (int)(k.P * k.N), (int)k.Q,
       ngroups, npass);
 }
 
-template <int kW>
-void launch_bwd(const Chain& k, unsigned grid, cudaStream_t st) {
-  ssd_bwd_chunk_bwd_kernel<kW><<<grid, kThreads, bwd_smem_bytes((int)k.Q), st>>>(
+template <bool kV, typename T>
+void launch_bwd(const Chain<T>& k, unsigned grid, cudaStream_t st) {
+  ssd_bwd_chunk_bwd_kernel<kV, T><<<grid, kThreads, bwd_smem_bytes((int)k.Q), st>>>(
       k.x, k.dt, k.a, k.b, k.c, k.dy, k.cum, k.g, k.h_in, k.gstates, k.dx, k.ddt, k.da_part,
       k.scale_out, k.scale_in, k.S, (int)k.H, (int)k.P, (int)k.N, (int)k.Q);
 }
 
-template <int NI, int kW>
-void launch_dbc(const Chain& k, unsigned grid, cudaStream_t st) {
-  ssd_bwd_chunk_dbc_kernel<NI, kW><<<grid, kThreads, dbc_smem_bytes(), st>>>(
+template <int NI, bool kV, typename T>
+void launch_dbc(const Chain<T>& k, unsigned grid, cudaStream_t st) {
+  ssd_bwd_chunk_dbc_kernel<NI, kV, T><<<grid, kThreads, dbc_smem_bytes(), st>>>(
       k.x, k.b, k.c, k.dy, k.h_in, k.gstates, k.r, k.scale_out, k.scale_in, k.part, k.S,
       (int)k.H, (int)k.P, (int)k.N, (int)k.Q);
 }
 
-template <int kW>
-void launch_dbc(const Chain& k, int ni, unsigned grid, cudaStream_t st) {
-  if (ni == 1) launch_dbc<1, kW>(k, grid, st);
-  else if (ni == 2) launch_dbc<2, kW>(k, grid, st);
-  else launch_dbc<4, kW>(k, grid, st);
+template <bool kV, typename T>
+void launch_dbc(const Chain<T>& k, int ni, unsigned grid, cudaStream_t st) {
+  if (ni == 1) launch_dbc<1, kV>(k, grid, st);
+  else if (ni == 2) launch_dbc<2, kV>(k, grid, st);
+  else launch_dbc<4, kV>(k, grid, st);
 }
 
-template <int kW>
+template <bool kV, typename T>
 cudaError_t set_smem_limits(cudaFuncAttribute max_smem) {
-  cudaError_t err = cudaFuncSetAttribute(ssd_bwd_chunk_bwd_kernel<kW>, max_smem,
+  cudaError_t err = cudaFuncSetAttribute(ssd_bwd_chunk_bwd_kernel<kV, T>, max_smem,
                                          (int)bwd_smem_bytes(kMaxQ));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_chunk_dstate_kernel<1, kW>, max_smem,
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_dstate_kernel<1, kV, T>, max_smem,
                                (int)dstate_smem_bytes());
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_chunk_dstate_kernel<2, kW>, max_smem,
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_dstate_kernel<2, kV, T>, max_smem,
                                (int)dstate_smem_bytes());
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_chunk_dstate_kernel<4, kW>, max_smem,
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_dstate_kernel<4, kV, T>, max_smem,
                                (int)dstate_smem_bytes());
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_chunk_dbc_kernel<1, kW>, max_smem, (int)dbc_smem_bytes());
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_dbc_kernel<1, kV, T>, max_smem,
+                               (int)dbc_smem_bytes());
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_chunk_dbc_kernel<2, kW>, max_smem, (int)dbc_smem_bytes());
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_dbc_kernel<2, kV, T>, max_smem,
+                               (int)dbc_smem_bytes());
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_chunk_dbc_kernel<4, kW>, max_smem, (int)dbc_smem_bytes());
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_dbc_kernel<4, kV, T>, max_smem,
+                               (int)dbc_smem_bytes());
   return err;
 }
 
 // Launches phases [first, last] of the chain (1-based, as numbered above).
-int launch_phases(const Chain& k, int first, int last, cudaStream_t st) {
+template <typename T>
+int launch_phases(const Chain<T>& k, int first, int last, cudaStream_t st) {
   const int64_t B = k.B, S = k.S, H = k.H, P = k.P, N = k.N, Q = k.Q;
   if (B < 1 || H < 1 || H > INT_MAX || P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 ||
       Q > kMaxQ || S < Q || S % Q != 0 || H * P > INT_MAX || first < 1 || last > 5)
@@ -1164,7 +1244,7 @@ int launch_phases(const Chain& k, int first, int last, cudaStream_t st) {
   const int64_t ncols = (N + 16 * ni - 1) / (16 * ni);
   const int64_t ngroups = (H + kRHeadGroup - 1) / kRHeadGroup;
   const int64_t nr = B * nc * ngroups * npairs, nd = B * nc * H * ncols;
-  const bool vec = chunks_of_4(k);
+  const bool vec = chunks_of_16(k);
   const int64_t span = kPassThreads * (vec ? 4 : 1);
   const int64_t npass = B * H * ((P * N + span - 1) / span);
   const int64_t nslots = 1 + (H + kHeadGroup - 1) / kHeadGroup;
@@ -1178,79 +1258,112 @@ int launch_phases(const Chain& k, int first, int last, cudaStream_t st) {
   for (int phase = first; phase <= last; ++phase) {
     switch (phase) {
       case 1:
-        if (vec) launch_dstate<4>(k, ni, g1, nr, st);
-        else launch_dstate<1>(k, ni, g1, nr, st);
+        if (vec) launch_dstate<true>(k, ni, g1, nr, st);
+        else launch_dstate<false>(k, ni, g1, nr, st);
         break;
       case 2:
         if (vec) launch_pass<4>(k, g2, npass, (int)ngroups, st);
         else launch_pass<1>(k, g2, npass, (int)ngroups, st);
         break;
       case 3:
-        if (vec) launch_bwd<4>(k, g3, st);
-        else launch_bwd<1>(k, g3, st);
+        if (vec) launch_bwd<true>(k, g3, st);
+        else launch_bwd<false>(k, g3, st);
         break;
       case 4:
-        if (vec) launch_dbc<4>(k, ni, g4, st);
-        else launch_dbc<1>(k, ni, g4, st);
+        if (vec) launch_dbc<true>(k, ni, g4, st);
+        else launch_dbc<false>(k, ni, g4, st);
         break;
       default:
-        ssd_bwd_dbc_sum_kernel<<<g5, kSumThreads, 0, st>>>(k.part, k.da_part, k.db, k.dc, k.da,
-                                                           B * nc, (int)H, (int)N, (int)Q,
-                                                           (int)nslots, nsum);
+        ssd_bwd_dbc_sum_kernel<T><<<g5, kSumThreads, 0, st>>>(k.part, k.da_part, k.db, k.dc,
+                                                              k.da, B * nc, (int)H, (int)N,
+                                                              (int)Q, (int)nslots, nsum);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
+// The chain on the caller's pointers, x, b, c, dy, dx, db, dc of element type
+// T.
+template <typename T>
+int launch_typed(int first, int last, const void* x, const float* dt, const float* a,
+                 const void* b, const void* c, const void* dy, const float* dh_final,
+                 const double* cum, const float* g, const float* h_in, void* dx, float* ddt,
+                 float* da, void* db, void* dc, float* gstates, float* r, float* da_part,
+                 float* scale_out, float* scale_in, float* part, float* r_part, int64_t B,
+                 int64_t S, int64_t H, int64_t P, int64_t N, int64_t Q, cudaStream_t st) {
+  const Chain<T> k{static_cast<const T*>(x), static_cast<const T*>(b), static_cast<const T*>(c),
+                   static_cast<const T*>(dy), dt, a, dh_final, cum, g, h_in,
+                   static_cast<T*>(dx), static_cast<T*>(db), static_cast<T*>(dc), ddt, da,
+                   gstates, r, da_part, scale_out, scale_in, part, r_part, B, S, H, P, N, Q};
+  return launch_phases(k, first, last, st);
+}
+
+int launch_dtype(int first, int last, int bf16, const void* x, const float* dt, const float* a,
+                 const void* b, const void* c, const void* dy, const float* dh_final,
+                 const double* cum, const float* g, const float* h_in, void* dx, float* ddt,
+                 float* da, void* db, void* dc, float* gstates, float* r, float* da_part,
+                 float* scale_out, float* scale_in, float* part, float* r_part, int64_t B,
+                 int64_t S, int64_t H, int64_t P, int64_t N, int64_t Q, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bf16 != 0 && bf16 != 1) return (int)cudaErrorInvalidValue;
+  auto run = bf16 ? launch_typed<__nv_bfloat16> : launch_typed<float>;
+  return run(first, last, x, dt, a, b, c, dy, dh_final, cum, g, h_in, dx, ddt, da, db, dc,
+             gstates, r, da_part, scale_out, scale_in, part, r_part, B, S, H, P, N, Q, st);
+}
+
 }  // namespace
 
 // Sets chunk_dstate's, chunk_bwd's (for Q up to 1024) and chunk_dbc's
-// dynamic shared memory limits on the current device. Call once per device before the first
-// launch there, outside any stream capture. Returns a cudaError_t code, 0 on
-// success.
+// dynamic shared memory limits on the current device, for both element
+// types. Call once per device before the first launch there, outside any
+// stream capture. Returns a cudaError_t code, 0 on success.
 extern "C" int ssd_scan_bwd_init() {
   const cudaFuncAttribute max_smem = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  cudaError_t err = set_smem_limits<1>(max_smem);
-  if (err == cudaSuccess) err = set_smem_limits<4>(max_smem);
+  cudaError_t err = set_smem_limits<false, float>(max_smem);
+  if (err == cudaSuccess) err = set_smem_limits<true, float>(max_smem);
+  if (err == cudaSuccess) err = set_smem_limits<false, __nv_bfloat16>(max_smem);
+  if (err == cudaSuccess) err = set_smem_limits<true, __nv_bfloat16>(max_smem);
   return (int)err;
 }
 
-// Every tensor fp32 and contiguous but cum (fp64): x, dy, dx (B,S,H,P); dt,
-// ddt (B,S,H); a, da (H,); b, c, db, dc (B,S,N); dh_final (B,H,P,N); the
-// forward's workspaces cum (B,H,S), g (B,S/Q,Q,Q), h_in (B,S/Q,H,P,N).
-// Workspaces allocated by the caller and overwritten: gstates
+// x, b, c, dy and dx, db, dc: fp32 (bf16 == 0) or bf16 (bf16 == 1), one
+// type; every other tensor fp32 but cum (fp64); all contiguous: x, dy, dx
+// (B,S,H,P); dt, ddt (B,S,H); a, da (H,); b, c, db, dc (B,S,N); dh_final
+// (B,H,P,N); the forward's workspaces cum (B,H,S), g (B,S/Q,Q,Q), h_in
+// (B,S/Q,H,P,N). Workspaces allocated by the caller and overwritten: gstates
 // (B,S/Q,H,P,N), r (B,S/Q,Q,Q), da_part (B,S/Q,H), scale_out and scale_in
 // (B,S,H), part (B,S/Q,2,1+ceil(H/16),Q,N), r_part (B,S/Q,ceil(H/16),Q,Q).
 // Launches the five phases in order on `stream`. Returns a cudaError_t code, 0 on success;
 // cudaErrorInvalidValue for shapes outside the kernels' limits.
-extern "C" int ssd_scan_bwd_launch(const float* x, const float* dt, const float* a,
-                                   const float* b, const float* c, const float* dy,
+extern "C" int ssd_scan_bwd_launch(const void* x, const float* dt, const float* a,
+                                   const void* b, const void* c, const void* dy,
                                    const float* dh_final, const double* cum, const float* g,
-                                   const float* h_in, float* dx, float* ddt, float* da,
-                                   float* db, float* dc, float* gstates, float* r,
+                                   const float* h_in, void* dx, float* ddt, float* da,
+                                   void* db, void* dc, float* gstates, float* r,
                                    float* da_part, float* scale_out, float* scale_in,
                                    float* part, float* r_part, int64_t B, int64_t S, int64_t H,
-                                   int64_t P, int64_t N, int64_t Q, void* stream) {
-  const Chain k{x, dt, a, b, c, dy, dh_final, cum, g, h_in, dx, ddt, da, db, dc, gstates,
-                r, da_part, scale_out, scale_in, part, r_part, B, S, H, P, N, Q};
-  return launch_phases(k, 1, 5, (cudaStream_t)stream);
+                                   int64_t P, int64_t N, int64_t Q, int bf16, void* stream) {
+  return launch_dtype(1, 5, bf16, x, dt, a, b, c, dy, dh_final, cum, g, h_in, dx, ddt, da, db,
+                      dc, gstates, r, da_part, scale_out, scale_in, part, r_part, B, S, H, P,
+                      N, Q, stream);
 }
 
 // ssd_scan_bwd_launch's phase `phase` (1..5) alone, on workspaces that an
 // earlier full launch filled: for timing each kernel. dstate_pass turns
 // gstates over again on every call (and sums R again).
-extern "C" int ssd_scan_bwd_phase_launch(int phase, const float* x, const float* dt,
-                                         const float* a, const float* b, const float* c,
-                                         const float* dy, const float* dh_final,
+extern "C" int ssd_scan_bwd_phase_launch(int phase, const void* x, const float* dt,
+                                         const float* a, const void* b, const void* c,
+                                         const void* dy, const float* dh_final,
                                          const double* cum, const float* g, const float* h_in,
-                                         float* dx, float* ddt, float* da, float* db, float* dc,
+                                         void* dx, float* ddt, float* da, void* db, void* dc,
                                          float* gstates, float* r, float* da_part,
                                          float* scale_out, float* scale_in, float* part,
                                          float* r_part, int64_t B, int64_t S, int64_t H,
-                                         int64_t P, int64_t N, int64_t Q, void* stream) {
-  const Chain k{x, dt, a, b, c, dy, dh_final, cum, g, h_in, dx, ddt, da, db, dc, gstates,
-                r, da_part, scale_out, scale_in, part, r_part, B, S, H, P, N, Q};
+                                         int64_t P, int64_t N, int64_t Q, int bf16,
+                                         void* stream) {
   if (phase < 1 || phase > 5) return (int)cudaErrorInvalidValue;
-  return launch_phases(k, phase, phase, (cudaStream_t)stream);
+  return launch_dtype(phase, phase, bf16, x, dt, a, b, c, dy, dh_final, cum, g, h_in, dx, ddt,
+                      da, db, dc, gstates, r, da_part, scale_out, scale_in, part, r_part, B, S,
+                      H, P, N, Q, stream);
 }

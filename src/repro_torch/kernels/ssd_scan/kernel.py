@@ -19,7 +19,9 @@ reads the forward's three workspaces, so its caller keeps them from the
 forward (:class:`~repro_torch.kernels.ssd_scan.ops.SsdScanFn`). Before the
 first launch on a device the wrapper calls ``ssd_scan_bwd_init`` there
 (the dynamic shared memory limits of chunk_dstate, chunk_bwd and
-chunk_dbc).
+chunk_dbc). x, B, C and dy are fp32 or bf16, one dtype, as the forward's
+operands are; the chain reads them in that dtype and writes dx, dB and dC
+in it, and everything else is fp32 (cum fp64) in both.
 """
 
 from __future__ import annotations
@@ -138,7 +140,7 @@ BWD_PHASES = ("chunk_dstate", "dstate_pass", "chunk_bwd", "chunk_dbc", "dbc_sum"
 def _bwd_lib():
     lib = _build.load("ssd_scan_bwd")
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    args = [ptr] * 22 + [i64] * 6 + [ptr]
+    args = [ptr] * 22 + [i64] * 6 + [ctypes.c_int, ptr]
     lib.ssd_scan_bwd_launch.argtypes = args
     lib.ssd_scan_bwd_phase_launch.argtypes = [ctypes.c_int] + args
     lib.ssd_scan_bwd_init.argtypes = []
@@ -164,10 +166,14 @@ def _bwd_operands(x, dt, a, b_mat, c_mat, dy, dh_final, cum, g, h_in, chunk):
         raise TypeError("ssd_scan_bwd_cuda takes CUDA tensors only")
     if len({t.device for t in ops + (cum,)}) != 1:
         raise ValueError("ssd_scan_bwd_cuda operands must share one device")
-    if any(t.dtype != torch.float32 for t in ops) or cum.dtype != torch.float64:
-        raise NotImplementedError(
-            "the ssd_scan backward takes fp32 operands and gradients (and the fp64 cum "
-            f"workspace), got {[t.dtype for t in ops]}, cum {cum.dtype}")
+    typed, rest = (x, b_mat, c_mat, dy), (dt, a, dh_final, h_in, g)
+    if (x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in typed)
+            or any(t.dtype != torch.float32 for t in rest) or cum.dtype != torch.float64):
+        raise TypeError(
+            "the ssd_scan backward takes x, b_mat, c_mat and dy in one dtype, fp32 or bf16, "
+            "dt, a, dh_final and the g, h_in workspaces fp32 and cum fp64, got x, b_mat, "
+            f"c_mat, dy {[t.dtype for t in typed]}, dt, a, dh_final, h_in, g "
+            f"{[t.dtype for t in rest]}, cum {cum.dtype}")
     if not all(t.is_contiguous() for t in ops + (cum,)):
         raise ValueError("ssd_scan_bwd_cuda operands must be contiguous")
     if x.dim() != 4:
@@ -201,7 +207,7 @@ def _bwd_call(fn, lead, tensors, out, dims, chunk) -> int:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         return fn(*lead, *(t.data_ptr() for t in tensors), *(out[i].data_ptr() for i in order),
-                  *dims, chunk, stream)
+                  *dims, chunk, _DTYPES[tensors[0].dtype], stream)
 
 
 def _ssd_scan_bwd_cuda_phases(
@@ -214,7 +220,8 @@ def _ssd_scan_bwd_cuda_phases(
     the diagonal, scale_out and scale_in (B,S,H), chunk_dbc's partials
     (B,S/Q,2,1+ceil(H/DBC_HEAD_GROUP),Q,N), da_part (B,S/Q,H), R's partials
     (B,S/Q,ceil(H/DSTATE_HEAD_GROUP),Q,Q), valid on and below the diagonal).
-    Counts one launch."""
+    dx, dB and dC are in their operands' dtype, the rest fp32. Counts one
+    launch."""
     tensors = (x, dt, a, b_mat, c_mat, dy, dh_final, cum, g, h_in)
     bsz, s, h, p, n = _bwd_operands(*tensors, chunk)
     nc, dev, f32 = s // chunk, x.device, torch.float32
@@ -259,10 +266,13 @@ def ssd_scan_bwd_cuda(
     """Launch the backward chain: the gradient of :func:`ssd_scan_cuda` at
     (x, dt, a, b_mat, c_mat) given dy (B,S,H,P) and dh_final (B,H,P,N),
     from the forward's workspaces (cum, G, h_in of
-    :func:`_ssd_scan_cuda_phases`). Every operand fp32 (cum fp64),
-    contiguous, on one CUDA device, S a multiple of ``chunk``. Returns (dx,
-    ddt, da, dB, dC), fp32. Increments ``ssd_scan_bwd_cuda.launches`` once
-    per call: one launch is one call of the five-kernel chain."""
+    :func:`_ssd_scan_cuda_phases`). x, b_mat, c_mat and dy share one dtype,
+    fp32 or bf16, and the chain of that dtype runs; dt, a, dh_final, g and
+    h_in are fp32, cum fp64; all contiguous, on one CUDA device, S a
+    multiple of ``chunk``. Returns (dx, ddt, da, dB, dC): dx, dB, dC in the
+    operands' dtype, ddt and da fp32. Increments
+    ``ssd_scan_bwd_cuda.launches`` once per call: one launch is one call of
+    the five-kernel chain."""
     return _ssd_scan_bwd_cuda_phases(x, dt, a, b_mat, c_mat, dy, dh_final, cum, g, h_in,
                                      chunk)[:5]
 

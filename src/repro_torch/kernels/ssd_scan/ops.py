@@ -15,7 +15,10 @@ bytes and memory), and otherwise it is the plain call.
 Under autograd (grad enabled and an operand requiring grad) the call goes
 through :class:`SsdScanFn`: on CUDA the forward chain, keeping its three
 workspaces, and the hand-written backward chain; on the CPU (and on
-``meta``) their plain phase-by-phase versions. The padding stays outside
+``meta``) their plain phase-by-phase versions. x, b_mat and c_mat are fp32
+or bf16, one dtype (the JAX package trains in bf16): dx, dB and dC come
+back in it, ddt and da in fp32, as ``jax.vjp`` of ``ssd_chunked`` gives
+them; a bf16 call on CUDA runs the bf16 chains. The padding stays outside
 the Function, so the gradients of padded steps are dropped by ``F.pad``'s
 backward. Without grad the paths above are unchanged.
 """
@@ -29,6 +32,7 @@ from torch import Tensor
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.ssd_scan.kernel import (
+    _DTYPES,
     _ssd_scan_cuda_phases,
     ssd_scan_bwd_cuda,
     ssd_scan_cuda,
@@ -39,13 +43,14 @@ from repro_torch.launch.cost import as_kernel
 
 class SsdScanFn(torch.autograd.Function):
     """The SSD scan with its gradient: (x, dt, a, b_mat, c_mat, chunk) ->
-    (y, h_final), S a multiple of ``chunk``, x / b_mat / c_mat fp32.
+    (y, h_final), S a multiple of ``chunk``, x / b_mat / c_mat in one
+    dtype, fp32 or bf16.
 
     CUDA: the forward chain (one ``ssd_scan_cuda`` launch, its workspaces
     cum, G, h_in saved) and the backward chain (one ``ssd_scan_bwd_cuda``
     launch). CPU: ``ssd_scan_phases_ref`` and ``ssd_scan_bwd_ref``, the same
     algorithms in plain PyTorch. A ``None`` gradient of y or h_final is
-    zeros."""
+    zeros (h_final's fp32, as the state is)."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b_mat, c_mat, chunk):
@@ -65,7 +70,8 @@ class SsdScanFn(torch.autograd.Function):
         bsz, _, h, p = x.shape
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         if dh_final is None:
-            dh_final = x.new_zeros((bsz, h, p, b_mat.shape[-1]))
+            dh_final = torch.zeros((bsz, h, p, b_mat.shape[-1]), dtype=torch.float32,
+                                   device=x.device)
         args = (x, dt, a, b_mat, c_mat, dy, dh_final.contiguous(), cum, g, h_in, ctx.chunk)
         if x.is_cuda:
             dx, ddt, da, db, dc = ssd_scan_bwd_cuda(*args)
@@ -102,9 +108,9 @@ def ssd_scan(
         c_mat = F.pad(c_mat, (0, 0, 0, pad))
     ops = (x, dt, a, b_mat, c_mat)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
-        if any(t.dtype != torch.float32 for t in (x, b_mat, c_mat)):
-            raise NotImplementedError(
-                "ssd_scan's gradient takes fp32 x, b_mat, c_mat (the training path), got "
+        if x.dtype not in _DTYPES or b_mat.dtype != x.dtype or c_mat.dtype != x.dtype:
+            raise TypeError(
+                "ssd_scan's gradient takes x, b_mat, c_mat in one dtype, fp32 or bf16, got "
                 f"{x.dtype}, {b_mat.dtype}, {c_mat.dtype}")
         y, h_final = SsdScanFn.apply(*(t.contiguous() for t in ops), chunk)
     elif x.is_cuda:

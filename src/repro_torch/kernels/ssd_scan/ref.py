@@ -165,8 +165,11 @@ def ssd_scan_bwd_phases_ref(
     - dbc_sum: dB, dC the partials summed in slot order; da the chunks' da
       partials summed over (b, c).
 
-    Returns (dx (B,S,H,P), ddt (B,S,H), da (H,), dB, dC (B,S,N)), all fp32,
-    then the workspaces G (B, nc, H, P, N), R (B, nc, Q, Q) (zero above the
+    x, b_mat, c_mat and dy are fp32 or bf16 (widened to fp32 here, as the
+    chain widens them). Returns (dx (B,S,H,P), ddt (B,S,H), da (H,), dB, dC
+    (B,S,N)): dx, dB and dC rounded once to their operands' dtype, as the
+    chain and the reference's ``astype`` round them, ddt and da fp32; then
+    the workspaces G (B, nc, H, P, N), R (B, nc, Q, Q) (zero above the
     diagonal), scale_out and scale_in (B, S, H), the partials (B, nc, 2,
     1 + ceil(H / DBC_HEAD_GROUP), Q, N) (dB's, then dC's), da_part (B, nc,
     H) and R's partials (B, nc, ceil(H / DSTATE_HEAD_GROUP), Q, Q) (zero
@@ -241,8 +244,9 @@ def ssd_scan_bwd_phases_ref(
     # Phase 5, dbc_sum: the slots in order; da over (b, c) in order.
     dbc = _ordered_sum(part, 3)
     da = da_part.reshape(-1, h).sum(0)
-    return (dx.reshape(bsz, s, h, p), ddt.reshape(bsz, s, h), da, dbc[:, :, 0].reshape(bsz, s, n),
-            dbc[:, :, 1].reshape(bsz, s, n), gst, r, scale_out.reshape(bsz, s, h),
+    return (dx.reshape(bsz, s, h, p).to(x.dtype), ddt.reshape(bsz, s, h), da,
+            dbc[:, :, 0].reshape(bsz, s, n).to(b_mat.dtype),
+            dbc[:, :, 1].reshape(bsz, s, n).to(c_mat.dtype), gst, r, scale_out.reshape(bsz, s, h),
             e_in.reshape(bsz, s, h), part, da_part, r_part)
 
 

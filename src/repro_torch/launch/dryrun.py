@@ -27,9 +27,10 @@ Meshes: ``single`` is one card (tag ``1x1``); ``multi`` is
 pods run one after another on the card as ``make_train_step(mesh=...)``
 runs them. ``chips`` is 1 in both.
 
-Params are bf16, as the reference's, except in train cells of models with
-SSM layers: the port's SSD gradient takes fp32 only, so those run fp32
-(``param_dtype`` in the artifact; the roofline takes that dtype's peak).
+Params are bf16 in every cell, as the reference's ``_param_structs``
+builds them (``param_dtype`` in the artifact; the roofline takes that
+dtype's peak); a caller may ask for another dtype, as ``chip_smoke.py``
+asks for fp32 beside bf16.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all \\
@@ -84,12 +85,6 @@ def _shape(shape) -> ShapeConfig:
     return SHAPES[shape] if isinstance(shape, str) else shape
 
 
-def cell_dtype(cfg, shape) -> torch.dtype:
-    """bf16, as the reference; fp32 for a train cell with SSM layers (the
-    SSD gradient takes fp32 only)."""
-    return torch.float32 if _shape(shape).kind == "train" and cfg.has_ssm else torch.bfloat16
-
-
 def _run_one(cfg, shape: ShapeConfig, mesh: Mesh, tcfg: TrainStepConfig, dtype,
              kv_shard: str, kv_dtype):
     """One pass of the cell's step on ``meta`` under a CostMode. Returns
@@ -131,10 +126,10 @@ def _run_one(cfg, shape: ShapeConfig, mesh: Mesh, tcfg: TrainStepConfig, dtype,
 
 def lower_cell(arch: str, shape_name, multi_pod: bool, tcfg: TrainStepConfig,
                pad_heads: int = 0, kv_shard: str = "auto", kv_dtype=torch.bfloat16,
-               param_dtype=None) -> dict:
+               param_dtype=torch.bfloat16) -> dict:
     """Build one cell's step and count one pass of it on ``meta``; returns
     the record. ``shape_name``: a key of ``SHAPES`` or a ``ShapeConfig``;
-    ``param_dtype``: None for :func:`cell_dtype`'s choice."""
+    ``param_dtype``: the params' dtype, bf16 as the reference's."""
     cfg = get_arch(arch)
     if pad_heads and cfg.has_attention and cfg.num_heads < pad_heads:
         # Deployment head-padding: extra zero-init heads make the q
@@ -143,7 +138,7 @@ def lower_cell(arch: str, shape_name, multi_pod: bool, tcfg: TrainStepConfig,
     shape = _shape(shape_name)
     tag, mesh = MESHES[multi_pod]
     n_chips = 1
-    dtype = param_dtype or cell_dtype(cfg, shape)
+    dtype = param_dtype
 
     t0 = time.time()
     mode, out, coll = _run_one(cfg, shape, mesh, tcfg, dtype, kv_shard, kv_dtype)

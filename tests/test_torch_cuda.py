@@ -782,6 +782,18 @@ def _rel_max(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
+def _assert_bf16_close(got, want, what):
+    """A bf16 gradient: each element within one bf16 ulp (of the larger of
+    the two) plus BWD_TOL of want's largest |value|: the chain and the plain
+    version sum in other fp32 orders, then round once to bf16, which may
+    fall either side."""
+    got, want = got.double(), want.double()
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+    slack = torch.exp2(torch.floor(torch.log2(big)) - 7) + BWD_TOL * want.abs().max()
+    excess = float(((got - want).abs() - slack).max())
+    assert excess <= 0.0, (what, excess)
+
+
 def test_ssd_scan_has_a_gradient_on_cuda(cuda):
     """The wrapper under autograd on CUDA tensors: y has a grad_fn (the
     silent-gradient fault: the bare chain's y had none), every operand gets
@@ -817,6 +829,45 @@ def test_ssd_scan_backward_chain_matches_plain_and_repeats_bitwise(cuda, b, s, h
     _check_backward_chain(cuda, _ssd_inputs(s + n, b, s_pad, h, p, n, torch.float32, cuda), chunk)
 
 
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 64, 8, 32, 16, 32), (2, 512, 80, 64, 128, 256),
+                                             (2, 300, 80, 64, 128, 256), (2, 512, 50, 64, 16, 256),
+                                             (2, 130, 4, 20, 40, 65), (1, 1300, 3, 7, 9, 65)])
+def test_ssd_scan_backward_chain_bf16_matches_plain_and_repeats_bitwise(cuda, b, s, h, p, n,
+                                                                        chunk):
+    """The bf16 chain (bf16 x, B, C, dy; dx, dB, dC bf16) at chip_smoke.py's
+    SSD_BWD_SHAPES, then with P and N no multiple of 8 (one-element copies):
+    every output and workspace against the plain version on the same bf16
+    operands, two launches bitwise equal."""
+    s_pad = -(-s // chunk) * chunk
+    ops = _ssd_inputs(s + n + 1, b, s_pad, h, p, n, torch.bfloat16, cuda)
+    _check_backward_chain(cuda, ops, chunk)
+
+
+def test_ssd_scan_bf16_has_a_gradient_on_cuda(cuda):
+    """The wrapper under autograd with bf16 x, B, C: SsdScanFn's backward on
+    the card gives dx, dB, dC in bf16 and ddt, da in fp32, one launch of
+    each chain, within the bf16 bounds of the plain version's gradient."""
+    ops = _ssd_inputs(29, 2, 100, 3, 64, 128, torch.bfloat16, cuda)
+    leaves = [t.clone().requires_grad_() for t in ops]
+    before = (ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches)
+    y, hf = ssd_scan(*leaves, chunk=32)
+    assert y.dtype == torch.bfloat16 and type(hf.grad_fn).__name__ == "SsdScanFnBackward"
+    dy = torch.randn(y.shape, generator=torch.Generator(device=cuda).manual_seed(2),
+                     device=cuda).bfloat16()
+    y.backward(dy)
+    assert (ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    ref = [t.detach().cpu().clone().requires_grad_() for t in ops]
+    ssd_scan(*ref, chunk=32)[0].backward(dy.cpu())
+    dtypes = [torch.bfloat16, torch.float32, torch.float32, torch.bfloat16, torch.bfloat16]
+    for name, t, r, dt in zip(("x", "dt", "a", "B", "C"), leaves, ref, dtypes):
+        assert t.grad.dtype == r.grad.dtype == dt, name
+        assert bool(torch.isfinite(t.grad).all()) and float(t.grad.abs().max()) > 0.0, name
+        if dt == torch.bfloat16:
+            _assert_bf16_close(t.grad.cpu(), r.grad, name)
+        else:
+            assert _rel_max(t.grad.cpu(), r.grad) <= BWD_TOL, name
+
+
 def test_ssd_scan_backward_chain_where_cum_rises(cuda):
     """a of either sign (cum rises within a chunk where a > 0): chunk_dstate's
     off-diagonal tiles take the per-element form for those heads, the
@@ -835,13 +886,14 @@ def test_ssd_scan_backward_chain_where_cum_rises(cuda):
 
 def _check_backward_chain(cuda, ops, chunk):
     """The chain at (x, dt, a, B, C) (S a multiple of ``chunk``) with a
-    seeded dy and dh_final: every output and workspace against
-    ssd_scan_bwd_phases_ref within BWD_TOL, two launches bitwise equal."""
+    seeded dy (in x's dtype) and dh_final: every output and workspace
+    against ssd_scan_bwd_phases_ref within BWD_TOL (a bf16 gradient within
+    _assert_bf16_close's bound), two launches bitwise equal."""
     x, dt, a, bm, cm = ops
     b, s_pad, h, p = x.shape
     n = bm.shape[-1]
     gen = torch.Generator(device=cuda).manual_seed(5)
-    dy = torch.randn((b, s_pad, h, p), generator=gen, device=cuda)
+    dy = torch.randn((b, s_pad, h, p), generator=gen, device=cuda).to(x.dtype)
     dhf = torch.randn((b, h, p, n), generator=gen, device=cuda)
     _, _, cum, g, h_in = _ssd_scan_cuda_phases(x, dt, a, bm, cm, chunk)
     before = ssd_scan_bwd_cuda.launches
@@ -858,20 +910,28 @@ def _check_backward_chain(cuda, ops, chunk):
         if name in ("R", "R_part"):
             u, v, w = u[..., tri], v[..., tri], w[..., tri]
         assert torch.equal(u, v), name
-        assert _rel_max(u, w) <= BWD_TOL, name
+        assert u.dtype == w.dtype, name
+        if u.dtype == torch.bfloat16:
+            _assert_bf16_close(u, w, name)
+        else:
+            assert _rel_max(u, w) <= BWD_TOL, name
 
 
 def test_ssd_scan_backward_rejects_what_it_cannot_run(cuda):
     x, dt, a, bm, cm = _ssd_inputs(3, 1, 64, 2, 16, 16, torch.float32, cuda)
     _, _, cum, g, h_in = _ssd_scan_cuda_phases(x, dt, a, bm, cm, 32)
     dy, dhf = torch.ones_like(x), torch.ones((1, 2, 16, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="fp32"):
+    before = ssd_scan_bwd_cuda.launches
+    with pytest.raises(TypeError, match="one dtype"):   # bf16 x beside fp32 B, C and dy
         ssd_scan_bwd_cuda(x.bfloat16(), dt, a, bm, cm, dy, dhf, cum, g, h_in, 32)
+    with pytest.raises(TypeError, match="one dtype"):   # a bf16 dh_final
+        ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy, dhf.bfloat16(), cum, g, h_in, 32)
     with pytest.raises(ValueError, match="shape mismatch"):
         ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy, dhf[:, :1], cum, g, h_in, 32)
-    bf16 = [x.bfloat16(), dt.clone(), a.clone(), bm.bfloat16(), cm.bfloat16()]
-    with pytest.raises(NotImplementedError, match="fp32"):
-        ssd_scan(*(t.requires_grad_() for t in bf16), chunk=32)
+    mixed = [x.bfloat16(), dt.clone(), a.clone(), bm.clone(), cm.bfloat16()]
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_scan(*(t.requires_grad_() for t in mixed), chunk=32)
+    assert ssd_scan_bwd_cuda.launches == before
 
 
 def test_mamba2_smoke_train_step_on_the_card_matches_the_cpu(cuda):

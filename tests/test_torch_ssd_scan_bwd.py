@@ -4,7 +4,9 @@
 from ``ssd_scan_phases_ref``'s workspaces, against autograd through the
 port's sequential ``ssd_scan_ref`` and against ``jax.vjp`` of the JAX
 package's sequential ``repro.kernels.ssd_scan.ref.ssd_scan_ref``; the
-wrapper under autograd (``SsdScanFn``); the paths without grad unchanged.
+wrapper under autograd (``SsdScanFn``); the paths without grad unchanged;
+the bf16 gradient (the JAX package trains in bf16) against ``jax.vjp`` of
+``repro.models.ssm.ssd_chunked``.
 The CUDA chain itself is held against these on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 19). Inputs come from
 seeded numpy.
@@ -14,6 +16,17 @@ forward's fp32 tolerance, tests/test_kernels.py): the chunked backward
 forms exponents of cumsum differences where the oracles multiply per-step
 decays, and sums in other orders; a fp64 check of the algorithm gave at
 most 9e-6.
+
+bf16 (dx, dB, dC in bf16; ddt, da fp32): each bf16 gradient element within
+one bf16 ulp of itself plus BWD_TOL of the gradient's largest |value| of
+the reference's fp32 gradient at the same bf16 values, rounded once to
+bf16 as the reference's ``astype`` rounds it: the two fp32 values differ
+by the fp32 tolerance, and one rounding may then fall either side (one
+ulp). Against ``jax.vjp`` with bf16 operands, BF16_PARTS_TOL of the max
+more: there x, B and C each enter two einsums through two ``astype``s, and
+JAX rounds each use's fp32 gradient to bf16 and adds the two in bf16,
+where the port rounds their fp32 sum once (measured: at most 1.1e-3 of the
+max past one ulp).
 """
 
 import jax
@@ -22,7 +35,10 @@ import numpy as np
 import pytest
 import torch
 
+import ml_dtypes
+
 from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ssd_scan_ref
+from repro.models.ssm import ssd_chunked
 from repro_torch.kernels.ssd_scan import (
     ssd_scan,
     ssd_scan_bwd_phases_ref,
@@ -49,6 +65,12 @@ SHAPES = [(2, 100, 3, 8, 16, 32, True), (1, 192, 2, 16, 128, 64, True),
 #: (exponents deep into fp32's range).
 GROUP_SHAPES = [(1, 64, 50, 8, 16, 32, True), (2, 48, 20, 4, 16, 16, True),
                 (1, 70, 17, 4, 32, 32, False)]
+#: bf16: ragged S at N = 16 and N = 128 (mamba2's state), and H = 17 (the
+#: head groups ragged), with the model's input ranges.
+BF16_SHAPES = [(2, 100, 3, 8, 16, 32, True), (1, 150, 2, 16, 128, 64, True),
+               (1, 70, 17, 4, 32, 32, True)]
+#: 2^-8 of the max: one bf16 ulp at the gradient's largest values.
+BF16_PARTS_TOL = 2.0 ** -8
 
 
 @pytest.fixture(autouse=True)
@@ -83,6 +105,25 @@ def _inputs(seed, b, s, h, p, n, model_like):
 def _rel(got, want):
     want = np.asarray(want, np.float64)
     return float(np.abs(np.asarray(got, np.float64) - want).max() / np.abs(want).max())
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at each element's magnitude (8 significant bits)."""
+    v = np.abs(np.asarray(v, np.float64))
+    return 2.0 ** (np.floor(np.log2(np.maximum(v, 1e-30))) - 7)
+
+
+def _assert_bf16_close(got, want, rel, what):
+    """Each element within one bf16 ulp (of the larger of the two) plus
+    ``rel`` of want's largest |value|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    slack = _bf16_ulp(np.maximum(np.abs(got), np.abs(want))) + rel * np.abs(want).max()
+    excess = np.abs(got - want) - slack
+    assert excess.max() <= 0.0, (what, float(excess.max()), float(np.abs(want).max()))
+
+
+def _to_bf16(v):
+    return np.asarray(v, np.float32).astype(ml_dtypes.bfloat16)
 
 
 def _padded_phases(ops, dy, dhf, q):
@@ -296,16 +337,85 @@ def test_paths_without_grad_are_unchanged():
 
 
 def test_gradient_refuses_bf16_and_the_chain_refuses_cpu_tensors():
+    """The gradient takes x, B, C in one dtype: bf16 mixed with fp32 raises
+    (all-bf16 runs, above); the CUDA chain refuses CPU tensors and nothing
+    on the CPU counts a launch."""
     ops, dy, dhf = _inputs(4, 1, 32, 2, 8, 16, True)
     t = [torch.from_numpy(v) for v in ops]
-    bf = [v.to(torch.bfloat16) if i in (0, 3, 4) else v for i, v in enumerate(t)]
-    with pytest.raises(NotImplementedError, match="fp32"):
-        ssd_scan(*(v.requires_grad_() if v.dtype == torch.float32 else v for v in bf), chunk=16)
+    bf = [v.to(torch.bfloat16) if i == 0 else v for i, v in enumerate(t)]
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_scan(*(v.clone().requires_grad_() for v in bf), chunk=16)
     with torch.no_grad():   # bf16 without grad: the forward as before
-        ssd_scan(*bf, chunk=16)
+        ssd_scan(*[v.to(torch.bfloat16) if i in (0, 3, 4) else v for i, v in enumerate(t)],
+                 chunk=16)
     _, _, cum, g, h_in = ssd_scan_phases_ref(*t, 16)
     before = (ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches)
     with pytest.raises(TypeError, match="CUDA tensors only"):
         ssd_scan_bwd_cuda(*t, torch.from_numpy(dy), torch.from_numpy(dhf), cum, g, h_in, 16)
     ssd_scan(*(v.clone().requires_grad_() for v in t), chunk=16)[0].sum().backward()
     assert (ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches) == before
+
+def _bf16_torch_grads(ops, dy, dhf, q):
+    """The wrapper under autograd with bf16 x, B, C (and dy), fp32 dt, a."""
+    leaves = [torch.from_numpy(_to_bf16(v).astype(np.float32)).bfloat16() if i in (0, 3, 4)
+              else torch.from_numpy(v) for i, v in enumerate(ops)]
+    leaves = [v.requires_grad_() for v in leaves]
+    y, hf = ssd_scan(*leaves, chunk=q)
+    assert y.dtype == torch.bfloat16 and hf.dtype == torch.float32
+    assert type(hf.grad_fn).__name__ == "SsdScanFnBackward"
+    dyb = torch.from_numpy(_to_bf16(dy).astype(np.float32)).bfloat16()
+    torch.autograd.backward([y, hf], [dyb, torch.from_numpy(dhf)])
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=str)
+def test_bf16_gradient_matches_jax_vjp_of_ssd_chunked(shape):
+    """bf16 x, B, C under autograd: dx, dB, dC bf16 and ddt, da fp32, as
+    jax.vjp of ssd_chunked gives them, within the module's bf16 bounds of
+    the reference's fp32 gradient rounded once, and of its bf16 one."""
+    b, s, h, p, n, q, model_like = shape
+    ops, dy, dhf = _inputs(sum(shape[:6]) + 5, b, s, h, p, n, model_like)
+    got = _bf16_torch_grads(ops, dy, dhf, q)
+    assert [g.dtype for g in got] == [torch.bfloat16, torch.float32, torch.float32,
+                                      torch.bfloat16, torch.bfloat16]
+    wide = [_to_bf16(v).astype(np.float32) if i in (0, 3, 4) else v for i, v in enumerate(ops)]
+    chunked = lambda *a: ssd_chunked(*a, q)
+    _, vjp32 = jax.vjp(chunked, *map(jnp.asarray, wide))
+    want32 = vjp32((jnp.asarray(_to_bf16(dy).astype(np.float32)), jnp.asarray(dhf)))
+    _, vjp16 = jax.vjp(chunked, *(jnp.asarray(_to_bf16(v)) if i in (0, 3, 4) else jnp.asarray(v)
+                                  for i, v in enumerate(ops)))
+    want16 = vjp16((jnp.asarray(_to_bf16(dy)), jnp.asarray(dhf)))
+    assert [str(w.dtype) for w in want16] == ["bfloat16", "float32", "float32", "bfloat16",
+                                              "bfloat16"]
+    for i, (name, g, w32, w16) in enumerate(zip(NAMES, got, want32, want16)):
+        g = g.float().numpy()
+        if i in (0, 3, 4):
+            _assert_bf16_close(g, _to_bf16(w32).astype(np.float32), BWD_TOL, (name, shape))
+            _assert_bf16_close(g, np.asarray(w16).astype(np.float32), BF16_PARTS_TOL,
+                               (name, shape))
+        else:
+            assert _rel(g, np.asarray(w32)) <= BWD_TOL, (name, shape)
+            assert _rel(g, np.asarray(w16)) <= BWD_TOL, (name, shape)
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES[:2], ids=str)
+def test_bf16_bwd_ref_rounds_the_fp32_gradients_once(shape):
+    """ssd_scan_bwd_phases_ref on bf16 x, B, C, dy is the fp32 version on the
+    same values widened, with dx, dB and dC rounded once to bf16: bitwise,
+    every workspace too (the chain is held against it on the card)."""
+    b, s, h, p, n, q, model_like = shape
+    ops, dy, dhf = _inputs(sum(shape[:6]) + 6, b, s, h, p, n, model_like)
+    s_pad = -(-s // q) * q
+    pad = lambda v: torch.nn.functional.pad(v, (0, 0) * (v.dim() - 2) + (0, s_pad - s))
+    t32 = [torch.from_numpy(_to_bf16(v).astype(np.float32)) if i in (0, 3, 4)
+           else torch.from_numpy(v) for i, v in enumerate(ops)]
+    t32 = [pad(v) if v.dim() > 1 else v for v in t32]
+    t16 = [v.bfloat16() if i in (0, 3, 4) else v for i, v in enumerate(t32)]
+    dy32 = pad(torch.from_numpy(_to_bf16(dy).astype(np.float32)))
+    dhf = torch.from_numpy(dhf)
+    _, _, cum, g, h_in = ssd_scan_phases_ref(*t32, q)
+    want = ssd_scan_bwd_phases_ref(*t32, dy32, dhf, cum, g, h_in, q)
+    got = ssd_scan_bwd_phases_ref(*t16, dy32.bfloat16(), dhf, cum, g, h_in, q)
+    for i, (u, v) in enumerate(zip(got, want)):
+        rounded = v.bfloat16() if i in (0, 3, 4) else v
+        assert u.dtype == rounded.dtype and torch.equal(u, rounded), i

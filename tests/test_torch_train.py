@@ -19,6 +19,28 @@ Tolerances:
   place), plus the global norm summed in another order; a value near 0 is
   held to 1e-6 of its leaf's largest.
 * Remat and the restarted run: bitwise (CPU kernels are deterministic).
+* bf16 training (the reference's own precision: bf16 params, fp32 moments
+  and gradient accumulation): loss, ce and grad norm of each of three
+  steps within BF16_STEP_RTOL, under half a bf16 ulp (2^-8): the two
+  frameworks round bf16 at other places (the port's SSD gradient rounds
+  each operand's fp32 gradient once, the reference each of its uses'),
+  and the measured gap was at most 1.1e-3 (the grad norm). The updated
+  params: the difference from the reference's, in L2 over a leaf, within
+  BF16_LEAF_TOL of the reference's own update of that leaf (p_3 - p_0),
+  and over all leaves within BF16_MODEL_TOL of the whole update. AdamW's
+  first steps move every entry by about lr in the sign of its gradient,
+  so an entry whose gradient is near 0 moves by a full step in a sign
+  that bf16 rounding decides: measured 0.44 on a zero-initialised (2, 64)
+  bias, at most 0.153 on a weight matrix (hymba's embedding) and 0.068
+  over the model (hymba). Step 1's accumulated fp32 gradient, leaf by
+  leaf, within BF16_GRAD_TOL of the leaf's largest |value| in the
+  reference's: each side sums bf16-rounded per-use gradients, and each was
+  measured as far from the fp32 gradient at the same bf16 values as from
+  the other (relative L2 over a leaf up to 5.1e-2 either way, both on
+  hymba's (2, 8) per-head SSM leaves, which sum every step's term);
+  measured at most 3.1e-2 (qwen2-0.5b), 3.6e-2 (mamba2-2.7b) and 5.4e-2
+  (hymba-1.5b) of the leaf's max. A leaf off by a factor, or missing a
+  term, is off by far more.
 """
 
 import dataclasses
@@ -46,6 +68,7 @@ from repro_torch.examples import train_lm
 from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
 from repro_torch.traces import tokens
+from repro_torch.train import step as port_step
 from repro_torch.train import (
     AdamWConfig,
     TrainStepConfig,
@@ -65,6 +88,10 @@ OPT_TOL = 1e-6
 #: vision prefix (sliced off the logits) and audio (frames, no tokens).
 LOSS_ARCHS = ["qwen2-0.5b", "mamba2-2.7b", "deepseek-moe-16b", "hymba-1.5b", "internvl2-76b",
               "hubert-xlarge"]
+BF16_STEP_RTOL = 3e-3
+BF16_LEAF_TOL = 0.5
+BF16_MODEL_TOL = 0.15
+BF16_GRAD_TOL = 8e-2
 
 
 @pytest.fixture(autouse=True)
@@ -333,6 +360,71 @@ def test_train_step_matches_the_reference_for_three_steps(arch, microbatches):
                                        err_msg=f"step {s} {k}")
         np.testing.assert_allclose(float(met["lr"]), float(met_j["lr"]), rtol=OPT_TOL)
     assert int(st["step"]) == 3
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-2.7b", "hymba-1.5b"])
+def test_bf16_train_step_matches_the_reference_for_three_steps(arch, monkeypatch):
+    """bf16 params from the reference's init (bridged), two microbatches:
+    the port's step against the reference's jitted one for three steps;
+    params keep their dtypes, the moments are fp32, an SSM model's SSD
+    gradient runs on bf16 operands. Step 1's accumulated gradient, as the
+    port's step hands it to AdamW, against the reference's accumulation
+    (``jax.grad`` of its bf16 ``loss_fn`` per microbatch, summed in fp32,
+    halved), leaf by leaf."""
+    cfg_j, cfg = JC.get_arch(arch, "smoke"), TC.get_arch(arch, "smoke")
+    p_j = jlm.init_params(jax.random.key(1), cfg_j, jnp.bfloat16)
+    p = lm_params_from_numpy(jax.tree.map(np.asarray, p_j), cfg, device="cpu")
+    dtypes = [t.dtype for t in leaves(p)]
+    assert torch.bfloat16 in dtypes
+    start = [t.detach().float().clone() for t in leaves(p)]
+    ocfg = dict(lr=3e-3, total_steps=10, warmup_steps=2)
+    tcfg_j = jstep.TrainStepConfig(microbatches=2, remat="none", optimizer=jopt.AdamWConfig(**ocfg))
+    tcfg = TrainStepConfig(microbatches=2, remat="full", optimizer=AdamWConfig(**ocfg))
+    step_j, _, _, _, init_efb_j = jstep.make_train_step(cfg_j, make_debug_mesh(), tcfg_j)
+    step, init_efb = make_train_step(cfg, tcfg, device="cpu")
+    jit_step = jax.jit(step_j)
+    st_j, efb_j = jopt.adamw_init(p_j), init_efb_j(p_j)
+    st, efb = adamw_init(p), init_efb(p)
+    pipe = tokens.SyntheticTokenStream(tokens.TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=33, global_batch=4, seed=0))
+    handed = []
+    real_update = port_step.adamw_update
+
+    def keep_grads(ocfg_, params, grads, state):
+        if not handed:
+            handed.append([g.detach().clone() for g in leaves(grads)])
+        return real_update(ocfg_, params, grads, state)
+
+    monkeypatch.setattr(port_step, "adamw_update", keep_grads)
+    for s in range(3):
+        raw = tokens.lm_inputs(pipe.batch(s))
+        if s == 0:
+            mbs = jstep._split_microbatches({k: jnp.asarray(v) for k, v in raw.items()}, 2)
+            grad_j = jax.jit(jax.grad(lambda q, one: jlm.loss_fn(q, cfg_j, one)[0]))
+            acc = jax.tree.map(lambda t: jnp.zeros(t.shape, jnp.float32), p_j)
+            for i in range(2):
+                g = grad_j(p_j, jax.tree.map(lambda v: v[i], mbs))
+                acc = jax.tree.map(lambda a, gi: a + gi.astype(jnp.float32), acc, g)
+            want_grads = [np.asarray(a / 2) for a in jax.tree.leaves(acc)]
+        p_j, st_j, met_j, efb_j = jit_step(p_j, st_j, {k: jnp.asarray(v) for k, v in raw.items()},
+                                           efb_j)
+        p, st, met, efb = step(p, st, batch_from_numpy(raw, device="cpu"), efb)
+        for k in ("loss", "ce", "grad_norm"):
+            np.testing.assert_allclose(float(met[k]), float(met_j[k]), rtol=BF16_STEP_RTOL,
+                                       err_msg=f"{arch} step {s} {k}")
+    assert [t.dtype for t in leaves(p)] == dtypes
+    assert all(t.dtype == torch.float32 for t in leaves(st["m"]) + leaves(st["v"]))
+    assert len(handed[0]) == len(want_grads)
+    for i, (got, want) in enumerate(zip(handed[0], want_grads)):
+        assert got.dtype == torch.float32, (arch, i, got.dtype)
+        _assert_leaf_close(got, want, BF16_GRAD_TOL, f"{arch} step-1 grad leaf {i} {tuple(got.shape)}")
+    diff2 = move2 = 0.0
+    for i, (got, want, p0) in enumerate(zip(leaves(p), jax.tree.leaves(p_j), start)):
+        want = torch.from_numpy(np.asarray(want).astype(np.float32))
+        diff, move = float((got.detach().float() - want).norm()), float((want - p0).norm())
+        assert move > 0.0 and diff <= BF16_LEAF_TOL * move, (arch, i, tuple(got.shape), diff, move)
+        diff2, move2 = diff2 + diff ** 2, move2 + move ** 2
+    assert diff2 ** 0.5 <= BF16_MODEL_TOL * move2 ** 0.5, (arch, diff2 ** 0.5, move2 ** 0.5)
 
 
 def test_train_step_int8_sync_is_native_on_one_device_and_refusals():
