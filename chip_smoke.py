@@ -8,11 +8,12 @@ Phases, each printing one line or more; any failure exits non-zero:
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile every kernel from ``src/repro_torch/kernels/*/csrc``
              with nvcc (all sources at once) into ``build/torch_kernels/``;
-             ptxas's registers, spills and shared memory per kernel, and the
-             backward chain's tensor-core (HMMA) instructions per kernel
-             from ``cuobjdump -sass`` where the toolkit has it; fails if a
-             kernel of the backward chain spills, or if chunk_dstate,
-             chunk_bwd or chunk_dbc has no HMMA.
+             ptxas's registers, spills and shared memory per kernel, and both
+             SSD chains' tensor-core (HMMA) instructions per kernel from
+             ``cuobjdump -sass`` where the toolkit has it; fails if a kernel
+             of the backward chain or the forward's chunk_state or
+             chunk_scan spills, or if chunk_dstate, chunk_bwd, chunk_dbc,
+             chunk_state or chunk_scan (in fp32 and in bf16) has no HMMA.
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the test shapes and each main path's (fleet, fleet V-sweep,
              the serving engine's one-run (K, N) = (8, 256)):
@@ -47,7 +48,12 @@ Phases, each printing one line or more; any failure exits non-zero:
              at the serving shape every workspace of the chain (cum, CBᵀ,
              entering states) against the plain phase-by-phase version;
              device time beside the plain versions and the bound, and each
-             of the chain's five kernels' mean time over three profiled calls.
+             of the chain's five kernels' mean time over three profiled calls;
+             at mamba2-2.7b's training microbatch in fp32 and bf16 the chain
+             and each kernel alone beside their bounds, and bf16 y within one
+             bf16 ulp + SSD_BWD_TOL of the max there and at two one-element-
+             copy shapes. (``--ssd-arm SRC DUMP [--steps]`` runs one arm of a
+             parent-against-change comparison instead: ssd_arm.)
 8. mamba2  — full-width, full-depth mamba2-2.7b (random fp32 weights from a
              seeded generator) served through ``make_local_exec`` as the
              reference's ``FleetEngine._execute_jobs`` does: 4 x 2048-token
@@ -385,6 +391,18 @@ SSD_TIMED = {SSD_ENGINE_SHAPE: ("serve", 20, 10), (4, 2048, 50, 64, 16, 256): ("
 SSD_MODEL_TOL = 1e-4
 #: The chain's kernels, in launch order (``ssd_scan_<phase>_kernel``).
 SSD_PHASES = ("cumsum", "chunk_cb", "chunk_state", "state_pass", "chunk_scan")
+#: The chain's kernels that run on the tensor cores (HMMA in their SASS, in
+#: the fp32 and the bf16 instantiations; no spill).
+SSD_MMA_PHASES = ("chunk_state", "chunk_scan")
+#: Timed beside the serving shape: mamba2-2.7b's training microbatch (2 x
+#: 2048, phase 19 (b) runs the chain 256 times a step), with the model's
+#: input ranges, in fp32 and in bf16, with CUDA-graph (reps, iters) for the
+#: chain and for each of its kernels alone (on filled workspaces).
+SSD_FWD_TIMED = {(2, 2048, 80, 64, 128, 256): ("train", 5, 4)}
+#: bf16 x, B, C: y against ssd_scan_phases_ref on the same operands within
+#: one bf16 ulp + SSD_BWD_TOL of the max (bf16_excess), at the timed shapes
+#: and at two where the copies move one element (P, N no multiple of 8).
+SSD_FWD_BF16_SHAPES = [(2, 130, 4, 20, 40, 65), (1, 1300, 3, 7, 9, 65)]
 #: Workspaces against ssd_scan_phases_ref: the fp64 cumsum differs only in
 #: summation order (1e-12 relative); CBᵀ and the entering states are fp32
 #: sums in another order (1e-4 relative to max(|plain|, 1)).
@@ -728,14 +746,12 @@ def score_phase_bounds_ms(runs: int, k: int, n: int, r_runs: int = 1) -> dict[st
 def ssd_bound_ms(b: int, s: int, h: int, p: int, n: int, q: int,
                  itemsize: int) -> tuple[float, str]:
     """Least time for one ssd_scan call: x, dt, a, B, C read once, y and
-    h_final written once; the work the function needs — CBᵀ once per
-    (b, chunk) (all heads share it), the causal half of W @ x, C @ h_inᵀ and
-    the state update — against the H100's memory rate and fp32 rate."""
-    full, rem = divmod(s, q)
-    pairs = full * q * (q + 1) // 2 + rem * (rem + 1) // 2   # (t, s') with s' <= t
-    nbytes = itemsize * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h + b * h * p * n)
-    flops = 2 * pairs * b * n + 2 * pairs * b * h * p + 4 * b * s * h * p * n
-    return bound_ms(nbytes, flops)
+    h_final written once; the work the function needs (ssd_fwd_work) — CBᵀ
+    once per (b, chunk) (all heads share it), the causal half of W @ x, C @
+    h_inᵀ, the state update and the state recurrence — against the H100's
+    memory rate and fp32 rate."""
+    nbytes, ops = ssd_fwd_work(b, s, h, p, n, q, itemsize)
+    return bound_ms(nbytes, sum(ops.values()))
 
 
 def rel_err(got, want) -> float:
@@ -873,11 +889,13 @@ def sass_mma_counts(lib: Path, prefix: str) -> dict[str, dict[str, int]] | None:
     return counts
 
 
-def phase_build() -> dict[str, dict[str, int]] | None:
+def phase_build() -> dict[str, dict[str, dict[str, int]] | None]:
     """Builds every kernel, logs ptxas's registers, spills and shared memory
-    per kernel function, then the backward chain's HMMA counts (None: not
-    measured). Fails where a kernel of the backward chain spills or one of
-    SSD_BWD_MMA_PHASES has no HMMA."""
+    per kernel function, then the SSD chains' HMMA counts per library (None:
+    not measured). Fails where a kernel of the backward chain or one of
+    SSD_MMA_PHASES of the forward spills, or one of SSD_BWD_MMA_PHASES /
+    SSD_MMA_PHASES has no HMMA in an instantiation (the forward's in both
+    element types)."""
     import re
 
     from repro_torch.kernels import _build
@@ -885,26 +903,33 @@ def phase_build() -> dict[str, dict[str, int]] | None:
     t0 = time.perf_counter()
     logs = _build.build_all()
     secs = time.perf_counter() - t0
+    gated = ("ssd_bwd_",) + tuple(f"ssd_scan_{ph}_kernel" for ph in SSD_MMA_PHASES)
     spilled = []
     for name, text in logs.items():
         for usage in ptxas_usage(text):
             log(f"[build] {name}: ptxas {usage}")
             m = re.search(r"spill stores (\d+) B, spill loads (\d+) B", usage)
-            if usage.startswith("ssd_bwd_") and (m is None or m.group(1) != "0" or m.group(2) != "0"):
+            if usage.startswith(gated) and (m is None or m.group(1) != "0" or m.group(2) != "0"):
                 spilled.append(usage)
     log(f"[build] {len(logs)} kernel(s) built in {secs:.2f} s -> {_build.BUILD_DIR}")
     if spilled:
-        fail(f"backward chain kernels spill (or ptxas did not say): {spilled}")
-    mma = sass_mma_counts(_build.library_path("ssd_scan_bwd"), "ssd_bwd_")
-    if mma is None:
-        log("[build] ssd_scan_bwd: tensor-core instructions not measured (no cuobjdump)")
-    for fn, ops in (mma or {}).items():
-        log(f"[build] ssd_scan_bwd: sass {fn}: {sum(ops.values())} HMMA"
-            + "".join(f", {op} x{c}" for op, c in sorted(ops.items())))
-    for ph in SSD_BWD_MMA_PHASES if mma is not None else ():
-        fns = {fn: ops for fn, ops in mma.items() if fn.startswith(f"ssd_bwd_{ph}_kernel")}
-        if not fns or not all(sum(ops.values()) for ops in fns.values()):
-            fail(f"ssd_scan_bwd: {ph} without tensor-core instructions: {fns}")
+        fail(f"tensor-core SSD kernels spill (or ptxas did not say): {spilled}")
+    mma = {}
+    for lib, prefix, phases in (("ssd_scan", "ssd_scan_", SSD_MMA_PHASES),
+                                ("ssd_scan_bwd", "ssd_bwd_", SSD_BWD_MMA_PHASES)):
+        mma[lib] = counts = sass_mma_counts(_build.library_path(lib), prefix)
+        if counts is None:
+            log(f"[build] {lib}: tensor-core instructions not measured (no cuobjdump)")
+            continue
+        for fn, ops in counts.items():
+            log(f"[build] {lib}: sass {fn}: {sum(ops.values())} HMMA"
+                + "".join(f", {op} x{c}" for op, c in sorted(ops.items())))
+        for ph in phases:
+            fns = {fn: ops for fn, ops in counts.items() if fn.startswith(f"{prefix}{ph}_kernel")}
+            typed = lib == "ssd_scan_bwd" or (any(f.endswith("<bf16>") for f in fns)
+                                             and not all(f.endswith("<bf16>") for f in fns))
+            if not fns or not typed or not all(sum(ops.values()) for ops in fns.values()):
+                fail(f"{lib}: {ph} without tensor-core instructions (in fp32 and bf16): {fns}")
     return mma
 
 
@@ -1437,7 +1462,131 @@ def phase_ssd_kernel(dev):
     main["workspace_rel_err"] = ws_errs
     main.update(long_run)
     main.update(timed)
+    main.update(phase_ssd_fwd(dev))
     return main
+
+
+def ssd_fwd_work(b: int, s: int, h: int, p: int, n: int, q: int,
+                 elt: int = 4) -> tuple[int, dict[str, int]]:
+    """Bytes and operations of one ssd_scan call (x, dt, a, B, C read once,
+    y and h_final written once, x, B, C, y at ``elt`` bytes an element; S
+    padded to a chunk multiple as the wrapper pads), the operations by the
+    class of their
+    operands as ssd_bwd_work's: "pair", CBᵀ (B and C); "mixed", the
+    products with one fp32 operand (the causal half of W x per head, C
+    h_inᵀ and the state update (x ⊙ w)ᵀ B); "vector", state_pass's
+    recurrence."""
+    full, rem = divmod(s, q)
+    pairs = full * q * (q + 1) // 2 + rem * (rem + 1) // 2
+    nbytes = elt * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h + b * h * p * n)
+    return nbytes, {"pair": 2 * pairs * b * n,
+                    "mixed": 2 * pairs * b * h * p + 4 * b * s * h * p * n,
+                    "vector": 2 * b * -(-s // q) * h * p * n}
+
+
+def ssd_fwd_phase_work(b: int, s: int, h: int, p: int, n: int, q: int,
+                       elt: int = 4) -> dict[str, tuple[int, dict[str, int]]]:
+    """Bytes and operations (by class, as ssd_fwd_work's) of each kernel of
+    the forward chain alone, each of its inputs read once and outputs
+    written once (S a multiple of Q): cumsum reads dt, a and writes cum;
+    chunk_cb reads B, C and writes the causal half of CBᵀ (pair); chunk_state
+    reads x, dt, B, cum and writes the chunks' states (mixed); state_pass
+    reads them and cum_Q and writes h_in and h_final (vector); chunk_scan
+    reads x, dt, C, cum, the causal half of CBᵀ and h_in and writes y (W x
+    and C h_inᵀ, mixed). x, B, C, y at ``elt`` bytes an element."""
+    nc = s // q
+    pairs = nc * q * (q + 1) // 2
+    bsh, bshp, bsn, st = b * s * h, b * s * h * p, b * s * n, b * nc * h * p * n
+    ops = lambda pair=0, mixed=0, vector=0: {"pair": pair, "mixed": mixed, "vector": vector}
+    return {
+        "cumsum": (4 * (bsh + h) + 8 * bsh, ops(vector=2 * bsh)),
+        "chunk_cb": (elt * 2 * bsn + 4 * b * pairs, ops(pair=2 * pairs * b * n)),
+        "chunk_state": (elt * (bshp + bsn) + 12 * bsh + 4 * st, ops(mixed=2 * bshp * n)),
+        "state_pass": (4 * (2 * st + b * h * p * n) + 8 * b * h * nc, ops(vector=2 * st)),
+        "chunk_scan": (elt * (2 * bshp + bsn) + 12 * bsh + 4 * (b * pairs + st),
+                       ops(mixed=2 * pairs * b * h * p + 2 * bshp * n)),
+    }
+
+
+def phase_ssd_fwd(dev) -> dict:
+    """Phase 7, the forward chain at SSD_FWD_TIMED in fp32 and bf16 with the
+    model's input ranges: its device time, each kernel's alone (CUDA events,
+    on a copy of the filled workspaces), the plain phase version's, the
+    bounds (fp32: the fp32 rate and 3xTF32; bf16: its products priced by
+    class, ssd_bwd_bound_ms), each kernel's; y against ssd_scan_phases_ref
+    (fp32 within SSD_MODEL_TOL, bf16 within bf16_excess's SSD_BWD_TOL), also
+    at SSD_FWD_BF16_SHAPES in bf16."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.kernel import (
+        _ssd_scan_cuda_phase,
+        _ssd_scan_cuda_phases,
+        ssd_scan_cuda,
+    )
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_phases_ref
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    out, worst, t0 = {}, 0.0, time.perf_counter()
+    cases = [(sh, dt) for sh in SSD_FWD_TIMED for dt in (torch.float32, torch.bfloat16)]
+    cases += [(sh, torch.bfloat16) for sh in SSD_FWD_BF16_SHAPES]
+    for shape, dtype in cases:
+        b, s, h, p, n, q = shape
+        ops = ssd_inputs(gen, b, s, h, p, n, dtype, dev, model_like=True)
+        bf16 = dtype == torch.bfloat16
+        tag = f"B={b} S={s} H={h} P={p} N={n} chunk={q} {str(dtype).removeprefix('torch.')}"
+        got = _ssd_scan_cuda_phases(*ops, q)
+        want = ssd_scan_phases_ref(*ops, q)
+        torch.cuda.synchronize()
+        err = bf16_excess(got[0], want[0]) if bf16 else rel_err(got[0], want[0])
+        abs_err = float((got[0].float() - want[0].float()).abs().max())
+        del want
+        tol = SSD_BWD_TOL if bf16 else SSD_MODEL_TOL
+        log(f"[ssd] {tag} model-range: y vs ssd_scan_phases_ref "
+            + (f"{err:.3e} of the max past one bf16 ulp" if bf16 else f"max_rel_err {err:.3e}")
+            + f" (max_abs {abs_err:.3e}), tol {tol:g}")
+        if not err <= tol:
+            fail(f"ssd_scan off ssd_scan_phases_ref at {tag}: {err:.3e}")
+        if bf16:
+            worst = max(worst, err)
+        if shape in SSD_FWD_TIMED:
+            key = SSD_FWD_TIMED[shape][0] + ("_bf16" if bf16 else "")
+            reps, iters = SSD_FWD_TIMED[shape][1:]
+            t_k = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=reps, iters=iters)
+            ws = tuple(t.clone() for t in got)
+            phase = {ph: device_time_ms(lambda ph=ph: _ssd_scan_cuda_phase(ph, *ops, q, ws),
+                                        reps=reps, iters=iters) for ph in SSD_PHASES}
+            del ws
+            _, events = device_profile(lambda: ssd_scan_phases_ref(*ops, q))
+            t_p = sum(us for _, us, _ in events) / 1e3
+            elt = dtype.itemsize
+            work = ssd_fwd_work(b, s, h, p, n, q, elt)
+            bound, bound_by = ssd_bwd_bound_ms(*work, elt, tc=False)
+            tc_bound, tc_by = ssd_bwd_bound_ms(*work, elt, tc=True)
+            pw = ssd_fwd_phase_work(b, s, h, p, n, q, elt)
+            ph_bound = {ph: ssd_bwd_bound_ms(*w, elt, tc=False)[0] for ph, w in pw.items()}
+            ph_tc = {ph: ssd_bwd_bound_ms(*w, elt, tc=True)[0] for ph, w in pw.items()}
+            short = ("fp32", "3xTF32") if not bf16 else ("2xTF32+bf16", "TF32")
+            flops = ", ".join(f"{k} {v / 1e9:.2f}" for k, v in work[1].items())
+            log(f"[ssd] {tag}: device: forward chain {t_k:.4f} ms, plain phase version "
+                f"{t_p:.3f} ms (profiler device sum), bound {bound:.4f} ms ({work[0] / 1e6:.1f} "
+                f"MB, GFLOP {flops}; {short[0]}, {bound_by}; chain at {100 * bound / t_k:.1f}% "
+                f"of it), {short[1]} bound {tc_bound:.4f} ms ({tc_by}; "
+                f"{100 * tc_bound / t_k:.1f}%)")
+            log(f"[ssd] {tag}: each kernel alone (CUDA events, on filled workspaces): "
+                + ", ".join(f"{ph} {ms:.4f} ms (bound {ph_bound[ph]:.4f} {short[0]} / "
+                            f"{ph_tc[ph]:.4f} {short[1]})" for ph, ms in phase.items())
+                + f"; sum {sum(phase.values()):.4f} ms")
+            out.update({f"ms_{key}": t_k, f"plain_ms_{key}": t_p, f"bound_ms_{key}": bound,
+                        f"bound_by_{key}": bound_by, f"bound_ms_tc_{key}": tc_bound,
+                        f"bound_by_tc_{key}": tc_by, f"phase_ms_{key}": phase,
+                        f"phase_bound_ms_{key}": ph_bound, f"phase_bound_ms_tc_{key}": ph_tc,
+                        f"max_abs_err_{key}": abs_err})
+        del got, ops
+        torch.cuda.empty_cache()
+    out["max_excess_bf16_fwd"] = worst
+    log(f"[ssd] the forward at the training microbatch and bf16 shapes took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def tc_bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
@@ -1476,7 +1625,8 @@ def ssd_bwd_work(b: int, s: int, h: int, p: int, n: int, q: int,
 
 def ssd_bwd_bound_ms(nbytes: int, flops: dict[str, int], elt: int,
                      tc: bool) -> tuple[float, str]:
-    """The least time of ssd_bwd_work's (or one kernel's) work, in ms, and
+    """The least time of ssd_bwd_work's or ssd_fwd_work's (or one kernel's)
+    work, in ms, and
     whether bytes or operations set it. fp32 operands (``elt`` 4): every
     operation at the fp32 rate (bound_ms), or as 3xTF32 (``tc``,
     tc_bound_ms). bf16 operands, at fp32 accuracy: a mixed product as two
@@ -4605,7 +4755,98 @@ def phase_dryrun_against_card(smi, recs: dict, measured: dict) -> None:
         fail(f"dryrun against the card: {bad}")
 
 
+#: --ssd-arm: the forward chain timed at the serving engine's prefill, the
+#: serving shape, the training microbatch and hymba-1.5b's prefill, in fp32
+#: and bf16, each kernel's mean by the profiler; the backward chain's
+#: outputs at SSD_ARM_BWD_SHAPE on the first arm's forward workspaces.
+SSD_ARM_SHAPES = [SSD_ENGINE_SHAPE, SSD_SERVE_SHAPE, (2, 2048, 80, 64, 128, 256),
+                  (4, 2048, 50, 64, 16, 256)]
+SSD_ARM_BWD_SHAPE = (2, 512, 80, 64, 128, 256)
+
+
+def ssd_arm(dump: Path, steps: bool = False) -> int:
+    """``python3 chip_smoke.py --ssd-arm SRC DUMP [--steps]``: one arm of a comparison
+    of two checkouts' ssd_scan chains on one card, run in turns (parent,
+    change, change, parent), the repro_torch under SRC imported (and its
+    kernels built beside it). Logs each SSD_ARM_SHAPES shape's chain time
+    (device_time_ms) and each kernel's mean per launch (phase_times); then
+    the backward chain at SSD_ARM_BWD_SHAPE in fp32 and bf16: where DUMP
+    does not exist, on this arm's forward workspaces, saved with the
+    gradients into DUMP; where it does, on the saved workspaces, its
+    gradients compared bitwise with the saved ones (exit 1 where they
+    differ). With ``--steps``, then the full-width mamba2-2.7b bf16 train
+    step (train_step_record: its walls and the SSD chains' shares of its
+    device time) and the fp32 4 x 2048 prefill (prefill_walls)."""
+    import torch
+
+    from repro_torch.kernels._build import SOURCES
+    from repro_torch.kernels.ssd_scan.kernel import (
+        _ssd_scan_bwd_cuda_phases,
+        _ssd_scan_cuda_phases,
+        ssd_scan_cuda,
+    )
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    phase_device()
+    log(f"[arm] ssd_scan from {SOURCES['ssd_scan']}")
+    for shape in SSD_ARM_SHAPES:
+        b, s, h, p, n, q = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(31)
+            ops = ssd_inputs(gen, b, s, h, p, n, dtype, dev, model_like=True)
+            t_k = device_time_ms(lambda: ssd_scan_cuda(*ops, q), reps=5, iters=4)
+            phase, total = phase_times(lambda: ssd_scan_cuda(*ops, q), 3,
+                                       {ph: f"ssd_scan_{ph}_kernel" for ph in SSD_PHASES})
+            log(f"[arm] B={b} S={s} H={h} P={p} N={n} chunk={q} "
+                f"{str(dtype).removeprefix('torch.')}: chain {t_k:.4f} ms; by phase "
+                + ", ".join(f"{ph} " + ("not measured" if ms is None else f"{ms:.4f} ms")
+                            for ph, ms in phase.items()) + f"; total {total:.4f} ms")
+            del ops
+    first = not dump.exists()
+    saved = {} if first else torch.load(dump, map_location=dev)
+    b, s, h, p, n, q = SSD_ARM_BWD_SHAPE
+    same = True
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).removeprefix("torch.")
+        gen = torch.Generator(device=dev).manual_seed(37)
+        ops = ssd_inputs(gen, b, s, h, p, n, dtype, dev, model_like=True)
+        dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+        dhf = torch.randn((b, h, p, n), generator=gen, device=dev)
+        ws = _ssd_scan_cuda_phases(*ops, q)[2:] if first else saved[f"{key}_ws"]
+        got = _ssd_scan_bwd_cuda_phases(*ops, dy, dhf, *ws, q)[:5]
+        torch.cuda.synchronize()
+        if first:
+            saved[f"{key}_ws"], saved[f"{key}_grads"] = ws, got
+        else:
+            eq = [torch.equal(u, v) for u, v in zip(got, saved[f"{key}_grads"])]
+            same &= all(eq)
+            log(f"[arm] backward at {SSD_ARM_BWD_SHAPE} {key} on the first arm's workspaces: "
+                f"dx, ddt, da, dB, dC bitwise the first arm's: {eq}")
+    if first:
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(saved, dump)
+        log(f"[arm] backward outputs and forward workspaces saved to {dump}")
+    del saved, ops, dy, dhf, ws, got
+    if steps:
+        rec = train_step_record(MAMBA_ARCH, "full", dev, TRAIN_BATCH, dtype=torch.bfloat16)
+        log(f"[arm] {MAMBA_ARCH} bf16 train step (4 x 2048, 2 microbatches, full remat): walls "
+            + ", ".join(f"{w:.4f}" for w in rec["walls"]) + f" s, median {rec['wall_s']:.4f} s; "
+            f"device busy {rec['device_busy_ms']:.1f} ms, the forward chains "
+            f"{100 * rec['fwd_share']:.2f}%, the backward chains {100 * rec['bwd_share']:.2f}% "
+            "of it")
+        walls = prefill_walls(MAMBA_ARCH, torch.float32, dev)
+        log(f"[arm] {MAMBA_ARCH} fp32 prefill (4 x 2048): walls "
+            + ", ".join(f"{w:.4f}" for w in walls) + " s")
+    return 0 if same else 1
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--ssd-arm"]:
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        return ssd_arm(Path(sys.argv[3]), steps="--steps" in sys.argv[4:])
     sys.path.insert(0, str(ROOT / "src"))
     if sys.argv[1:2] == ["--dryrun-cells"]:
         return dryrun_cells(Path(sys.argv[2]))
@@ -4771,6 +5012,10 @@ def run_phases(dev, smi, dry_run, started) -> int:
         "launches_train": train[MAMBA_ARCH]["counts"][1]["ssd_scan"],
         "launches_train_dense": train["qwen2-0.5b"]["counts"][1]["ssd_scan"],
         "launches_train_bf16": train[f"{MAMBA_ARCH} bf16"]["counts"][1]["ssd_scan"],
+        **{k: ssd[k] for k in ssd if k.endswith(("_train", "_train_bf16"))
+           and k.startswith(("ms_", "plain_ms_", "bound_", "phase_", "max_abs_err_"))},
+        "max_excess_bf16": ssd["max_excess_bf16_fwd"],
+        "hmma": mma["ssd_scan"],
     }
     mamba, mamba_bf16 = train[MAMBA_ARCH], train[f"{MAMBA_ARCH} bf16"]
     bwd_entry = {
@@ -4793,7 +5038,7 @@ def run_phases(dev, smi, dry_run, started) -> int:
         "phase_bound_ms": ssd_bwd["train"]["phase_bound_ms"],
         "phase_bound_ms_tc": ssd_bwd["train"]["phase_bound_ms_tc"],
         "phase_ms_in_step": mamba["bwd_phase_ms"],
-        "hmma": mma,
+        "hmma": mma["ssd_scan_bwd"],
         "max_rel_err_plain": ssd_bwd["max_rel_err_plain"],
         "max_rel_err_autograd": ssd_bwd["max_rel_err_autograd"],
         "layer0_rel_err": mamba["layer0_err"],

@@ -7,8 +7,10 @@ plain C interface, loaded with :mod:`ctypes`:
          -Xcompiler -fPIC -o <lib> <source>
 
 Libraries land in ``build/torch_kernels/`` at the root of the checkout
-(listed in ``.gitignore``), named by a hash of the source and the flags, so
-an edited source never loads a stale build. A missing ``nvcc`` or a failed
+(listed in ``.gitignore``), named by a hash of the source, of every file it
+includes with ``#include "…"`` (the headers beside it under ``csrc/``, and
+theirs in turn) and of the flags, so an edited source or header never loads
+a stale build. A missing ``nvcc`` or a failed
 compile raises: there is no fallback.
 """
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -53,10 +56,36 @@ def _nvcc() -> str:
     )
 
 
+_QUOTED_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def quoted_includes(src: Path) -> list[Path]:
+    """The files ``src`` includes with ``#include "…"``, each resolved
+    against the directory of the file that includes it, and the files they
+    include in turn: each once, in the order first met. Raises
+    ``FileNotFoundError`` for one that does not exist."""
+    found: list[Path] = []
+    todo = [src]
+    while todo:
+        cur = todo.pop(0)
+        for m in _QUOTED_INCLUDE.finditer(cur.read_bytes()):
+            path = (cur.parent / m.group(1).decode()).resolve()
+            if not path.is_file():
+                raise FileNotFoundError(f'{cur}: #include "{m.group(1).decode()}" not found')
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where the build of kernel ``name`` lives, keyed by source + flags."""
+    """Where the build of kernel ``name`` lives, keyed by its source, the
+    files that source includes (``quoted_includes``) and the flags."""
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for path in quoted_includes(src):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

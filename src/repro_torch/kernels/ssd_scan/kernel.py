@@ -5,8 +5,13 @@ The library is built by ``nvcc`` at first use (:mod:`repro_torch.kernels._build`
 One call of ``ssd_scan_launch`` launches the chain's five kernels in order on
 PyTorch's current stream — cumsum, chunk_cb, chunk_state, state_pass,
 chunk_scan — and that call is what ``ssd_scan_cuda.launches`` counts as one
-launch. The wrapper allocates the chain's workspaces (the per-chunk cumsum,
-CBᵀ per chunk and the per-chunk states); they are freed after the call.
+launch. chunk_state and chunk_scan run their products on the tensor cores
+(3xTF32, 2xTF32 where x, B and C are bf16; the routine in
+``csrc/ssd_scan_mma.cuh``, shared with the backward chain); before the first
+launch on a device the wrapper calls ``ssd_scan_init`` there (chunk_scan's
+dynamic shared memory limit). The wrapper allocates the chain's workspaces
+(the per-chunk cumsum, CBᵀ per chunk and the per-chunk states); they are
+freed after the call.
 Sizes go over as 64-bit integers and every offset inside the kernels is
 64-bit: at the ``prefill_32k`` shape (B = 32, S = 32768, H = 80, P = 64) x
 has 5.4e9 elements.
@@ -35,24 +40,57 @@ from torch import Tensor
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import DBC_HEAD_GROUP, DSTATE_HEAD_GROUP
 
-#: The kernels' limits: one 8x4-per-thread register tile covers the (P, N)
-#: state (P <= 64, N <= 128), and chunk_scan stages the chunk's cumsum and dt
-#: in static shared memory (Q <= 1024).
+#: The kernels' limits: one 64-row tile covers P (P <= 64), chunk_scan keeps
+#: its 64 rows of C resident (N <= 128), and chunk_state's and the
+#: backward's per-step arrays hold the chunk (Q <= 1024).
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024
 #: Every phase's grid is one-dimensional, at most 2^31 - 1 blocks. The
-#: launcher checks each; the wrapper names chunk_scan's, B·(S/Q)·ceil(Q/64)·H.
+#: launcher checks each; the wrapper names the largest, chunk_scan's
+#: B·(S/Q)·ceil(Q/64)·H or chunk_state's B·(S/Q)·H·ceil(N/64).
 _MAX_BLOCKS = 2**31 - 1
 _TILE = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+#: The forward chain's kernels, in launch order (``ssd_scan_<name>_kernel``).
+PHASES = ("cumsum", "chunk_cb", "chunk_state", "state_pass", "chunk_scan")
+
+
 @functools.cache
-def _launcher():
-    fn = _build.load("ssd_scan").ssd_scan_launch
+def _lib():
+    lib = _build.load("ssd_scan")
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [ptr] * 10 + [i64] * 6 + [ctypes.c_int, ptr]
-    fn.restype = ctypes.c_int
-    return fn
+    args = [ptr] * 10 + [i64] * 6 + [ctypes.c_int, ptr]
+    lib.ssd_scan_launch.argtypes = args
+    lib.ssd_scan_phase_launch.argtypes = [ctypes.c_int] + args
+    lib.ssd_scan_init.argtypes = []
+    for fn in (lib.ssd_scan_launch, lib.ssd_scan_phase_launch, lib.ssd_scan_init):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _ready(index: int) -> None:
+    """Once per device, before its first launch (and so outside any stream
+    capture): chunk_scan's dynamic shared memory limit."""
+    with torch.cuda.device(index):
+        rc = _lib().ssd_scan_init()
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan init failed on cuda:{index}: CUDA error {rc}")
+
+
+def _call(fn, lead, ops, out, chunk) -> int:
+    """One call of the library's ``fn`` (``lead``: arguments before the
+    tensors) on ``ops`` = (x, dt, a, b_mat, c_mat) and ``out`` = (y,
+    h_final, cum, g, h_in), on the current stream of their device."""
+    x, b_mat = ops[0], ops[3]
+    dev = x.device
+    _ready(dev.index if dev.index is not None else torch.cuda.current_device())
+    bsz, s, h, p = x.shape
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        return fn(*lead, *(t.data_ptr() for t in ops), *(t.data_ptr() for t in out),
+                  bsz, s, h, p, b_mat.shape[-1], chunk, _DTYPES[x.dtype], stream)
 
 
 def _ssd_scan_cuda_phases(
@@ -89,7 +127,7 @@ def _ssd_scan_cuda_phases(
     if not 1 <= chunk <= MAX_CHUNK or s % chunk:
         raise ValueError(f"chunk {chunk} must be in [1, {MAX_CHUNK}] and divide S={s}")
     nc = s // chunk
-    blocks = bsz * nc * -(-chunk // _TILE) * h
+    blocks = bsz * nc * h * max(-(-chunk // _TILE), -(-n // _TILE))
     if p > MAX_P or n > MAX_N or blocks > _MAX_BLOCKS:
         raise ValueError(f"P={p}, N={n}, {blocks} blocks outside the kernels' limits "
                          f"(P <= {MAX_P}, N <= {MAX_N}, blocks <= {_MAX_BLOCKS})")
@@ -101,18 +139,29 @@ def _ssd_scan_cuda_phases(
     g = torch.empty((bsz, nc, chunk, chunk), device=dev, dtype=f32)
     h_in = torch.empty((bsz, nc, h, p, n), device=dev, dtype=f32)
     if launch:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = _launcher()(
-                x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
-                c_mat.data_ptr(), y.data_ptr(), h_final.data_ptr(), cum.data_ptr(),
-                g.data_ptr(), h_in.data_ptr(), bsz, s, h, p, n, chunk,
-                _DTYPES[x.dtype], stream,
-            )
+        rc = _call(_lib().ssd_scan_launch, (), tensors, (y, h_final, cum, g, h_in), chunk)
         if rc != 0:
             raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
         ssd_scan_cuda.launches += 1
     return y, h_final, cum, g, h_in
+
+
+def _ssd_scan_cuda_phase(
+    phase: str, x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor, c_mat: Tensor, chunk: int,
+    out: tuple[Tensor, ...],
+) -> None:
+    """Launch the chain's kernel ``phase`` (one of :data:`PHASES`) alone, on
+    ``out``: what :func:`_ssd_scan_cuda_phases` returned for the same
+    operands. For timing each kernel on workspaces already filled; not a
+    launch of the chain (``ssd_scan_cuda.launches`` is unchanged).
+    chunk_state overwrites the states workspace with the chunks' own
+    contributions and state_pass turns it over again on every call."""
+    tensors = (x, dt, a, b_mat, c_mat)
+    if any(t.device.type != "cuda" for t in tensors + tuple(out)):
+        raise TypeError("ssd_scan_cuda takes CUDA tensors only")
+    rc = _call(_lib().ssd_scan_phase_launch, (PHASES.index(phase),), tensors, out, chunk)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan {phase} launch failed: CUDA error {rc}")
 
 
 def ssd_scan_cuda(

@@ -184,6 +184,87 @@ def test_ssd_scan_cuda_rejects_what_it_cannot_run(cuda):
         ssd_scan_cuda(*big, 64)
 
 
+#: The tensor-core kernels' ragged shapes (tests/test_torch_ssd_scan.py's
+#: PHASE_SHAPES holds the plain phase version at the first two against JAX):
+#: S = 130 on Q = 65 (a 64-row tile and a one-row one), P = 12 and 20, N = 16
+#: and 40, H = 17 and 20; then four 64-row tiles a chunk (chunk_scan's
+#: off-diagonal tiles, factored) at P = 12, N = 40. bf16 copies move one
+#: element at P = 12 and 20.
+FWD_RAGGED_SHAPES = [(1, 130, 17, 12, 16, 65), (2, 130, 20, 20, 40, 65),
+                     (1, 512, 17, 12, 40, 256)]
+#: Where cum rises in a head (a > 0; tests/test_torch_ssd_scan.py's
+#: RISING_SHAPES): chunk_scan's per-element form beside the factored one.
+FWD_RISING_SHAPES = [(1, 256, 3, 16, 16, 128), (2, 130, 4, 20, 40, 65)]
+
+
+def _check_forward_chain(cuda, ops, chunk, by_max=False):
+    """Two launches of the chain bitwise equal (G on and below the
+    diagonal), one count each, and every output and workspace against
+    ssd_scan_phases_ref: cum to summation order (1e-12 relative); G, h_in,
+    h_final and fp32 y within 1e-4 of max(|plain|, 1) elementwise (fp32 sums
+    in another order, 3xTF32 products), or of the largest |plain| where
+    ``by_max`` (a rising cum: the state grows as exp(cum), and the rounding
+    with the largest terms); bf16 y within one bf16 ulp + BWD_TOL of the
+    max (_assert_bf16_close: both round once to bf16)."""
+    before = ssd_scan_cuda.launches
+    got = _ssd_scan_cuda_phases(*ops, chunk)
+    again = _ssd_scan_cuda_phases(*ops, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == before + 2
+    want = ssd_scan_phases_ref(*ops, chunk)
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=cuda).tril()
+    names = ("y", "h_final", "cum", "G", "h_in")
+    for name, u, v, w in zip(names, got, again, want):
+        if name == "G":
+            u, v, w = u[..., tri], v[..., tri], w[..., tri]
+        assert torch.equal(u, v), name
+        if name == "cum":
+            torch.testing.assert_close(u, w, rtol=1e-12, atol=0)
+        elif name == "y" and u.dtype == torch.bfloat16:
+            _assert_bf16_close(u, w, name)
+        else:
+            err = _rel_max(u, w) if by_max else _rel(u, w)
+            assert err <= 1e-4, (name, err)
+    assert bool(torch.isfinite(got[0].float()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", FWD_RAGGED_SHAPES)
+def test_ssd_scan_chain_ragged_tiles_match_plain_phases(cuda, b, s, h, p, n, chunk, dtype):
+    """chunk_state's and chunk_scan's ragged tiles (rows, columns and depth
+    zero-filled and masked) and one-element copies, model-range inputs."""
+    _check_forward_chain(cuda, _model_range_ops(cuda, b + s + h, b, s, h, p, n, dtype), chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", FWD_RISING_SHAPES)
+def test_ssd_scan_chain_where_cum_rises(cuda, b, s, h, p, n, chunk, dtype):
+    """a of either sign (head 0's 3, the last head's -3): chunk_scan's
+    off-diagonal tiles take the per-element form in the blocks where an
+    exponent of the factored form is > 0, the factored one elsewhere."""
+    ops = _model_range_ops(cuda, b + s + n, b, s, h, p, n, dtype, rising=True)
+    assert float(ops[2].max()) > 0.0 > float(ops[2].min())
+    _check_forward_chain(cuda, ops, chunk, by_max=True)
+
+
+def _model_range_ops(cuda, seed, b, s, h, p, n, dtype, rising=False):
+    """The model's input ranges (dt log-uniform in [1e-3, 0.1], A in
+    [-16, -1], x, B, C through silu); with ``rising``, a in [-4, 4] with
+    head 0's 3 and the last head's -3 (as tests/test_torch_ssd_scan.py's
+    _rising_inputs)."""
+    rng = np.random.default_rng(seed)
+    silu = lambda v: v / (1.0 + np.exp(-v))
+    t = lambda v, d=torch.float32: torch.from_numpy(np.asarray(v, np.float32)).to(cuda, d)
+    a = rng.uniform(-16.0, -1.0, h)
+    if rising:
+        a = rng.uniform(-4.0, 4.0, h)
+        a[0], a[-1] = 3.0, -3.0
+    return (t(silu(rng.standard_normal((b, s, h, p))), dtype),
+            t(np.exp(rng.uniform(np.log(1e-3), np.log(0.1), (b, s, h)))), t(a),
+            t(silu(rng.standard_normal((b, s, n))), dtype),
+            t(silu(rng.standard_normal((b, s, n))), dtype))
+
+
 def test_gmsa_score_kernel_matches_plain_version(cuda):
     rng = np.random.default_rng(0)
     k, n = 8, 256

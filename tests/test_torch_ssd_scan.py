@@ -30,9 +30,16 @@ SHAPES = [(1, 32, 2, 8, 16, 8), (2, 128, 3, 64, 128, 128), (1, 72, 2, 32, 64, 16
 # differently (exp of cumsum differences vs products of per-step decays);
 # bf16: y is rounded to bf16 on both sides. test_kernels.py's tolerances.
 TOL = {"float32": 3e-4, "bfloat16": 5e-2}
-#: SHAPES, a ragged S with chunk 24 (3 chunks, the last one padded) and an S
-#: of 6 chunks.
-PHASE_SHAPES = SHAPES + [(1, 70, 2, 8, 16, 24), (2, 96, 2, 16, 32, 16)]
+#: SHAPES, a ragged S with chunk 24 (3 chunks, the last one padded), an S
+#: of 6 chunks, then the card tests' ragged shapes (tests/test_torch_cuda.py):
+#: S = 130 on Q = 65 (a 64-row tile and a one-row one), P = 12 and 20, N =
+#: 16 and 40, H = 17 and 20.
+PHASE_SHAPES = SHAPES + [(1, 70, 2, 8, 16, 24), (2, 96, 2, 16, 32, 16),
+                         (1, 130, 17, 12, 16, 65), (2, 130, 20, 20, 40, 65)]
+#: (B, S, H, P, N, chunk) where cum rises in some heads (a > 0): the card
+#: tests' shapes of the per-element fallback in chunk_scan (several 64-row
+#: tiles per chunk, so off-diagonal ones).
+RISING_SHAPES = [(1, 256, 3, 16, 16, 128), (2, 130, 4, 20, 40, 65)]
 
 
 def _inputs(seed, b, s, h, p, n):
@@ -181,3 +188,43 @@ def test_ssd_scan_phases_ref_workspaces_follow_the_recurrence(b, s, h, p, n, chu
     y_seq, h_seq = ssd_scan_ref(*(torch.from_numpy(v) for v in (x, dt, a, bm, cm)))
     np.testing.assert_allclose(hf.numpy(), h_seq.numpy(), rtol=3e-4, atol=3e-4)
     np.testing.assert_allclose(y.numpy(), y_seq.numpy(), rtol=3e-4, atol=3e-4)
+
+
+def _rising_inputs(seed, b, s, h, p, n):
+    """The model's input ranges (dt log-uniform in [1e-3, 0.1], x, B, C
+    through silu) with a of either sign, head 0's a = 3 and the last head's
+    -3: cum rises within a chunk in head 0 (a·dt > 0, which no model's a
+    does) and falls in the last."""
+    rng = np.random.default_rng(seed)
+    silu = lambda v: v / (1.0 + np.exp(-v))
+    a = rng.uniform(-4.0, 4.0, h)
+    a[0], a[-1] = 3.0, -3.0
+    return (
+        silu(rng.standard_normal((b, s, h, p))).astype(np.float32),
+        np.exp(rng.uniform(np.log(1e-3), np.log(0.1), (b, s, h))).astype(np.float32),
+        a.astype(np.float32),
+        silu(rng.standard_normal((b, s, n))).astype(np.float32),
+        silu(rng.standard_normal((b, s, n))).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", RISING_SHAPES)
+def test_ssd_scan_phases_ref_where_cum_rises(b, s, h, p, n, chunk, dtype):
+    """With a > 0 in some heads (cum rising within a chunk, where chunk_scan
+    on the card takes its per-element form): the chain's algorithm against
+    the JAX Pallas kernel (interpret mode), the JAX chunked form and the
+    sequential oracle. The state grows as exp(cum) there (|y| up to 6e6),
+    and each formulation's rounding scales with the largest terms, not with
+    an element's own size, so test_kernels.py's tolerances hold relative to
+    the largest |value| (measured at most 1.3e-6 fp32, 1.1e-4 bf16)."""
+    j, t = _cast(_rising_inputs(b + s + chunk, b, s, h, p, n), dtype)
+    assert float(t[2].max()) > 0.0 > float(t[2].min())
+    y, hf, _, _, _ = ssd_scan_phases_ref(*t, chunk)
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(hf).all())
+    tol = TOL[dtype]
+    for y_j, h_j in (jax_ssd_scan(*j, chunk=chunk, interpret=True), jax_ssd_scan_ref(*j),
+                     jax_ssd_chunked(*j, chunk)):
+        for got, want in ((y.float().numpy(), np.asarray(y_j, np.float32)),
+                          (hf.numpy(), np.asarray(h_j, np.float32))):
+            assert np.abs(got - want).max() <= tol * np.abs(want).max()
