@@ -392,13 +392,16 @@ SSD_MODEL_TOL = 1e-4
 #: The chain's kernels, in launch order (``ssd_scan_<phase>_kernel``).
 SSD_PHASES = ("cumsum", "chunk_cb", "chunk_state", "state_pass", "chunk_scan")
 #: The chain's kernels that run on the tensor cores (HMMA in their SASS, in
-#: the fp32 and the bf16 instantiations; no spill).
-SSD_MMA_PHASES = ("chunk_state", "chunk_scan")
-#: Timed beside the serving shape: mamba2-2.7b's training microbatch (2 x
-#: 2048, phase 19 (b) runs the chain 256 times a step), with the model's
-#: input ranges, in fp32 and in bf16, with CUDA-graph (reps, iters) for the
-#: chain and for each of its kernels alone (on filled workspaces).
-SSD_FWD_TIMED = {(2, 2048, 80, 64, 128, 256): ("train", 5, 4)}
+#: the fp32 and the bf16 instantiations).
+SSD_MMA_PHASES = ("chunk_cb", "chunk_state", "chunk_scan")
+#: Phase 7's shapes, with the model's input ranges, in fp32 and in bf16,
+#: each with its tag and CUDA-graph (reps, iters) for the chain, for each of
+#: its kernels alone (on filled workspaces) and for the one-call yardsticks:
+#: mamba2-2.7b's training microbatch (2 x 2048, phase 19 (b) runs the chain
+#: 256 times a step), the serving engine's prefill batch (4 x 32, chunk 32)
+#: and the 4 x 2048 prefill (phase 8).
+SSD_FWD_TIMED = {(2, 2048, 80, 64, 128, 256): ("train", 5, 4), SSD_ENGINE_SHAPE: ("engine", 20, 10),
+                 SSD_SERVE_SHAPE: ("prefill", 5, 4)}
 #: bf16 x, B, C: y against ssd_scan_phases_ref on the same operands within
 #: one bf16 ulp + SSD_BWD_TOL of the max (bf16_excess), at the timed shapes
 #: and at two where the copies move one element (P, N no multiple of 8).
@@ -892,10 +895,9 @@ def sass_mma_counts(lib: Path, prefix: str) -> dict[str, dict[str, int]] | None:
 def phase_build() -> dict[str, dict[str, dict[str, int]] | None]:
     """Builds every kernel, logs ptxas's registers, spills and shared memory
     per kernel function, then the SSD chains' HMMA counts per library (None:
-    not measured). Fails where a kernel of the backward chain or one of
-    SSD_MMA_PHASES of the forward spills, or one of SSD_BWD_MMA_PHASES /
-    SSD_MMA_PHASES has no HMMA in an instantiation (the forward's in both
-    element types)."""
+    not measured). Fails where a kernel of either SSD chain spills, or one of
+    SSD_BWD_MMA_PHASES / SSD_MMA_PHASES has no HMMA in an instantiation (the
+    forward's in both element types)."""
     import re
 
     from repro_torch.kernels import _build
@@ -903,7 +905,7 @@ def phase_build() -> dict[str, dict[str, dict[str, int]] | None]:
     t0 = time.perf_counter()
     logs = _build.build_all()
     secs = time.perf_counter() - t0
-    gated = ("ssd_bwd_",) + tuple(f"ssd_scan_{ph}_kernel" for ph in SSD_MMA_PHASES)
+    gated = ("ssd_bwd_", "ssd_scan_")
     spilled = []
     for name, text in logs.items():
         for usage in ptxas_usage(text):
@@ -913,7 +915,7 @@ def phase_build() -> dict[str, dict[str, dict[str, int]] | None]:
                 spilled.append(usage)
     log(f"[build] {len(logs)} kernel(s) built in {secs:.2f} s -> {_build.BUILD_DIR}")
     if spilled:
-        fail(f"tensor-core SSD kernels spill (or ptxas did not say): {spilled}")
+        fail(f"SSD kernels spill (or ptxas did not say): {spilled}")
     mma = {}
     for lib, prefix, phases in (("ssd_scan", "ssd_scan_", SSD_MMA_PHASES),
                                 ("ssd_scan_bwd", "ssd_bwd_", SSD_BWD_MMA_PHASES)):
@@ -1508,12 +1510,52 @@ def ssd_fwd_phase_work(b: int, s: int, h: int, p: int, n: int, q: int,
     }
 
 
+def ssd_fwd_library_ms(ops, q: int, reps: int, iters: int) -> dict[str, float | None]:
+    """One PyTorch call for each of chunk_cb's and cumsum's functions on the
+    chain's operands, timed as the kernels are (device_time_ms); the port
+    calls neither. chunk_cb: CBᵀ per chunk over the whole Q x Q square, fp32
+    ``torch.matmul`` with TF32 off ("highest" precision), bf16 ``torch.bmm(...,
+    out_dtype=torch.float32)`` where this torch has that overload (None
+    where not). cumsum: ``torch.cumsum`` over the chunk of the fp64 a·dt
+    product, formed outside the timed window: the prefix sum only, not the
+    whole function (no fp32 read, no (B, H, S) layout)."""
+    import torch
+
+    x, dt, a, bm, cm = ops
+    b, s, h, _ = x.shape
+    n, nc = bm.shape[-1], s // q
+    cc, bb = cm.view(b * nc, q, n), bm.view(b * nc, q, n)
+    if cm.dtype == torch.float32:
+        tf32, prec = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        try:
+            cb = device_time_ms(lambda: torch.matmul(cc, bb.mT), reps=reps, iters=iters)
+        finally:
+            torch.set_float32_matmul_precision(prec)
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    else:
+        try:
+            torch.bmm(cc, bb.mT, out_dtype=torch.float32)
+        except (TypeError, RuntimeError, NotImplementedError) as exc:
+            log(f"[ssd] torch.bmm(..., out_dtype=torch.float32) is missing in torch "
+                f"{torch.__version__} ({type(exc).__name__}): chunk_cb's bf16 library time null")
+            cb = None
+        else:
+            cb = device_time_ms(lambda: torch.bmm(cc, bb.mT, out_dtype=torch.float32),
+                                reps=reps, iters=iters)
+    prod = dt.view(b, nc, q, h).double() * a.double()
+    prefix = device_time_ms(lambda: torch.cumsum(prod, dim=2), reps=reps, iters=iters)
+    return {"chunk_cb": cb, "cumsum_prefix": prefix}
+
+
 def phase_ssd_fwd(dev) -> dict:
     """Phase 7, the forward chain at SSD_FWD_TIMED in fp32 and bf16 with the
     model's input ranges: its device time, each kernel's alone (CUDA events,
     on a copy of the filled workspaces), the plain phase version's, the
     bounds (fp32: the fp32 rate and 3xTF32; bf16: its products priced by
-    class, ssd_bwd_bound_ms), each kernel's; y against ssd_scan_phases_ref
+    class, ssd_bwd_bound_ms), each kernel's, and chunk_cb's and cumsum's
+    one-call yardsticks (ssd_fwd_library_ms); y against ssd_scan_phases_ref
     (fp32 within SSD_MODEL_TOL, bf16 within bf16_excess's SSD_BWD_TOL), also
     at SSD_FWD_BF16_SHAPES in bf16."""
     import torch
@@ -1574,9 +1616,20 @@ def phase_ssd_fwd(dev) -> dict:
                 f"{100 * tc_bound / t_k:.1f}%)")
             log(f"[ssd] {tag}: each kernel alone (CUDA events, on filled workspaces): "
                 + ", ".join(f"{ph} {ms:.4f} ms (bound {ph_bound[ph]:.4f} {short[0]} / "
-                            f"{ph_tc[ph]:.4f} {short[1]})" for ph, ms in phase.items())
+                            f"{ph_tc[ph]:.4f} {short[1]}; {100 * ph_tc[ph] / ms:.0f}% of it)"
+                            for ph, ms in phase.items())
                 + f"; sum {sum(phase.values()):.4f} ms")
-            out.update({f"ms_{key}": t_k, f"plain_ms_{key}": t_p, f"bound_ms_{key}": bound,
+            lib = ssd_fwd_library_ms(ops, q, reps, iters)
+            cb_lib = "null" if lib["chunk_cb"] is None else f"{lib['chunk_cb']:.4f} ms"
+            log(f"[ssd] {tag}: yardsticks: chunk_cb {phase['chunk_cb']:.4f} ms against one "
+                + ("torch.matmul (fp32, TF32 off)" if not bf16 else
+                   "torch.bmm(..., out_dtype=torch.float32)")
+                + f" of CBᵀ per chunk {cb_lib}; cumsum {phase['cumsum']:.4f} ms against "
+                f"torch.cumsum of the fp64 a·dt product (the prefix sum only) "
+                f"{lib['cumsum_prefix']:.4f} ms")
+            out.update({f"library_ms_chunk_cb_{key}": lib["chunk_cb"],
+                        f"ref_ms_cumsum_prefix_{key}": lib["cumsum_prefix"],
+                        f"ms_{key}": t_k, f"plain_ms_{key}": t_p, f"bound_ms_{key}": bound,
                         f"bound_by_{key}": bound_by, f"bound_ms_tc_{key}": tc_bound,
                         f"bound_by_tc_{key}": tc_by, f"phase_ms_{key}": phase,
                         f"phase_bound_ms_{key}": ph_bound, f"phase_bound_ms_tc_{key}": ph_tc,
@@ -1584,7 +1637,7 @@ def phase_ssd_fwd(dev) -> dict:
         del got, ops
         torch.cuda.empty_cache()
     out["max_excess_bf16_fwd"] = worst
-    log(f"[ssd] the forward at the training microbatch and bf16 shapes took "
+    log(f"[ssd] the forward at SSD_FWD_TIMED and the bf16 shapes took "
         f"{time.perf_counter() - t0:.1f} s")
     return out
 
@@ -4774,9 +4827,11 @@ def ssd_arm(dump: Path, steps: bool = False) -> int:
     does not exist, on this arm's forward workspaces, saved with the
     gradients into DUMP; where it does, on the saved workspaces, its
     gradients compared bitwise with the saved ones (exit 1 where they
-    differ). With ``--steps``, then the full-width mamba2-2.7b bf16 train
-    step (train_step_record: its walls and the SSD chains' shares of its
-    device time) and the fp32 4 x 2048 prefill (prefill_walls)."""
+    differ), and this arm's forward workspaces against the saved ones
+    (logged: cum bitwise, G and h_in by max_rel_err). With ``--steps``,
+    then the full-width mamba2-2.7b bf16 train step (train_step_record: its
+    walls and the SSD chains' shares of its device time) and the fp32 4 x
+    2048 prefill (prefill_walls)."""
     import torch
 
     from repro_torch.kernels._build import SOURCES
@@ -4815,7 +4870,14 @@ def ssd_arm(dump: Path, steps: bool = False) -> int:
         ops = ssd_inputs(gen, b, s, h, p, n, dtype, dev, model_like=True)
         dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
         dhf = torch.randn((b, h, p, n), generator=gen, device=dev)
-        ws = _ssd_scan_cuda_phases(*ops, q)[2:] if first else saved[f"{key}_ws"]
+        own = _ssd_scan_cuda_phases(*ops, q)[2:]
+        ws = own if first else saved[f"{key}_ws"]
+        if not first:
+            tri = torch.ones(q, q, dtype=torch.bool, device=dev).tril()
+            log(f"[arm] forward workspaces at {SSD_ARM_BWD_SHAPE} {key} against the first "
+                f"arm's: cum bitwise {torch.equal(own[0], ws[0])}, G on and below the diagonal "
+                f"max_rel_err {rel_err(own[1][..., tri], ws[1][..., tri]):.3e}, h_in "
+                f"{rel_err(own[2], ws[2]):.3e}")
         got = _ssd_scan_bwd_cuda_phases(*ops, dy, dhf, *ws, q)[:5]
         torch.cuda.synchronize()
         if first:
@@ -4829,7 +4891,7 @@ def ssd_arm(dump: Path, steps: bool = False) -> int:
         dump.parent.mkdir(parents=True, exist_ok=True)
         torch.save(saved, dump)
         log(f"[arm] backward outputs and forward workspaces saved to {dump}")
-    del saved, ops, dy, dhf, ws, got
+    del saved, ops, dy, dhf, ws, own, got
     if steps:
         rec = train_step_record(MAMBA_ARCH, "full", dev, TRAIN_BATCH, dtype=torch.bfloat16)
         log(f"[arm] {MAMBA_ARCH} bf16 train step (4 x 2048, 2 microbatches, full remat): walls "
@@ -5012,8 +5074,11 @@ def run_phases(dev, smi, dry_run, started) -> int:
         "launches_train": train[MAMBA_ARCH]["counts"][1]["ssd_scan"],
         "launches_train_dense": train["qwen2-0.5b"]["counts"][1]["ssd_scan"],
         "launches_train_bf16": train[f"{MAMBA_ARCH} bf16"]["counts"][1]["ssd_scan"],
-        **{k: ssd[k] for k in ssd if k.endswith(("_train", "_train_bf16"))
-           and k.startswith(("ms_", "plain_ms_", "bound_", "phase_", "max_abs_err_"))},
+        **{k: ssd[k] for k in ssd
+           if k.endswith(tuple(f"_{t}{d}" for t, _, _ in SSD_FWD_TIMED.values()
+                               for d in ("", "_bf16")))
+           and k.startswith(("ms_", "plain_ms_", "bound_", "phase_", "max_abs_err_", "library_ms_",
+                             "ref_ms_"))},
         "max_excess_bf16": ssd["max_excess_bf16_fwd"],
         "hmma": mma["ssd_scan"],
     }

@@ -10,21 +10,26 @@
 //   y_t    = exp(cum_t) C_t · h_in + Σ_{u<=t} (C_t · B_u) exp(cum_t - cum_u) dt_u x_u
 //   h_out  = exp(cum_Q) h_in + Σ_u x_u exp(cum_Q - cum_u) dt_u ⊗ B_u
 //
-// x, B, C are fp32 or bf16 (one dtype); dt and a fp32. chunk_state and
-// chunk_scan run their products on the tensor cores (mma.sync TF32 as
-// 3xTF32, ssd_scan_mma.cuh; 2xTF32 where an operand is bf16, which is exact
-// in TF32); cumsum, chunk_cb and state_pass run in fp32 on the CUDA cores.
+// x, B, C are fp32 or bf16 (one dtype); dt and a fp32. chunk_cb,
+// chunk_state and chunk_scan run their products on the tensor cores
+// (mma.sync TF32 as 3xTF32, ssd_scan_mma.cuh; 2xTF32 where an operand is
+// bf16, which is exact in TF32, and one TF32 product where both are);
+// cumsum runs in fp64 and state_pass in fp32 on the CUDA cores.
 // No library call. y comes out in x's dtype, the final state h_final
 // (B, H, P, N) in fp32. S must be a multiple of Q (the wrapper pads with
 // dt = 0 no-op steps).
 //
 // The chain, launched in order on the caller's stream by ssd_scan_launch;
 // the caller allocates the three workspaces:
-//   0. cumsum      per (b, chunk, h), one warp: cum (B, H, S) fp64, a
-//                  shuffle scan over runs of ceil(Q/32) steps per lane.
-//   1. chunk_cb    per (b, chunk, causal 64x64 tile pair): G = C_c B_cᵀ
-//                  (B, nc, Q, Q) fp32, formed once for all H heads, which
-//                  share one B/C group; the heads then read it from L2.
+//   0. cumsum      per (b, chunk, group of 8 heads), one warp a head: cum
+//                  (B, H, S) fp64, a shuffle scan over runs of ceil(Q/32)
+//                  steps per lane; dt read and cum written coalesced,
+//                  through shared memory (directly where Q <= 32).
+//   1. chunk_cb    per (b, chunk, 64 x 32 output tile of the causal 64x64
+//                  tile pairs; 64 x 16 where the grid would not fill the
+//                  card): G = C_c B_cᵀ (B, nc, Q, Q) fp32, a product of
+//                  depth N formed once for all H heads, which share one B/C
+//                  group; the heads then read it from L2.
 //   2. chunk_state per (b, chunk, h, column tile of 16, 32 or 64 as N
 //                  needs): the chunk's own state contribution s_c = (x ⊙
 //                  w)ᵀ B, w_u = exp(cum_Q - cum_u) dt_u, into states
@@ -72,19 +77,37 @@
 //     not rise; a block with an exponent of that form > 0 (a·dt > 0, which
 //     no model has) takes the per-element form, as the diagonal tile does.
 //
+// What held cumsum and chunk_cb back (their earlier CUDA-core forms), and
+// what they do about it:
+//   * cumsum gave each (b, chunk, h) stream one warp whose lanes read dt at
+//     a stride of H (one load instruction touching 32 rows), read it twice
+//     and wrote cum at a stride of ceil(Q/32) steps: a block now reads the
+//     chunk's rows for 8 heads once, neighbouring threads on neighbouring
+//     heads, into shared memory, scans there and writes each head's row of
+//     cum with neighbouring lanes on neighbouring steps (where Q <= 32, one
+//     step a lane, the earlier reads shared their sectors and its writes
+//     were coalesced: it keeps them, without shared memory or a barrier,
+//     which cost 0.4 µs on an H100 at the serving engine's 32-step
+//     chunks). Its fp64
+//     additions are the earlier kernel's, in the same order: cum is bitwise
+//     the same;
+//   * chunk_cb ran its 0.17 GFLOP as fp32 FMAs (8x4 register tiles, 8-byte
+//     bf16 loads) in 1.2 waves of 64x64 tiles at mamba2-2.7b's training
+//     microbatch and in 4 blocks at the serving engine's 32-token prompts:
+//     it is mma_tile's product (C rows m-major, B rows n-major, depth N, by
+//     cp.async into the four-stage ring), 64 x 32 output tiles (64 x 16
+//     where a grid of those would not fill the card's 132 SMs).
+//
 // Design points:
-//   * chunk_cb keeps the CUDA cores (0.34 of 16.3 GFLOP): 64x64 output
-//     tiles, an 8x4 register tile per thread, operands k-major in shared
-//     memory; global reads take four consecutive elements of a row at once
-//     (one 16-byte fp32 or 8-byte bf16 load where the rows are aligned);
 //   * cp.async moves 16-byte chunks where P and N are multiples of a
 //     chunk's elements (4 fp32, 8 bf16) and every base is 16-byte aligned,
 //     else one element (4 bytes, or a load and a store for bf16);
-//   * chunk_scan's shared memory is dynamic (56 KB: three blocks an SM), its
-//     limit set once per device by ssd_scan_init, which the wrapper calls
-//     before the first launch there; the attribute belongs to the function,
-//     so a launch is captured in a CUDA graph as any other. The rest is
-//     static and under 48 KB;
+//   * chunk_scan's shared memory is dynamic (56 KB: three blocks an SM), and
+//     so is cumsum's (96·Q bytes and pads: 101 KB at Q = 1024); their
+//     limits are set once per device by ssd_scan_init, which the wrapper
+//     calls before the first launch there; the attribute belongs to the
+//     function, so a launch is captured in a CUDA graph as any other. The
+//     rest is static and under 48 KB;
 //   * the cumsum stays in fp64, and every exponent (cum_t - cum_u,
 //     cum_Q - cum_u, cum_t, cum_Q and the anchored ones) is formed in fp64
 //     and rounded once before an fp32 exp: over a 256-step chunk cum
@@ -111,61 +134,11 @@
 
 namespace {
 
-constexpr int kLd = kT + 4;           // row stride of chunk_cb's 64-wide shared tiles (16-byte rows, 4 mod 32 banks)
-constexpr int kScanWarps = 8;         // cumsum: one warp per (b, chunk, h) stream
-constexpr int kTileThreads = 128;     // chunk_cb: 8 x 16 threads, a 64 x 64 tile
+constexpr int kScanHeads = 8;         // cumsum: heads per block, one warp each
 constexpr int kPassThreads = 256;     // state_pass
 constexpr int kPassPer = 4;           // state_pass: state elements carried per thread
-constexpr int kTileBlocks = 3;        // chunk_cb: blocks per SM (registers: 170 a thread)
-
-// out[0 .. valid) = v[0 .. valid), valid <= 4: one 16-byte store for a whole,
-// aligned fp32 run.
-template <typename T>
-__device__ __forceinline__ void store4(T* out, const float (&v)[4], int valid) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (j < valid) put(out + j, v[j]);
-}
-__device__ __forceinline__ void store4(float* out, const float (&v)[4], int valid) {
-  if (valid >= 4 && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
-    *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (j < valid) out[j] = v[j];
-}
-
-// This thread's 8x4 register tile: rows 8*ty .. 8*ty+7 and columns 4*tx ..
-// 4*tx+3 of the block's output, kColGroups groups of 4 columns wide. A warp
-// covers 4 ty x 8 tx, so that one k step's loads touch 4 distinct left and 8
-// distinct right addresses (one shared-memory wavefront each).
-template <int kColGroups>
-__device__ __forceinline__ void tile_coords(int& ty, int& tx) {
-  constexpr int kWarpsAcross = kColGroups / 8;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  tx = (warp % kWarpsAcross) * 8 + (lane & 7);
-  ty = (warp / kWarpsAcross) * 4 + (lane >> 3);
-}
-
-// acc[i][j] += Σ_k a[k][m0 + i] · b[k][n0 + j] over k < kDepth, both shared
-// tiles k-major: three 16-byte loads per 32 FMAs.
-template <int kDepth, int kLdA, int kLdB>
-__device__ __forceinline__ void fma_tile(float (&acc)[8][4], const float* __restrict__ as,
-                                         const float* __restrict__ bs, int m0, int n0) {
-#pragma unroll 16
-  for (int k = 0; k < kDepth; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(as + k * kLdA + m0);
-    const float4 a1 = *reinterpret_cast<const float4*>(as + k * kLdA + m0 + 4);
-    const float4 b = *reinterpret_cast<const float4*>(bs + k * kLdB + n0);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
+constexpr int kCbBlocks = 4;          // chunk_cb: blocks per SM (40 KB of ring each)
+constexpr int kCardSms = 132;         // the H100 SXM's SMs: chunk_cb's narrower tile below a wave
 
 // Elements k .. k+3 of a row of `count` elements, 0 past its end, in fp32:
 // one 16-byte (fp32) or 8-byte (bf16) load when `vec` says the row starts on
@@ -194,126 +167,150 @@ __device__ __forceinline__ bool vec_rows(const T* p, int64_t stride) {
   return stride % 4 == 0 && (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0;
 }
 
-// A slab is the pair of shared tiles one k loop of fma_tile reads. Its values
-// travel from global memory through registers, four consecutive elements of
-// a row at a time: fetch_* reads f(r, k) = elements k .. k+3 of source row r,
-// stash_* stores g(r, k, v) for each fetched value v.
-struct Keep {
-  template <typename V>
-  __device__ __forceinline__ V operator()(int, int, V v) const { return v; }
-};
-
-// A 64 x 64 tile whose source rows run along k, stored transposed:
-// dst[k * kLd + r]. Each warp step takes 8 consecutive k of 16 rows (two
-// lanes a row): 32-byte source runs, and for each of the four scalar stores
-// banks 16 (lane & 1) + (lane >> 1) + const, all distinct.
-template <int kNT>
-constexpr int kPer4 = kT * kT / (4 * kNT);
-
-template <int kNT, typename F>
-__device__ __forceinline__ void fetch_transposed(float4 (&v)[kPer4<kNT>], F f) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < kPer4<kNT>; ++i) {
-    const int e = warp + i * (kNT / 32);
-    v[i] = f((e >> 3) * 16 + (lane >> 1), (e & 7) * 8 + (lane & 1) * 4);
-  }
+// cumsum's shared memory for chunk length Q: per head of the block, the
+// chunk's cum (fp64, rows cumsum_row(Q) apart) and dt (fp32, rows
+// cumsum_ld(Q) apart), step t of each at skew(t), one pad word after every
+// 32 steps, so that the lanes' runs of steps fall in distinct banks;
+// cumsum_ld is 4 mod 32, so that the copy's stores (4 steps x 8 heads a
+// warp) do too.
+__host__ __device__ constexpr int cumsum_row(int Q) { return Q + (Q - 1) / 32 + 1; }
+__host__ __device__ constexpr int cumsum_ld(int Q) { return (cumsum_row(Q) + 27) / 32 * 32 + 4; }
+__host__ __device__ constexpr size_t cumsum_smem_bytes(int Q) {
+  return kScanHeads * (sizeof(double) * cumsum_row(Q) + sizeof(float) * cumsum_ld(Q));
 }
+__device__ __forceinline__ int skew(int t) { return t + (t >> 5); }
 
-template <int kNT, typename G>
-__device__ __forceinline__ void stash_transposed(float* dst, const float4 (&v)[kPer4<kNT>],
-                                                 G g) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < kPer4<kNT>; ++i) {
-    const int e = warp + i * (kNT / 32);
-    const int r = (e >> 3) * 16 + (lane >> 1), k = (e & 7) * 8 + (lane & 1) * 4;
-    dst[(k + 0) * kLd + r] = g(r, k + 0, v[i].x);
-    dst[(k + 1) * kLd + r] = g(r, k + 1, v[i].y);
-    dst[(k + 2) * kLd + r] = g(r, k + 2, v[i].z);
-    dst[(k + 3) * kLd + r] = g(r, k + 3, v[i].w);
-  }
-}
-
-// Phase 0. Stream (b * nc + c) * H + h, so that a block's warps are
-// neighbouring heads sharing dt's sectors. Each lane sums a run of
-// ceil(Q/32) steps, the warp scans the runs' totals, each lane writes its run.
-__global__ void __launch_bounds__(kScanWarps * 32)
-ssd_scan_cumsum_kernel(const float* __restrict__ dt, const float* __restrict__ a,
-                       double* __restrict__ cum, int64_t streams, int64_t S, int H, int Q) {
+// The warp's fp64 inclusive scan of v(t) = a_h dt_t over the chunk's Q
+// steps, in the earlier kernel's order: lane l sums its run of ceil(Q/32)
+// steps, the warp scans the runs' totals, each lane accumulates its run,
+// put(t, cum_t).
+template <typename V, typename Put>
+__device__ __forceinline__ void scan_runs(int Q, V v, Put put) {
   const int lane = threadIdx.x & 31;
-  const int64_t stream = (int64_t)blockIdx.x * kScanWarps + (threadIdx.x >> 5);
-  if (stream >= streams) return;   // whole warps
-  const int h = (int)(stream % H);
-  const int64_t bc = stream / H, nc = S / Q, b = bc / nc;
-  const double ah = a[h];
-  const float* d = dt + bc * Q * H + h;                  // step t at d[t * H]
-  double* out = cum + (b * H + h) * S + (bc - b * nc) * Q;
   const int run = (Q + 31) / 32, t0 = lane * run, t1 = min(Q, t0 + run);
   double total = 0.0;
-  for (int t = t0; t < t1; ++t) total += ah * (double)d[(int64_t)t * H];
+  for (int t = t0; t < t1; ++t) total += v(t);
   double incl = total;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const double v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += v;
+    const double u = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += u;
   }
   double acc = __shfl_up_sync(0xffffffffu, incl, 1);
   if (lane == 0) acc = 0.0;
-  for (int t = t0; t < t1; ++t) {
-    acc += ah * (double)d[(int64_t)t * H];
-    out[t] = acc;
-  }
+  for (int t = t0; t < t1; ++t) put(t, acc += v(t));
 }
 
-// Phase 1. Block (b * nc + c) * npairs + pair, pair = it (it + 1) / 2 + jt
-// with jt <= it: G[t][u] for the 64x64 tile (it, jt), depth N.
-template <typename T>
-__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+// Phase 0. Block (b * nc + c) * ngroups + group: heads h0 .. h0 + 7, h0 =
+// 8 · group, warp w head h0 + w. The chunk's dt rows for those heads are read
+// once, neighbouring threads on neighbouring heads, into shared memory; each
+// warp scans its head there (scan_runs) into shared memory and writes the
+// head's row of cum, neighbouring lanes on neighbouring steps. Where Q <= 32
+// a lane holds one step, so the warp reads its head's steps itself (the
+// block's warps share each row's sector) and writes cum coalesced as it
+// scans: no shared memory and no barrier.
+__global__ void __launch_bounds__(kScanHeads * 32)
+ssd_scan_cumsum_kernel(const float* __restrict__ dt, const float* __restrict__ a,
+                       double* __restrict__ cum, int64_t S, int H, int Q) {
+  constexpr int kN = kScanHeads * 32, kBatch = 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ngroups = (H + kScanHeads - 1) / kScanHeads;
+  const int64_t bc = blockIdx.x / ngroups, nc = S / Q, b = bc / nc;
+  const int h0 = (int)(blockIdx.x % ngroups) * kScanHeads;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, h = h0 + warp;
+  const float* d = dt + bc * Q * H + h0;   // step t, head h0 + j at d[t * H + j]
+  double* out = cum + (b * H + h) * S + (bc - b * nc) * Q;
+  if (Q <= 32) {
+    if (h >= H) return;
+    const double ah = a[h];
+    const float x = lane < Q ? d[(int64_t)lane * H + warp] : 0.f;
+    scan_runs(Q, [&](int) { return ah * (double)x; }, [&](int t, double c) { out[t] = c; });
+    return;
+  }
+  const int row = cumsum_row(Q), ld = cumsum_ld(Q);
+  double* cs = reinterpret_cast<double*>(smem);   // head j's step t at cs[j * row + skew(t)]
+  float* ds = reinterpret_cast<float*>(cs + kScanHeads * row);   // ds[j * ld + skew(t)]
+  const int total = Q * kScanHeads;
+  for (int e0 = tid; e0 < total; e0 += kBatch * kN) {   // kBatch loads in flight a thread
+    float v[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = e0 + i * kN, j = e % kScanHeads;
+      v[i] = e < total && h0 + j < H ? d[(int64_t)(e / kScanHeads) * H + j] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = e0 + i * kN;
+      if (e < total) ds[e % kScanHeads * ld + skew(e / kScanHeads)] = v[i];
+    }
+  }
+  __syncthreads();
+  if (h >= H) return;   // whole warps, past the block's one barrier
+  const double ah = a[h];
+  const float* dw = ds + warp * ld;
+  double* cw = cs + warp * row;
+  scan_runs(Q, [&](int t) { return ah * (double)dw[skew(t)]; },
+            [&](int t, double c) { cw[skew(t)] = c; });
+  __syncwarp();
+  for (int t = lane; t < Q; t += 32) out[t] = cw[skew(t)];
+}
+
+// chunk_cb's column tiles of 16·NI in row tile it: they cover steps u <
+// min(Q, 64 (it + 1)), the causal 64x64 tile pairs (it, jt <= it).
+__host__ __device__ constexpr int cb_cols(int Q, int it, int tn) {
+  return ((Q < kT * (it + 1) ? Q : kT * (it + 1)) + tn - 1) / tn;
+}
+__host__ __device__ constexpr int cb_tiles(int Q, int tn) {
+  int n = 0;
+  for (int it = 0; it * kT < Q; ++it) n += cb_cols(Q, it, tn);
+  return n;
+}
+
+// Phase 1. Block (b * nc + c) * per_chunk + tile, the tiles of a chunk row
+// tile by row tile: G[t][u] for the 64 rows t of row tile it and the 16·NI
+// columns u of its column tile, = Σ_n C_t[n] B_u[n] over depth N, C's rows
+// and B's by cp.async (chunks of 16 bytes where kV, else one element) into
+// mma_tile's ring; B and C are T. Rows and columns past Q and the depth
+// past N are zero-filled; every element of the tile below Q is written.
+template <int NI, bool kV, typename T>
+__global__ void __launch_bounds__(kThreads, kCbBlocks)
 ssd_scan_chunk_cb_kernel(const T* __restrict__ bm, const T* __restrict__ cm,
-                         float* __restrict__ g, int N, int Q) {
-  __shared__ __align__(16) float ct[kT * kLd];   // [n][t]  C rows of the row tile
-  __shared__ __align__(16) float bt[kT * kLd];   // [n][u]  B rows of the column tile
-  const int ntiles = (Q + kT - 1) / kT, npairs = ntiles * (ntiles + 1) / 2;
-  const int64_t bc = blockIdx.x / npairs;        // b * nc + c
-  int jt = (int)(blockIdx.x % npairs), it = 0;
-  while (jt > it) jt -= ++it;
-  const int t0 = it * kT, u0 = jt * kT;
+                         float* __restrict__ g, int N, int Q, int per_chunk) {
+  constexpr int kTN = 16 * NI;
+  __shared__ __align__(16) float ring[2 * kRingStages * kPlane];
+  const int64_t bc = blockIdx.x / per_chunk;     // b * nc + c
+  int j = (int)(blockIdx.x % per_chunk), it = 0;
+  while (j >= cb_cols(Q, it, kTN)) j -= cb_cols(Q, it++, kTN);
+  const int t0 = it * kT, u0 = j * kTN;
   const T* crow = cm + bc * Q * N;               // step t at crow + t * N
   const T* brow = bm + bc * Q * N;
-  int ty, tx;
-  tile_coords<kT / 4>(ty, tx);
-
-  const bool vec = vec_rows(crow, N) && vec_rows(brow, N);
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 cv[kPer4<kTileThreads>], bv[kPer4<kTileThreads>];
-  const auto fetch = [&](int n0) {
-    fetch_transposed<kTileThreads>(cv, [&](int r, int k) {
-      const int t = t0 + r;
-      return t < Q ? row4(crow + (int64_t)t * N, n0 + k, N, vec) : zero;
-    });
-    fetch_transposed<kTileThreads>(bv, [&](int r, int k) {
-      const int u = u0 + r;
-      return u < Q ? row4(brow + (int64_t)u * N, n0 + k, N, vec) : zero;
-    });
-  };
-  float acc[8][4] = {};
-  fetch(0);
-  for (int n0 = 0; n0 < N; n0 += kT) {
-    __syncthreads();   // the previous slab is consumed
-    stash_transposed<kTileThreads>(ct, cv, Keep());
-    stash_transposed<kTileThreads>(bt, bv, Keep());
-    __syncthreads();
-    if (n0 + kT < N) fetch(n0 + kT);
-    fma_tile<kT, kLd, kLd>(acc, ct, bt, 8 * ty, 4 * tx);
-  }
-  float* gb = g + bc * Q * Q;
-  const int u = u0 + 4 * tx;
+  float acc[2][NI][4];
+  zero(acc);
+  mma_tile<kRingStages, kV, true, true, false, NI, T, T>(acc, ring, ring + kRingStages * kPlane, N,
+      [&](int m, int k) { return t0 + m < Q ? crow + (int64_t)(t0 + m) * N + k : nullptr; },
+      [&](int k, int n) { return u0 + n < Q ? brow + (int64_t)(u0 + n) * N + k : nullptr; },
+      NoScale());
+  // Each thread's elements come in pairs of neighbouring columns: one 8-byte
+  // store where Q is even (so every row and pair starts 8-byte aligned).
+  float* gb = g + bc * (int64_t)Q * Q;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int t = t0 + 8 * ty + i;
-    if (t < Q && u < Q) store4(gb + (int64_t)t * Q + u, acc[i], Q - u);
-  }
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        int r, c;
+        frag_rc<NI>(mi, ni, e, r, c);
+        const int t = t0 + r, u = u0 + c;
+        if (t >= Q || u >= Q) continue;
+        float* out = gb + (int64_t)t * Q + u;
+        if (Q % 2 == 0) {
+          *reinterpret_cast<float2*>(out) = make_float2(acc[mi][ni][e], acc[mi][ni][e + 1]);
+        } else {
+          out[0] = acc[mi][ni][e];
+          if (u + 1 < Q) out[1] = acc[mi][ni][e + 1];
+        }
+      }
 }
 
 // Phase 2. Block ((b * nc + c) * H + h) * ncols + col: s_c[p][n] for the
@@ -557,9 +554,9 @@ struct Chain {
   int64_t B, S, H, P, N, Q;
 };
 
-// Whether chunk_state's and chunk_scan's operands move in 16-byte chunks: P
-// and N multiples of a chunk's elements of T (4 fp32, 8 bf16) and every
-// copied base 16-byte aligned.
+// Whether chunk_cb's, chunk_state's and chunk_scan's operands move in
+// 16-byte chunks: P and N multiples of a chunk's elements of T (4 fp32, 8
+// bf16) and every copied base 16-byte aligned.
 template <typename T>
 bool chunks_of_16(const Chain<T>& k) {
   const void* const bases[] = {k.x, k.b, k.c, k.states};
@@ -567,6 +564,18 @@ bool chunks_of_16(const Chain<T>& k) {
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   constexpr int kE = kChunk<T, true>;
   return k.P % kE == 0 && k.N % kE == 0;
+}
+
+template <int NI, bool kV, typename T>
+void launch_cb(const Chain<T>& k, int per_chunk, unsigned grid, cudaStream_t st) {
+  ssd_scan_chunk_cb_kernel<NI, kV, T><<<grid, kThreads, 0, st>>>(k.b, k.c, k.g, (int)k.N,
+                                                                 (int)k.Q, per_chunk);
+}
+
+template <int NI, typename T>
+void launch_cb(const Chain<T>& k, bool vec, int per_chunk, unsigned grid, cudaStream_t st) {
+  if (vec) launch_cb<NI, true>(k, per_chunk, grid, st);
+  else launch_cb<NI, false>(k, per_chunk, grid, st);
 }
 
 template <int NI, bool kV, typename T>
@@ -600,9 +609,12 @@ int launch_phases(const Chain<T>& k, int first, int last, cudaStream_t stream) {
   const int ni = N <= 16 ? 1 : N <= 32 ? 2 : 4;
   const int64_t ncols = (N + 16 * ni - 1) / (16 * ni);
   const bool vec = chunks_of_16(k);
+  // chunk_cb: 64 x 32 tiles, or 64 x 16 where those would not fill a wave.
+  const bool narrow = B * nc * cb_tiles((int)Q, 32) < kCardSms;
+  const int cb_per_chunk = cb_tiles((int)Q, narrow ? 16 : 32);
   unsigned g0, g1, g2, g3, g4;
-  if (blocks_for(B * nc * H, kScanWarps, &g0) ||
-      blocks_for(B * nc * (ntiles * (ntiles + 1) / 2), 1, &g1) ||
+  if (blocks_for(B * nc * ((H + kScanHeads - 1) / kScanHeads), 1, &g0) ||
+      blocks_for(B * nc * cb_per_chunk, 1, &g1) ||
       blocks_for(B * nc * H * ncols, 1, &g2) || blocks_for(B * H * slices, 1, &g3) ||
       blocks_for(B * nc * ntiles * H, 1, &g4))
     return (int)cudaErrorInvalidValue;
@@ -610,12 +622,12 @@ int launch_phases(const Chain<T>& k, int first, int last, cudaStream_t stream) {
   for (int phase = first; phase <= last; ++phase) {
     switch (phase) {
       case 0:
-        ssd_scan_cumsum_kernel<<<g0, kScanWarps * 32, 0, stream>>>(k.dt, k.a, k.cum, B * nc * H,
-                                                                   S, (int)H, (int)Q);
+        ssd_scan_cumsum_kernel<<<g0, kScanHeads * 32, cumsum_smem_bytes((int)Q), stream>>>(
+            k.dt, k.a, k.cum, S, (int)H, (int)Q);
         break;
       case 1:
-        ssd_scan_chunk_cb_kernel<T><<<g1, kTileThreads, 0, stream>>>(k.b, k.c, k.g, (int)N,
-                                                                     (int)Q);
+        if (narrow) launch_cb<1>(k, vec, cb_per_chunk, g1, stream);
+        else launch_cb<2>(k, vec, cb_per_chunk, g1, stream);
         break;
       case 2:
         if (vec) launch_state<true>(k, ni, g2, stream);
@@ -661,13 +673,17 @@ cudaError_t set_smem_limit() {
 }  // namespace
 
 // Sets chunk_scan's dynamic shared memory limit on the current device, for
-// both element types. Call once per device before the first launch there,
-// outside any stream capture. Returns a cudaError_t code, 0 on success.
+// both element types, and cumsum's (at Q = kMaxQ). Call once per device
+// before the first launch there, outside any stream capture. Returns a
+// cudaError_t code, 0 on success.
 extern "C" int ssd_scan_init() {
   cudaError_t err = set_smem_limit<false, float>();
   if (err == cudaSuccess) err = set_smem_limit<true, float>();
   if (err == cudaSuccess) err = set_smem_limit<false, __nv_bfloat16>();
   if (err == cudaSuccess) err = set_smem_limit<true, __nv_bfloat16>();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_scan_cumsum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)cumsum_smem_bytes(kMaxQ));
   return (int)err;
 }
 

@@ -5,11 +5,11 @@ The library is built by ``nvcc`` at first use (:mod:`repro_torch.kernels._build`
 One call of ``ssd_scan_launch`` launches the chain's five kernels in order on
 PyTorch's current stream — cumsum, chunk_cb, chunk_state, state_pass,
 chunk_scan — and that call is what ``ssd_scan_cuda.launches`` counts as one
-launch. chunk_state and chunk_scan run their products on the tensor cores
-(3xTF32, 2xTF32 where x, B and C are bf16; the routine in
+launch. chunk_cb, chunk_state and chunk_scan run their products on the
+tensor cores (3xTF32, 2xTF32 where x, B and C are bf16; the routine in
 ``csrc/ssd_scan_mma.cuh``, shared with the backward chain); before the first
 launch on a device the wrapper calls ``ssd_scan_init`` there (chunk_scan's
-dynamic shared memory limit). The wrapper allocates the chain's workspaces
+and cumsum's dynamic shared memory limits). The wrapper allocates the chain's workspaces
 (the per-chunk cumsum, CBᵀ per chunk and the per-chunk states); they are
 freed after the call.
 Sizes go over as 64-bit integers and every offset inside the kernels is

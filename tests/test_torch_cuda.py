@@ -185,13 +185,19 @@ def test_ssd_scan_cuda_rejects_what_it_cannot_run(cuda):
 
 
 #: The tensor-core kernels' ragged shapes (tests/test_torch_ssd_scan.py's
-#: PHASE_SHAPES holds the plain phase version at the first two against JAX):
-#: S = 130 on Q = 65 (a 64-row tile and a one-row one), P = 12 and 20, N = 16
-#: and 40, H = 17 and 20; then four 64-row tiles a chunk (chunk_scan's
-#: off-diagonal tiles, factored) at P = 12, N = 40. bf16 copies move one
-#: element at P = 12 and 20.
+#: PHASE_SHAPES holds the plain phase version at all but the third and the
+#: last against JAX, the fifth at one chunk): S = 130 on Q = 65 (a 64-row tile and a one-row one), P
+#: = 12 and 20, N = 16 and 40, H = 17 and 20; then four 64-row tiles a chunk
+#: (chunk_scan's off-diagonal tiles, factored) at P = 12, N = 40. bf16
+#: copies move one element at P = 12 and 20. Then chunk_cb's and cumsum's
+#: edges: H = 1 and N = 12 (bf16 rows of 24 bytes: one-element copies) on Q
+#: = 65 with 16 chunks (chunk_cb's 64 x 32 tiles); Q = 1024, kMaxQ (16 row
+#: tiles; cumsum's shared memory past 48 KB), at H = 3, no multiple of
+#: cumsum's 8-head group; the serving engine's 4 x 32 prompts at chunk 32
+#: (chunk_cb's 64 x 16 tiles, 10 head groups).
 FWD_RAGGED_SHAPES = [(1, 130, 17, 12, 16, 65), (2, 130, 20, 20, 40, 65),
-                     (1, 512, 17, 12, 40, 256)]
+                     (1, 512, 17, 12, 40, 256), (2, 1040, 1, 16, 12, 65),
+                     (1, 2048, 3, 8, 24, 1024), (4, 32, 80, 64, 128, 32)]
 #: Where cum rises in a head (a > 0; tests/test_torch_ssd_scan.py's
 #: RISING_SHAPES): chunk_scan's per-element form beside the factored one.
 FWD_RISING_SHAPES = [(1, 256, 3, 16, 16, 128), (2, 130, 4, 20, 40, 65)]
@@ -231,8 +237,9 @@ def _check_forward_chain(cuda, ops, chunk, by_max=False):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,n,chunk", FWD_RAGGED_SHAPES)
 def test_ssd_scan_chain_ragged_tiles_match_plain_phases(cuda, b, s, h, p, n, chunk, dtype):
-    """chunk_state's and chunk_scan's ragged tiles (rows, columns and depth
-    zero-filled and masked) and one-element copies, model-range inputs."""
+    """The tensor-core kernels' ragged tiles (rows, columns and depth
+    zero-filled and masked) and one-element copies, cumsum's head groups,
+    model-range inputs."""
     _check_forward_chain(cuda, _model_range_ops(cuda, b + s + h, b, s, h, p, n, dtype), chunk)
 
 
