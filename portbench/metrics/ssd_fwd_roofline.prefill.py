@@ -1,0 +1,18 @@
+"""ssd_fwd_roofline.prefill: the SSD scan's forward bound at one call's
+shape (portbench.work.ssd_fwd_work) over the mean device time of a call of
+the forward chain (the kernels named ssd_scan_*; calls from the program's
+launch counter) in the traced prefill batches, in %."""
+
+from portbench import work
+
+
+def read(ctx):
+    if ctx.kind != "prefill" or ctx.trace is None:
+        return None
+    calls = ctx.trace.counters.get("ssd_scan", 0)
+    seconds = ctx.trace.device_seconds(("ssd_scan_", "_kernel"), ("ssd_bwd_",))
+    shape = ctx.traffic.ssd_call()
+    if not calls or seconds <= 0 or shape is None:
+        return None
+    *dims, dtype = shape
+    return work.share_pct(work.bound_s(*work.ssd_fwd_work(*dims, dtype), dtype), seconds / calls)
