@@ -1201,12 +1201,15 @@ def device_profile(fn) -> tuple[float, list[tuple[str, float, int]]]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # Device-side events only: a CPU op also reports its kernels' time.
+    # Device-side events only: a CPU op also reports its kernels' time. A
+    # device-side user annotation (a record_function range under CUDA)
+    # spans its kernels and the gaps between them, so it is left out too.
     # (torch < 2.4 names the field self_cuda_time_total.)
     dev_time = lambda e: getattr(e, "self_device_time_total", None) or getattr(
         e, "self_cuda_time_total", 0.0)
     events = [(e.key, dev_time(e), e.count) for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     return wall, sorted(events, key=lambda e: -e[1])
 
 

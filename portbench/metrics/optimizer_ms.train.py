@@ -1,0 +1,11 @@
+"""optimizer_ms.train: device time of the program's ``train.optimizer`` span
+(AdamW) per ``train.step``, in the readers' traced stretch
+(portbench.spans), in ms."""
+
+from portbench import spans
+
+
+def read(ctx):
+    if ctx.kind != "train":
+        return None
+    return spans.per_step_ms(ctx, "train.optimizer")

@@ -68,6 +68,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import moe_ffn, shared_expert_ffn
 from repro_torch.models.ssm import causal_conv, causal_conv_update, ssd_step
+from repro_torch.telemetry.ranges import span
 
 VOCAB_PAD_MULTIPLE = 128
 
@@ -419,7 +420,9 @@ def make_block_fn(cfg: ModelConfig, sin: Tensor | None, cos: Tensor | None, attn
     is the router's loss (fp32 scalar) or None without experts; ``cache``
     this layer's decode-cache leaves (the K/V ring of ``cache_slots``
     slots, the SSM state and conv tail) when ``collect_cache``, else an
-    empty dict."""
+    empty dict. Under a profiler the attention, SSM and FFN blocks are the
+    spans ``lm.attention``, ``lm.ssm`` and ``lm.ffn``
+    (:mod:`repro_torch.telemetry.ranges`), again in a remat recompute."""
 
     def block(h: Tensor, lp: Params):
         attn_out = ssm_out = None
@@ -427,9 +430,11 @@ def make_block_fn(cfg: ModelConfig, sin: Tensor | None, cos: Tensor | None, attn
         # A non-hybrid config with both still runs its SSM layer, for its
         # cache leaves (_mix takes attention).
         if cfg.has_attention:
-            attn_out, (k, v) = _attn_block(lp, h, cfg, sin, cos, attn_impl, positions)
+            with span("lm.attention"):
+                attn_out, (k, v) = _attn_block(lp, h, cfg, sin, cos, attn_impl, positions)
         if cfg.has_ssm:
-            ssm_out, state, conv_tail = _ssm_block(lp, h, cfg)
+            with span("lm.ssm"):
+                ssm_out, state, conv_tail = _ssm_block(lp, h, cfg)
         if cfg.has_attention or cfg.has_ssm:
             h = h + _mix(lp, cfg, attn_out, ssm_out)
         if collect_cache:
@@ -441,7 +446,8 @@ def make_block_fn(cfg: ModelConfig, sin: Tensor | None, cos: Tensor | None, attn
                 cache["conv_state"] = conv_tail.to(cache_dtype)
         aux = None
         if cfg.d_ff > 0 or cfg.is_moe:
-            mlp_out, aux = _mlp_block(lp, h, cfg)
+            with span("lm.ffn"):
+                mlp_out, aux = _mlp_block(lp, h, cfg)
             h = h + mlp_out
         return h, aux, cache
 

@@ -25,6 +25,9 @@ Host side (numpy; engine outputs may be tensors on any device):
   spans, exported as Chrome trace-event JSON.
 * ``python -m repro_torch.telemetry.bench_check RECORDS.json``: the
   perf-regression sentinel over a bench trajectory.
+* :mod:`~repro_torch.telemetry.ranges`: :func:`span`, the program's named
+  ranges (train step phases, layer kinds) for ``torch.profiler``; nothing
+  is entered when no profiler is on.
 """
 
 from repro_torch.telemetry.config import (

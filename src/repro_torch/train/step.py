@@ -14,7 +14,11 @@ and its metrics (loss, ce, z_loss, aux, grad_norm, lr):
 * activation checkpointing per layer (``remat``: none | dots | full |
   full_recompute, :func:`repro_torch.models.lm.forward`);
 * AdamW in place (:func:`repro_torch.train.optimizer.adamw_update`): the
-  returned params and state are the tensors passed in, updated.
+  returned params and state are the tensors passed in, updated;
+* under a profiler, the spans ``train.step`` (the whole step),
+  ``train.forward`` (each microbatch's loss), ``train.backward`` (each
+  microbatch's backward and fp32 accumulation) and ``train.optimizer``
+  (:mod:`repro_torch.telemetry.ranges`).
 
 ``unroll_layers`` is accepted and changes nothing: the port's layers are
 always a Python loop (:mod:`repro_torch.models.lm`).
@@ -45,6 +49,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed.compression import quantize_pod, reduce_pods
 from repro_torch.models.lm import REMAT_POLICIES, loss_fn
+from repro_torch.telemetry.ranges import span
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, leaves, tree_map, unflatten
 
 GRAD_SYNCS = ("native", "int8")
@@ -109,17 +114,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, device=None, mesh=N
         acc: list[torch.Tensor | None] = [None] * len(flat)
         losses, metricses = [], []
         for mb in (_split_microbatches(batch, n) if n > 1 else [batch]):
-            loss, metrics = loss_fn(params, cfg, mb, attn_impl=tcfg.attn_impl, remat=tcfg.remat,
-                                    unroll_layers=tcfg.unroll_layers)
-            loss.backward()
+            with span("train.forward"):
+                loss, metrics = loss_fn(params, cfg, mb, attn_impl=tcfg.attn_impl,
+                                        remat=tcfg.remat, unroll_layers=tcfg.unroll_layers)
             losses.append(loss.detach())
             metricses.append({k: metrics[k].detach() for k in METRIC_KEYS})
-            # fp32 leaves accumulate in .grad (0 + g1 + g2, the reference's
-            # order); others sum into fp32 buffers.
-            for i, p in enumerate(flat):
-                if p.grad is not None and p.dtype != torch.float32:
-                    acc[i] = p.grad.float() if acc[i] is None else acc[i].add_(p.grad)
-                    p.grad = None
+            with span("train.backward"):
+                loss.backward()
+                # fp32 leaves accumulate in .grad (0 + g1 + g2, the
+                # reference's order); others sum into fp32 buffers.
+                for i, p in enumerate(flat):
+                    if p.grad is not None and p.dtype != torch.float32:
+                        acc[i] = p.grad.float() if acc[i] is None else acc[i].add_(p.grad)
+                        p.grad = None
         grads = []
         for i, p in enumerate(flat):
             g = p.grad if p.dtype == torch.float32 else acc[i]
@@ -163,13 +170,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, device=None, mesh=N
                 synced)
 
     def step(params, opt_state, batch, error_fb):
-        if pod_int8:
-            loss, metrics, flat_grads = pod_step(params, batch, error_fb)
-        else:
-            loss, metrics, flat_grads = accumulate(params, batch)
-        grads = unflatten(params, iter(flat_grads))
-        params, opt_state, opt_metrics = adamw_update(tcfg.optimizer, params, grads, opt_state)
-        metrics = dict(metrics, loss=loss, **opt_metrics)
+        with span("train.step"):
+            if pod_int8:
+                loss, metrics, flat_grads = pod_step(params, batch, error_fb)
+            else:
+                loss, metrics, flat_grads = accumulate(params, batch)
+            grads = unflatten(params, iter(flat_grads))
+            with span("train.optimizer"):
+                params, opt_state, opt_metrics = adamw_update(tcfg.optimizer, params, grads,
+                                                              opt_state)
+            metrics = dict(metrics, loss=loss, **opt_metrics)
         return params, opt_state, metrics, error_fb
 
     def init_error_fb(params):

@@ -59,7 +59,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "             'repro_torch.examples.serve_geo', 'repro_torch.traces.tokens',\n"
         "             'repro_torch.train.optimizer', 'repro_torch.train.step',\n"
         "             'repro_torch.checkpoint.checkpoint', 'repro_torch.launch.train',\n"
-        "             'repro_torch.examples.train_lm'):\n"
+        "             'repro_torch.examples.train_lm', 'repro_torch.telemetry.ranges'):\n"
         "    assert need in sys.modules, need\n"
         "print('ok', len(sys.modules))\n"
     )
