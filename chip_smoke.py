@@ -289,14 +289,31 @@ Phases, each printing one line or more; any failure exits non-zero:
              and in bf16 (full-width mamba2-2.7b and qwen2-0.5b training 4
              x 2048 with phase 19's microbatches and remat; their 4 x 2048
              prefills): FLOPs, bytes, argument and peak bytes, the H100
-             data-sheet roofline, each artifact written where the
+             data-sheet roofline (the fp32 weight products gemm_f32 takes
+             priced as 3xTF32), each artifact written where the
              orchestrator's roofline bench reads it, no kernel launched; (b)
              after phase 20, the bf16 prefill step timed at full width,
              then every bound at or below the card's fastest wall of that
              cell (fp32 prefills: phases 8 and 15; training: phase 19 (b) /
              (c)), the train cells' dry-run peaks within 15% of
              ``max_memory_allocated``, each share of the roofline printed.
-22. results — one JSON line of per-kernel numbers, then the device line.
+22. gemm    — ``gemm_f32`` (3xTF32 on the tensor cores) at mamba2-2.7b's
+             and hymba-1.5b's prefill products, ragged tiles and the serving
+             engine's M = 128, on unit-normal x: its largest gap to fp64
+             over |x|·|W| within GEMM_LIB_FACTOR of cuBLAS fp32 SGEMM's and
+             GEMM_TF32_FACTOR under one TF32 product's, within GEMM_REF_TOL
+             of the plain 3xTF32 version, launches bitwise repeatable; its
+             time beside ``torch.matmul``'s (library_ms) and the 3xTF32
+             bound; the size rule's grid (kernel and ``torch.matmul`` at
+             each shape); one fp32 prefill batch of each model: the
+             counters (``gemm_f32_cuda.launches``,
+             ``matmul_f32.library_calls``), its walls beside the same
+             prefill with every product on ``torch.matmul`` and their gaps
+             (logits_rel, state_rel); two-layer bf16 and fp32 training
+             steps launch no gemm_f32. (``--gemm`` runs phase 2's build of
+             it, with the spill gate, and this phase alone.) Phase 2 fails
+             if it spills.
+23. results — one JSON line of per-kernel numbers, then the device line.
 
 Numbers are measured on whatever card runs this; the bound uses the H100
 SXM's published peaks (3.35 TB/s, 67 TFLOP/s fp32) at its 700 W limit.
@@ -834,7 +851,7 @@ def kernel_name(mangled: str) -> str:
     template argument)."""
     import re
 
-    short = re.search(r"\d+((?:ssd_scan|ssd_bwd|gmsa)\w*?_kernel)(I((?:L[bi]\d+E|f|\d+__nv_bfloat16)+)E)?",
+    short = re.search(r"\d+((?:ssd_scan|ssd_bwd|gmsa|gemm_f32)\w*?_kernel)(I((?:L[bi]\d+E|f|\d+__nv_bfloat16)+)E)?",
                       mangled)
     name = short.group(1) if short else mangled
     args = re.findall(r"L([bi])(\d+)E", short.group(3)) if short and short.group(2) else []
@@ -892,30 +909,41 @@ def sass_mma_counts(lib: Path, prefix: str) -> dict[str, dict[str, int]] | None:
     return counts
 
 
-def phase_build() -> dict[str, dict[str, dict[str, int]] | None]:
-    """Builds every kernel, logs ptxas's registers, spills and shared memory
-    per kernel function, then the SSD chains' HMMA counts per library (None:
-    not measured). Fails where a kernel of either SSD chain spills, or one of
-    SSD_BWD_MMA_PHASES / SSD_MMA_PHASES has no HMMA in an instantiation (the
-    forward's in both element types)."""
+#: Kernel functions whose spills fail the build: the SSD chains and gemm_f32.
+SPILL_GATED = ("ssd_bwd_", "ssd_scan_", "gemm_f32_")
+
+
+def spill_gate(logs: dict[str, str]) -> None:
+    """Logs ptxas's registers, spills and shared memory per kernel function
+    of ``logs`` (library -> ``nvcc -Xptxas -v`` log); fails where a
+    SPILL_GATED function spills or ptxas did not say."""
     import re
 
-    from repro_torch.kernels import _build
-
-    t0 = time.perf_counter()
-    logs = _build.build_all()
-    secs = time.perf_counter() - t0
-    gated = ("ssd_bwd_", "ssd_scan_")
     spilled = []
     for name, text in logs.items():
         for usage in ptxas_usage(text):
             log(f"[build] {name}: ptxas {usage}")
             m = re.search(r"spill stores (\d+) B, spill loads (\d+) B", usage)
-            if usage.startswith(gated) and (m is None or m.group(1) != "0" or m.group(2) != "0"):
+            if usage.startswith(SPILL_GATED) and (m is None or m.group(1) != "0"
+                                                  or m.group(2) != "0"):
                 spilled.append(usage)
-    log(f"[build] {len(logs)} kernel(s) built in {secs:.2f} s -> {_build.BUILD_DIR}")
     if spilled:
-        fail(f"SSD kernels spill (or ptxas did not say): {spilled}")
+        fail(f"SSD or gemm_f32 kernels spill (or ptxas did not say): {spilled}")
+
+
+def phase_build() -> dict[str, dict[str, dict[str, int]] | None]:
+    """Builds every kernel, logs ptxas's registers, spills and shared memory
+    per kernel function, then the SSD chains' HMMA counts per library (None:
+    not measured). Fails where a kernel spills (spill_gate), or one of
+    SSD_BWD_MMA_PHASES / SSD_MMA_PHASES has no HMMA in an instantiation (the
+    forward's in both element types)."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    secs = time.perf_counter() - t0
+    spill_gate(logs)
+    log(f"[build] {len(logs)} kernel(s) built in {secs:.2f} s -> {_build.BUILD_DIR}")
     mma = {}
     for lib, prefix, phases in (("ssd_scan", "ssd_scan_", SSD_MMA_PHASES),
                                 ("ssd_scan_bwd", "ssd_bwd_", SSD_BWD_MMA_PHASES)):
@@ -2313,12 +2341,13 @@ def phase_mamba2(dev, smi):
     def serve(i):
         """One batch as the reference's FleetEngine._execute_jobs runs it."""
         (b, s, gen_len), (prefill_fn, decode_fn) = batches[i], execs[i]
-        before = kernel_counters()["ssd_scan"].launches
+        before, gemm_before = kernel_counters()["ssd_scan"].launches, gemm_counters()
         t0 = time.perf_counter()
         logits, cache = prefill_fn(params, tokens[i][:, :s])
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
         per_prefill = kernel_counters()["ssd_scan"].launches - before
+        gemm_per_prefill = gemm_since(gemm_before)
         finite = torch.isfinite(logits).all()
         tok = torch.argmax(logits[:, -1:, :vocab], dim=-1)
         t0 = time.perf_counter()
@@ -2327,7 +2356,8 @@ def phase_mamba2(dev, smi):
             finite = finite & torch.isfinite(logits).all()
             tok = torch.argmax(logits[:, :, :vocab], dim=-1)
         torch.cuda.synchronize()
-        return per_prefill, bool(finite), t_pre, (time.perf_counter() - t0) / gen_len
+        return (per_prefill, bool(finite), t_pre, (time.perf_counter() - t0) / gen_len,
+                gemm_per_prefill)
 
     # The main path: both batches, every counter read around them.
     torch.cuda.synchronize()
@@ -2335,9 +2365,10 @@ def phase_mamba2(dev, smi):
     runs = [serve(i) for i in range(len(batches))]
     torch.cuda.synchronize()
     counts = read_counts()
-    for (b, s, g), (per_prefill, finite, t_pre, t_dec) in zip(batches, runs):
+    for (b, s, g), (per_prefill, finite, t_pre, t_dec, gemm_pre) in zip(batches, runs):
         log(f"[mamba2] served {b} x {s}-token prompts + {g} greedy tokens: "
-            f"{per_prefill} ssd_scan launches in the prefill, logits finite {finite}; "
+            f"{per_prefill} ssd_scan launches in the prefill, gemm_f32 {gemm_pre}, "
+            f"logits finite {finite}; "
             f"prefill {t_pre * 1e3:.1f} ms, decode {t_dec * 1e3:.2f} ms/token (first call)")
         if per_prefill != cfg.num_layers:
             fail(f"mamba2: {per_prefill} ssd_scan launches per prefill, expected {cfg.num_layers}")
@@ -3540,10 +3571,12 @@ def phase_dense(dev, smi, variant: str = "full", attn_shapes=DENSE_ATTN_SHAPES,
 
         def serve(i):
             (b, s, gen_len), (prefill_fn, decode_fn) = batches[i], execs[i]
+            gemm_before = gemm_counters()
             t0 = time.perf_counter()
             logits, cache = prefill_fn(params, tokens[i][:, :s])
             torch.cuda.synchronize()
             t_pre = time.perf_counter() - t0
+            gemm_pre = gemm_since(gemm_before)
             nan = torch.isnan(logits).any()
             tok = torch.argmax(logits[:, -1:, :vocab], dim=-1)
             t0 = time.perf_counter()
@@ -3552,17 +3585,17 @@ def phase_dense(dev, smi, variant: str = "full", attn_shapes=DENSE_ATTN_SHAPES,
                 nan = nan | torch.isnan(logits).any()
                 tok = torch.argmax(logits[:, :, :vocab], dim=-1)
             torch.cuda.synchronize()
-            return not bool(nan), t_pre, (time.perf_counter() - t0) / gen_len
+            return not bool(nan), t_pre, (time.perf_counter() - t0) / gen_len, gemm_pre
 
         torch.cuda.synchronize()
         reset_counts()
         runs = [serve(i) for i in range(len(batches))]
         torch.cuda.synchronize()
         counts = read_counts()
-        for (b, s, g), (clean, t_pre, t_dec) in zip(batches, runs):
+        for (b, s, g), (clean, t_pre, t_dec, gemm_pre) in zip(batches, runs):
             log(f"[dense] {arch} served {b} x {s}-token prompts + {g} greedy tokens: no NaN "
-                f"logit {clean}; prefill {t_pre * 1e3:.1f} ms, decode {t_dec * 1e3:.2f} "
-                f"ms/token (first call)")
+                f"logit {clean}; prefill {t_pre * 1e3:.1f} ms (gemm_f32 {gemm_pre}), decode "
+                f"{t_dec * 1e3:.2f} ms/token (first call)")
             if not clean:
                 fail(f"dense: {arch}: a NaN logit serving {b} x {s}")
         log(f"[dense] {arch} main path launches {counts} (attention is plain PyTorch)")
@@ -3780,10 +3813,12 @@ def serve_model(arch: str, cfg, params, batch, dev, smi) -> dict:
     prefill_fn, decode_fn = make_local_exec(cfg, gen_len, device=dev)
 
     def serve():
+        gemm_before = gemm_counters()
         t0 = time.perf_counter()
         logits, cache = prefill_fn(params, tokens[:, :s])
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
+        gemm_pre = gemm_since(gemm_before)
         finite = torch.isfinite(logits).all()
         tok = torch.argmax(logits[:, -1:, :vocab], dim=-1)
         t0 = time.perf_counter()
@@ -3793,16 +3828,16 @@ def serve_model(arch: str, cfg, params, batch, dev, smi) -> dict:
             tok = torch.argmax(logits[:, :, :vocab], dim=-1)
         torch.cuda.synchronize()
         pos = cache["pos"].tolist()
-        return bool(finite), pos, t_pre, (time.perf_counter() - t0) / gen_len
+        return bool(finite), pos, t_pre, (time.perf_counter() - t0) / gen_len, gemm_pre
 
     torch.cuda.synchronize()
     reset_counts()
-    finite, pos, t_pre, t_dec = serve()
+    finite, pos, t_pre, t_dec, gemm_pre = serve()
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[moe] {arch} served {b} x {s}-token prompts + {gen_len} greedy tokens: logits finite "
-        f"{finite}, pos {sorted(set(pos))}; prefill {t_pre * 1e3:.1f} ms, decode "
-        f"{t_dec * 1e3:.2f} ms/token (first call); main path launches {counts}")
+        f"{finite}, pos {sorted(set(pos))}; prefill {t_pre * 1e3:.1f} ms (gemm_f32 {gemm_pre}), "
+        f"decode {t_dec * 1e3:.2f} ms/token (first call); main path launches {counts}")
     want_ssd = cfg.num_layers if cfg.has_ssm else 0
     if not (finite and pos == [s + gen_len] * b):
         fail(f"moe_hybrid: {arch}: finite {finite}, pos {pos}")
@@ -4185,10 +4220,12 @@ def phase_frontends(dev, smi, variant: str = "full", hubert_batch=None,
                                 cache_len=s + gen_len)
 
     def serve():
+        gemm_before = gemm_counters()
         t0 = time.perf_counter()
         logits, cache = prefill(tokens)
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
+        gemm_pre = gemm_since(gemm_before)
         finite = torch.isfinite(logits).all()
         tok = torch.argmax(logits[:, -1:, :vocab], dim=-1)
         t0 = time.perf_counter()
@@ -4198,18 +4235,19 @@ def phase_frontends(dev, smi, variant: str = "full", hubert_batch=None,
                 finite = finite & torch.isfinite(logits).all()
                 tok = torch.argmax(logits[:, :, :vocab], dim=-1)
         torch.cuda.synchronize()
-        return bool(finite), cache["pos"].tolist(), t_pre, (time.perf_counter() - t0) / gen_len
+        return (bool(finite), cache["pos"].tolist(), t_pre, (time.perf_counter() - t0) / gen_len,
+                gemm_pre)
 
     torch.cuda.synchronize()
     reset_counts()
-    finite, pos, t_pre, t_dec = serve()
+    finite, pos, t_pre, t_dec, gemm_pre = serve()
     torch.cuda.synchronize()
     counts = read_counts()
     n_img = min(frontend_spec(cfg.frontend, s).prefix_tokens, s // 2)
     log(f"[frontends] {arch} served {b} x ({pre.shape[1]} image + {tokens.shape[1]} text) "
         f"tokens + {gen_len} greedy: logits finite {finite}, pos {sorted(set(pos))}; prefill "
-        f"{t_pre * 1e3:.1f} ms, decode {t_dec * 1e3:.2f} ms/token (first call); main path "
-        f"launches {counts}")
+        f"{t_pre * 1e3:.1f} ms (gemm_f32 {gemm_pre}), decode {t_dec * 1e3:.2f} ms/token (first "
+        f"call); main path launches {counts}")
     if not (finite and pos == [s + gen_len] * b and pre.shape[1] == n_img):
         fail(f"frontends: {arch}: finite {finite}, pos {pos} (want {s + gen_len})")
     if any(counts.values()):
@@ -4774,10 +4812,6 @@ def phase_dryrun_against_card(smi, recs: dict, measured: dict) -> None:
     roofline's bound must not exceed the fastest wall (a bound above a wall
     means a wrong count or constant); a train cell's dry-run peak must be
     within DRY_PEAK_RTOL of ``max_memory_allocated``."""
-    import torch
-
-    from repro_torch.launch.roofline import peak_flops_for
-
     bad = []
     for (arch, kind, (b, s), phase), dname in ((c, d) for c in DRY_CELLS for d in DRY_DTYPES):
         rec = recs[(arch, kind, dname)]
@@ -4785,10 +4819,11 @@ def phase_dryrun_against_card(smi, recs: dict, measured: dict) -> None:
         rl = rec["roofline"]
         wall = min(walls)
         where = phase if kind == "train" or dname == "float32" else "21 (b)"
-        peak = peak_flops_for(getattr(torch, rec["param_dtype"]))
+        share_3x = rec["flops_3xtf32"] / rec["flops"] if rec["flops"] else 0.0
         line = (f"[dryrun] {smi} | {arch} {kind} {b} x {s} {dname}: bound "
                 f"{rl['step_time_s']:.4f} s ({rl['dominant']}; compute {rl['compute_s']:.4f} s "
-                f"at {peak / 1e12:.0f} TFLOP/s {rec['param_dtype']}, memory "
+                f"at {rec['peak_flops'] / 1e12:.1f} TFLOP/s {rec['param_dtype']}, "
+                f"{100 * share_3x:.1f}% of the FLOPs as 3xTF32; memory "
                 f"{rl['memory_s']:.4f} s at 3.35 TB/s) against phase {where}'s walls "
                 f"{', '.join(f'{w:.4f}' for w in walls)} s: the fastest wall reaches "
                 f"{100 * rl['step_time_s'] / wall:.1f}% of the roofline (compute alone "
@@ -4818,6 +4853,271 @@ def phase_dryrun_against_card(smi, recs: dict, measured: dict) -> None:
 SSD_ARM_SHAPES = [SSD_ENGINE_SHAPE, SSD_SERVE_SHAPE, (2, 2048, 80, 64, 128, 256),
                   (4, 2048, 50, 64, 16, 256)]
 SSD_ARM_BWD_SHAPE = (2, 512, 80, 64, 128, 256)
+
+
+#: gemm_f32's shapes (M, K, N), x (M, K) @ W (K, N): mamba2-2.7b's prefill
+#: products at 4 x 2048 tokens (w_z / w_x, ssm_out, w_b / w_c, w_dt),
+#: hymba-1.5b's (FFN up, FFN down, q / wo, k / v, B / C, the SSD's z / x and
+#: out), ragged tiles of M, N and K, and the serving engine's 4 x 32 prompts.
+GEMM_SHAPES = [
+    (8192, 2560, 5120), (8192, 5120, 2560), (8192, 2560, 128), (8192, 2560, 80),
+    (8192, 1600, 5504), (8192, 5504, 1600), (8192, 1600, 1600), (8192, 1600, 320),
+    (8192, 1600, 16), (8192, 1600, 3200), (8192, 3200, 1600),
+    (1000, 1036, 1100), (300, 68, 516), (257, 20, 132), (33, 4, 8), (128, 2560, 5120),
+]
+#: Accuracy gates, each the largest gap to fp64 over |x|·|W| (elementwise):
+#: the kernel within GEMM_LIB_FACTOR times cuBLAS's fp32 SGEMM's own gap on
+#: the same inputs, and GEMM_TF32_FACTOR times under one TF32 product's.
+GEMM_LIB_FACTOR, GEMM_TF32_FACTOR = 4.0, 30.0
+#: The kernel against its plain 3xTF32 version (the same products summed in
+#: another order), over |x|·|W|.
+GEMM_REF_TOL = 1e-5
+#: The size rule's sweep: the kernel and torch.matmul at each (M, K, N).
+GEMM_SWEEP_M = (128, 256, 512, 1024, 2048, 8192)
+GEMM_SWEEP_N = (16, 64, 128, 320, 1600, 5120)
+GEMM_SWEEP_K = (1600, 2560)
+GEMM_MODELS = (MAMBA_ARCH, "hymba-1.5b")
+
+
+def gemm_counters() -> dict[str, int]:
+    """gemm_f32's counters: kernel launches, and the fp32 CUDA weight
+    products that matmul_f32 left to torch.matmul."""
+    from repro_torch.kernels.gemm_f32.kernel import gemm_f32_cuda
+    from repro_torch.kernels.gemm_f32.ops import matmul_f32
+
+    return {"gemm_f32_cuda.launches": gemm_f32_cuda.launches,
+            "matmul_f32.library_calls": matmul_f32.library_calls}
+
+
+def reset_gemm_counters() -> None:
+    from repro_torch.kernels.gemm_f32.kernel import gemm_f32_cuda
+    from repro_torch.kernels.gemm_f32.ops import matmul_f32
+
+    gemm_f32_cuda.launches = matmul_f32.library_calls = 0
+
+
+def gemm_since(before: dict[str, int]) -> dict[str, int]:
+    """gemm_f32's counters since ``before`` (a gemm_counters() reading)."""
+    return {k: v - before[k] for k, v in gemm_counters().items()}
+
+
+def gemm_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
+    """Least time of one (M, K) @ (K, N) as 3xTF32: three TF32 products at
+    the tensor cores' 495 TFLOP/s, or the operands read and y written once
+    at 3.35 TB/s, whichever is larger."""
+    t_ops = 3 * 2 * m * n * k / H100_TF32_FLOPS
+    t_bytes = 4 * (m * k + k * n + m * n) / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def gemm_check(m: int, k: int, n: int, dev, timed: bool = True) -> dict:
+    """gemm_f32 at one (M, K, N) on unit-normal x and a W of the model's
+    init scale (1/sqrt(K)): its gap to fp64 over |x|·|W| beside cuBLAS fp32
+    SGEMM's and one TF32 product's, its gap to the plain 3xTF32 version,
+    two launches bitwise; with ``timed``, its device time, torch.matmul's
+    (library_ms) and the 3xTF32 bound."""
+    import torch
+
+    from repro_torch.kernels.gemm_f32.kernel import gemm_f32_cuda
+    from repro_torch.kernels.gemm_f32.ref import gemm_f32_ref
+
+    gen = torch.Generator(device=dev).manual_seed(1000 * m + 10 * n + k)
+    x = torch.randn((m, k), generator=gen, device=dev)
+    w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+    y = gemm_f32_cuda(x, w)
+    again = gemm_f32_cuda(x, w)
+    torch.cuda.synchronize()
+    lib = torch.matmul(x, w)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = torch.matmul(x, w)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ref = gemm_f32_ref(x, w)
+    x64, w64 = x.double(), w.double()
+    y64 = x64 @ w64
+    scale = (x64.abs() @ w64.abs()).clamp_min(1e-300)
+    del x64, w64
+
+    def gap(got):
+        return float(((got.double() - y64).abs() / scale).max())
+
+    out = {"shape": (m, k, n), "err": gap(y), "err_lib": gap(lib), "err_tf32": gap(tf32),
+           "err_ref": float(((y.double() - ref.double()).abs() / scale).max()),
+           "bitwise": bool(torch.equal(y, again))}
+    del y64, scale, lib, tf32, ref, again, y
+    if timed:
+        out["ms"] = device_time_ms(lambda: gemm_f32_cuda(x, w), reps=10, iters=5)
+        out["library_ms"] = device_time_ms(lambda: torch.matmul(x, w), reps=10, iters=5)
+        out["bound_ms"], out["bound_by"] = gemm_bound_ms(m, k, n)
+        out["tflops"] = 2 * m * n * k / out["ms"] / 1e9
+    return out
+
+
+def gemm_model(arch: str, dev) -> dict:
+    """One fp32 prefill batch of ``arch`` (full width and depth, random
+    weights, 4 x 2048 tokens) through make_local_exec: gemm_f32's counters
+    for the batch and its walls; then the same prefill with every product on
+    torch.matmul (prefill_step under grad mode, no operand requiring grad),
+    its walls, and the gaps of the last-position logits and of the cache
+    leaves over the library path's largest entry (as the benchmark's
+    logits_rel / state_rel read them)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import init_params, prefill_step
+    from repro_torch.serve.step import make_local_exec
+
+    cfg = get_arch(arch)
+    b, s = TRAIN_BATCH
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.float32, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s),
+                           generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    prefill_fn, _ = make_local_exec(cfg, 16, device=dev)
+
+    def library():
+        with torch.enable_grad():
+            return prefill_step(params, cfg, tokens, attn_impl="blockwise",
+                                cache_dtype=torch.float32, cache_len=s + 16)
+
+    out = {"arch": arch}
+    for name, fn in (("kernel", lambda: prefill_fn(params, tokens)), ("library", library)):
+        walls, counts = [], []
+        for i in range(1 + PREFILL_TIMED_CALLS):
+            torch.cuda.synchronize()
+            reset_gemm_counters()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            counts.append(gemm_counters())
+            if i:
+                walls.append(time.perf_counter() - t0)
+        out[name] = {"walls": walls, "counts": counts[-1], "result": res}
+    (lk, ck), (ll, cl) = out["kernel"].pop("result"), out["library"].pop("result")
+    out["logits_rel"] = rel_err_max(lk, ll)
+    leaves = [(a, c) for a, c in zip(torch.utils._pytree.tree_leaves(ck),
+                                     torch.utils._pytree.tree_leaves(cl))
+              if isinstance(a, torch.Tensor) and a.is_floating_point()]
+    out["state_rel"] = max(rel_err_max(a, c) for a, c in leaves)
+    del params, tokens, lk, ck, ll, cl, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def gemm_train_counts(dev) -> dict:
+    """Two-layer mamba2-2.7b training steps, bf16 and fp32 weights, 4 x 2048
+    tokens: gemm_f32's counters over one step each. Every product is under
+    autograd, so none may launch the kernel (and bf16 ones are not counted
+    as fp32 library calls either)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import token_batch
+    from repro_torch.models.lm import init_params
+    from repro_torch.traces.tokens import SyntheticTokenStream, TokenPipelineConfig, lm_inputs
+    from repro_torch.train import AdamWConfig, TrainStepConfig, adamw_init, make_train_step
+
+    cfg = dataclasses.replace(get_arch(MAMBA_ARCH), num_layers=2)
+    b, s = TRAIN_BATCH
+    pipe = SyntheticTokenStream(TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=s + 1,
+                                                    global_batch=b, seed=0))
+    batch = token_batch(lm_inputs(pipe.batch(0)), dev)
+    tcfg = TrainStepConfig(microbatches=TRAIN_MICROBATCHES, remat=TRAIN_REMAT,
+                           optimizer=AdamWConfig(lr=3e-4, total_steps=2, warmup_steps=0))
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype, dev)
+        opt = adamw_init(params)
+        step, init_efb = make_train_step(cfg, tcfg, device=dev)
+        efb = init_efb(params)
+        reset_gemm_counters()
+        step(params, opt, batch, efb)
+        torch.cuda.synchronize()
+        out[str(dtype).removeprefix("torch.")] = gemm_counters()
+        del params, opt, efb
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gemm(dev, smi) -> dict:
+    """Phase 22: gemm_f32 at every GEMM_SHAPES shape against fp64, cuBLAS
+    fp32 SGEMM, one TF32 product and its plain version (the gates), its
+    time beside torch.matmul's and the 3xTF32 bound; the size rule's grid
+    (kernel and torch.matmul at each (M, K, N), and which route matmul_f32
+    takes there); the counters per fp32 prefill batch of mamba2-2.7b and
+    hymba-1.5b, their walls beside the all-library path's and the gaps
+    between the two, and the counters of bf16 and fp32 training steps."""
+    import torch
+
+    from repro_torch.kernels.gemm_f32.kernel import gemm_f32_cuda
+    from repro_torch.kernels.gemm_f32.ops import kernel_wins
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"shapes": []}
+    for m, k, n in GEMM_SHAPES:
+        rec = gemm_check(m, k, n, dev)
+        out["shapes"].append(rec)
+        log(f"[gemm] {smi} | (M, K, N) = ({m}, {k}, {n}): gap to fp64 over |x|·|W| "
+            f"{rec['err']:.3e} (cuBLAS fp32 {rec['err_lib']:.3e}, TF32 {rec['err_tf32']:.3e}); "
+            f"to the plain 3xTF32 version {rec['err_ref']:.3e}; bitwise repeat "
+            f"{rec['bitwise']}; device {rec['ms']:.4f} ms ({rec['tflops']:.1f} TFLOP/s), "
+            f"library_ms {rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}, {100 * rec['bound_ms'] / rec['ms']:.1f}% reached)")
+        if not (rec["err"] <= GEMM_LIB_FACTOR * rec["err_lib"]
+                and GEMM_TF32_FACTOR * rec["err"] <= rec["err_tf32"]
+                and rec["err_ref"] <= GEMM_REF_TOL and rec["bitwise"]):
+            fail(f"gemm: accuracy gates at ({m}, {k}, {n}): {rec}")
+    out["sweep"] = []
+    for k in GEMM_SWEEP_K:
+        for n in GEMM_SWEEP_N:
+            for m in GEMM_SWEEP_M:
+                x = torch.randn((m, k), device=dev)
+                w = torch.randn((k, n), device=dev)
+                t_k = device_time_ms(lambda: gemm_f32_cuda(x, w), reps=10, iters=3)
+                t_l = device_time_ms(lambda: torch.matmul(x, w), reps=10, iters=3)
+                out["sweep"].append((m, k, n, t_k, t_l))
+                log(f"[gemm] sweep (M, K, N) = ({m}, {k}, {n}): kernel {t_k:.4f} ms, "
+                    f"torch.matmul {t_l:.4f} ms, ratio {t_l / t_k:.2f}; matmul_f32 takes "
+                    + ("the kernel" if kernel_wins(m, n, k) else "torch.matmul"))
+    for arch in GEMM_MODELS:
+        rec = gemm_model(arch, dev)
+        out[arch] = rec
+        log(f"[gemm] {smi} | {arch} fp32 prefill 4 x 2048: per batch {rec['kernel']['counts']}; "
+            "walls " + ", ".join(f"{w:.4f}" for w in rec["kernel"]["walls"])
+            + " s; every product on torch.matmul: "
+            + ", ".join(f"{w:.4f}" for w in rec["library"]["walls"])
+            + f" s ({rec['library']['counts']}); gaps to it: logits_rel "
+            f"{rec['logits_rel']:.3e}, state_rel {rec['state_rel']:.3e}")
+        if not rec["kernel"]["counts"]["gemm_f32_cuda.launches"]:
+            fail(f"gemm: {arch}'s prefill launched no gemm_f32")
+    out["train"] = gemm_train_counts(dev)
+    log(f"[gemm] mamba2-2.7b (2 layers) training step counters: {out['train']}")
+    if any(c["gemm_f32_cuda.launches"] for c in out["train"].values()) or \
+            out["train"]["bfloat16"]["matmul_f32.library_calls"]:
+        fail(f"gemm: a training step's product took the kernel: {out['train']}")
+    return out
+
+
+def gemm_only() -> int:
+    """``python3 chip_smoke.py --gemm``: phase 2's build of gemm_f32 and its
+    spill gate, then phase 22 alone."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = phase_device()
+    t0 = time.perf_counter()
+    logs = _build.build_all(["gemm_f32"])
+    log(f"[build] gemm_f32 built in {time.perf_counter() - t0:.2f} s")
+    spill_gate(logs)
+    phase_gemm(dev, smi)
+    return 0
 
 
 def ssd_arm(dump: Path, steps: bool = False) -> int:
@@ -4915,6 +5215,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if sys.argv[1:2] == ["--dryrun-cells"]:
         return dryrun_cells(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--gemm"]:
+        return gemm_only()
     import torch
 
     from repro_torch.kernels._build import SOURCES  # noqa: F401 (fails outside the repo)
@@ -4935,7 +5237,7 @@ def main() -> int:
 
 
 def run_phases(dev, smi, dry_run, started) -> int:
-    """Phases 2-22; ``dry_run``: start_dryrun's process, collected before
+    """Phases 2-23; ``dry_run``: start_dryrun's process, collected before
     phase 18."""
     import torch
 
@@ -4985,6 +5287,9 @@ def run_phases(dev, smi, dry_run, started) -> int:
         **{(arch, "prefill", "bfloat16"): (bf16_prefill[arch], None) for arch in TRAIN_ARCHS},
     })
     log(f"[dryrun] phase 21 (b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gemm = phase_gemm(dev, smi)
+    log(f"[gemm] phase 22 took {time.perf_counter() - t0:.1f} s")
 
     entry = {
         "name": "gmsa_score",
@@ -5146,9 +5451,31 @@ def run_phases(dev, smi, dry_run, started) -> int:
         "train_step_s_bf16": mamba_bf16["wall_s"],
         "train_tokens_per_s_bf16": mamba_bf16["tokens_per_s"],
     }
-    log(f"[device] phases 2-21 took {time.perf_counter() - started:.1f} s")
+    main_gemm = gemm["shapes"][0]
+    gemm_entry = {
+        "name": "gemm_f32",
+        "route": "cuda",
+        "source": str(SOURCES["gemm_f32"].relative_to(ROOT)),
+        "replaces": None,   # no TPU kernel: the JAX package's weight products are jnp.matmul
+        "launches_prefill": {a: gemm[a]["kernel"]["counts"] for a in GEMM_MODELS},
+        "launches_train": gemm["train"],
+        "shape": main_gemm["shape"],
+        "max_rel_err": max(r["err"] for r in gemm["shapes"]),
+        "ms": main_gemm["ms"],
+        "library_ms": main_gemm["library_ms"],
+        "bound_ms": main_gemm["bound_ms"],
+        "bound_by": main_gemm["bound_by"],
+        "by_shape": {str(r["shape"]): {k: r[k] for k in ("ms", "library_ms", "bound_ms", "err",
+                                                          "err_lib", "err_tf32")}
+                     for r in gemm["shapes"]},
+        "prefill_walls": {a: {"kernel": gemm[a]["kernel"]["walls"],
+                              "library": gemm[a]["library"]["walls"],
+                              "logits_rel": gemm[a]["logits_rel"],
+                              "state_rel": gemm[a]["state_rel"]} for a in GEMM_MODELS},
+    }
+    log(f"[device] phases 2-22 took {time.perf_counter() - started:.1f} s")
     log(f"[device] {smi}")
-    print(json.dumps({"kernels": [entry, ssd_entry, bwd_entry]}))
+    print(json.dumps({"kernels": [entry, ssd_entry, bwd_entry, gemm_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -12,6 +12,9 @@ Each kernel keeps the JAX package's (kernel.py, ops.py, ref.py) triple:
 
 Kernels:
 
+* ``gemm_f32``   — y = x @ W in fp32 as 3xTF32 on the tensor cores (``wgmma``,
+  TMA, warp-specialised, persistent); the model's weight products take it
+  through ``matmul_f32`` where no gradient is wanted and the shape is large.
 * ``gmsa_score`` — the per-slot GMSA dispatch: the (K, N, N) x (N,) cost
   matvec, the drift-plus-penalty score and the per-type argmin.
 * ``ssd_scan``   — the Mamba-2 chunked SSD forward from a zero state, one

@@ -34,6 +34,7 @@ BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "torch_kernels"
 
 #: Every kernel of the port, by name -> its CUDA source.
 SOURCES = {
+    "gemm_f32": _KERNELS_DIR / "gemm_f32" / "csrc" / "gemm_f32.cu",
     "gmsa_score": _KERNELS_DIR / "gmsa_score" / "csrc" / "gmsa_score.cu",
     "ssd_scan": _KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan.cu",
     "ssd_scan_bwd": _KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan_bwd.cu",

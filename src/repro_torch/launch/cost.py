@@ -12,6 +12,9 @@ anything; on real tensors the same ops give the same counts.
   registry (mm, addmm, bmm, baddbmm, convolutions, the fused attention
   ops): 2·m·n·k a product. Elementwise work, reductions and the like are
   not counted, where XLA's ``cost_analysis()`` counts them too.
+  ``flops_3xtf32`` is the part of them that the card computes as 3xTF32
+  (the weight products ``matmul_f32`` gives the ``gemm_f32`` kernel,
+  counted through :func:`as_3xtf32`), which the roofline prices apart.
 * ``bytes``: every op that moves data adds the bytes of its tensor inputs
   and outputs (a broadcast dimension, stride 0, once). The port's program is eager and fuses nothing outside its
   kernels, so each such op reads its inputs from HBM and writes its
@@ -42,7 +45,7 @@ from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatc
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["CostMode", "as_kernel"]
+__all__ = ["CostMode", "as_3xtf32", "as_kernel"]
 
 #: Allocations that write nothing.
 _EMPTY_OPS = frozenset({
@@ -69,13 +72,14 @@ def _nbytes(t: torch.Tensor) -> int:
 class CostMode(TorchDispatchMode):
     """Counts FLOPs, bytes moved and live storage bytes over the ops run
     under it (see the module's docstring). After the pass: ``flops``,
-    ``bytes``, ``ops`` (ATen calls seen), ``argument_bytes`` (storages held
+    ``flops_3xtf32``, ``bytes``, ``ops`` (ATen calls seen), ``argument_bytes`` (storages held
     by :meth:`hold` or first seen as an input), ``peak_bytes`` and
     ``live_bytes``; :meth:`memory` gives the reference's four sizes."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
+        self.flops_3xtf32 = 0
         self.bytes = 0
         self.ops = 0
         self.argument_bytes = 0
@@ -153,14 +157,32 @@ class CostMode(TorchDispatchMode):
         return out
 
 
+def _innermost() -> CostMode | None:
+    return next((m for m in reversed(_get_current_dispatch_mode_stack())
+                 if isinstance(m, CostMode)), None)
+
+
+def as_3xtf32(fn, *args):
+    """``fn(*args)``, a product the card computes as 3xTF32, counted under
+    the innermost active :class:`CostMode` as any other ops are, and its
+    FLOPs besides in ``flops_3xtf32``. Without a CostMode it is
+    ``fn(*args)``."""
+    mode = _innermost()
+    if mode is None:
+        return fn(*args)
+    before = mode.flops
+    out = fn(*args)
+    mode.flops_3xtf32 += mode.flops - before
+    return out
+
+
 def as_kernel(fn, *args):
     """``fn(*args)``, a kernel's plain version, counted as the kernel under
     the innermost active :class:`CostMode`: the FLOPs of the ops it runs;
     the bytes of one op (its tensor arguments and its returned tensors);
     alive afterwards only the storages it returns. Without a CostMode it is
     ``fn(*args)``."""
-    mode = next((m for m in reversed(_get_current_dispatch_mode_stack())
-                 if isinstance(m, CostMode)), None)
+    mode = _innermost()
     if mode is None:
         return fn(*args)
     ins = _tensors(args)

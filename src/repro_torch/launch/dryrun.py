@@ -29,8 +29,9 @@ runs them. ``chips`` is 1 in both.
 
 Params are bf16 in every cell, as the reference's ``_param_structs``
 builds them (``param_dtype`` in the artifact; the roofline takes that
-dtype's peak); a caller may ask for another dtype, as ``chip_smoke.py``
-asks for fp32 beside bf16.
+dtype's peak, and 3xTF32's for ``flops_3xtf32``, the fp32 weight products
+the card gives ``gemm_f32``: ``peak_flops`` in the artifact); a caller may
+ask for another dtype, as ``chip_smoke.py`` asks for fp32 beside bf16.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all \\
@@ -59,7 +60,7 @@ from repro_torch.launch.cost import CostMode
 from repro_torch.launch.roofline import (
     HBM_BW,
     HBM_BYTES,
-    peak_flops_for,
+    pass_peak_flops,
     pod_sync_bytes,
     roofline_terms,
 )
@@ -155,6 +156,7 @@ def lower_cell(arch: str, shape_name, multi_pod: bool, tcfg: TrainStepConfig,
         "param_dtype": str(dtype).removeprefix("torch."),
         "compile_seconds": round(pass_s, 1),
         "flops": float(mode.flops),
+        "flops_3xtf32": float(mode.flops_3xtf32),
         "bytes_accessed": float(mode.bytes),
         "bytes_accessed_flash": float(mode.bytes),
         "bytes_accessed_flash_note": _FLASH_NOTE,
@@ -168,12 +170,13 @@ def lower_cell(arch: str, shape_name, multi_pod: bool, tcfg: TrainStepConfig,
         "params_total": cfg.param_count(),
         "params_active": cfg.active_param_count(),
     }
+    record["peak_flops"] = pass_peak_flops(record["flops"], record["flops_3xtf32"], dtype)
     record["roofline"] = roofline_terms(
         flops=record["flops"],
         bytes_accessed=record["bytes_accessed_flash"],
         collective_bytes=record["collective_bytes"],
         chips=n_chips,
-        peak_flops=peak_flops_for(dtype),
+        peak_flops=record["peak_flops"],
     )
     record["roofline"]["memory_s_naive_upper"] = record["bytes_accessed"] / HBM_BW
     record["roofline"]["useful_flops_ratio"] = (

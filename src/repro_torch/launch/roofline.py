@@ -9,8 +9,12 @@ under load; these are the published peaks, not a measurement.
     memory     = bytes            / HBM bytes/s
     collective = collective bytes / NVLink bytes/s
 
-The port's GEMMs run in fp32 with TF32 off, so fp32 params are priced at
-the fp32 rate outside the tensor cores (:func:`peak_flops_for`).
+A pass's FLOPs are priced at the rate of its params' dtype
+(:func:`peak_flops_for`): fp32 at the CUDA cores' rate, where ``torch.matmul``
+runs them with TF32 off, bf16 at the tensor cores'. The fp32 weight
+products that ``matmul_f32`` gives the ``gemm_f32`` kernel (no gradient
+wanted, past its size rule) run as three TF32 products on the tensor cores
+and are priced at PEAK_FLOPS_3XTF32 (:func:`pass_peak_flops`).
 
 There is no HLO here, so no HLO parser: the one collective the port runs,
 the int8 cross-pod gradient sum (:mod:`repro_torch.distributed.compression`),
@@ -23,10 +27,12 @@ import math
 
 import torch
 
-#: Dense fp32 FLOP/s outside the tensor cores (the port's GEMMs: TF32 off).
+#: Dense fp32 FLOP/s outside the tensor cores (``torch.matmul``: TF32 off).
 PEAK_FLOPS_FP32 = 67e12
 #: Dense TF32 tensor-core FLOP/s.
 PEAK_FLOPS_TF32 = 495e12
+#: An fp32-accurate product as three TF32 products (``gemm_f32``).
+PEAK_FLOPS_3XTF32 = PEAK_FLOPS_TF32 / 3
 #: Dense bf16 / fp16 tensor-core FLOP/s.
 PEAK_FLOPS_BF16 = 989e12
 #: The port's compute peak: fp32.
@@ -50,6 +56,16 @@ def peak_flops_for(dtype) -> float:
         return _PEAKS[dtype]
     except KeyError:
         raise ValueError(f"no H100 peak for {dtype!r}; known: {list(_PEAKS)}") from None
+
+
+def pass_peak_flops(flops: float, flops_3xtf32: float, dtype) -> float:
+    """The rate of a pass whose ``flops`` hold ``flops_3xtf32`` of 3xTF32
+    products: those at PEAK_FLOPS_3XTF32, the rest at ``dtype``'s peak, so
+    that ``flops`` over it is the sum of the two times."""
+    peak = peak_flops_for(dtype)
+    if flops_3xtf32 <= 0 or flops <= 0:
+        return peak
+    return flops / ((flops - flops_3xtf32) / peak + flops_3xtf32 / PEAK_FLOPS_3XTF32)
 
 
 def pod_sync_bytes(grad_leaves, n_pods: int) -> dict:

@@ -9,6 +9,8 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from repro_torch.kernels.gemm_f32 import matmul_f32
+
 
 def trunc_normal(generator: torch.Generator, shape: tuple, fan_in: int, dtype,
                  device=None) -> Tensor:
@@ -47,12 +49,12 @@ def layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float) -> Tensor:
 
 def swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor) -> Tensor:
     """SwiGLU MLP: down( silu(x@gate) * (x@up) )."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return matmul_f32(F.silu(matmul_f32(x, w_gate)) * matmul_f32(x, w_up), w_down)
 
 
 def gelu_mlp(x: Tensor, w_up: Tensor, b_up: Tensor, w_down: Tensor, b_down: Tensor) -> Tensor:
     """GELU MLP with biases; the tanh approximation, ``jax.nn.gelu``'s default."""
-    return F.gelu(x @ w_up + b_up, approximate="tanh") @ w_down + b_down
+    return matmul_f32(F.gelu(matmul_f32(x, w_up) + b_up, approximate="tanh"), w_down) + b_down
 
 
 # ---------------------------------------------------------------------------

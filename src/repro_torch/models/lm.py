@@ -17,7 +17,10 @@ SSD scan goes through the hand-written CUDA kernel
 (:func:`repro_torch.kernels.ssd_scan.ssd_scan`) on a CUDA device, and
 through its plain sequential version on the CPU. Attention and the MoE
 are plain PyTorch, as the JAX package's are plain ``jnp``. The
-projections, the FFN and the LM head are plain matmuls (``torch.matmul``).
+projections, the FFN and the LM head are weight products ``x @ W`` through
+:func:`repro_torch.kernels.gemm_f32.matmul_f32`: the hand-written 3xTF32
+kernel for large fp32 products where no gradient is wanted (prefill), else
+``torch.matmul``, unchanged (CPU, bf16, autograd, decode's few rows).
 
 A frontend config (``cfg.frontend``: vision or audio) takes precomputed
 stub embeddings (:mod:`repro_torch.models.frontends`) as ``prefix_embeds``:
@@ -54,6 +57,7 @@ from torch import Tensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.gemm_f32 import matmul_f32
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.attention import attend_blockwise, attend_decode, attend_naive
 from repro_torch.models.frontends import AUDIO_STUB_DIM, VISION_STUB_DIM
@@ -264,7 +268,7 @@ def _qkv(lp: Params, h: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tensor, rope
     b, s, _ = h.shape
     hd = cfg.resolved_head_dim
     norm = _norm(h, lp["ln1"], lp.get("ln1_bias"), cfg)
-    q, k, v = norm @ lp["wq"], norm @ lp["wk"], norm @ lp["wv"]
+    q, k, v = matmul_f32(norm, lp["wq"]), matmul_f32(norm, lp["wk"]), matmul_f32(norm, lp["wv"])
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q = q.reshape(b, s, cfg.num_heads, hd)
@@ -283,7 +287,7 @@ def _attn_block(lp: Params, h: Tensor, cfg: ModelConfig, sin: Tensor, cos: Tenso
     q, k, v = _qkv(lp, h, cfg, sin, cos, rope=cfg.causal)
     attend = attend_blockwise if attn_impl == "blockwise" else attend_naive
     out = attend(q, k, v, positions, positions, causal=cfg.causal, window=cfg.sliding_window)
-    return out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim) @ lp["wo"], (k, v)
+    return matmul_f32(out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim), lp["wo"]), (k, v)
 
 
 def ssd_layer_inputs(lp: Params, h: Tensor, cfg: ModelConfig):
@@ -294,11 +298,11 @@ def ssd_layer_inputs(lp: Params, h: Tensor, cfg: ModelConfig):
     """
     b, s, _ = h.shape
     norm = rms_norm(h, lp["ln_ssm"], cfg.norm_eps)
-    z = norm @ lp["w_z"]
-    x_raw = norm @ lp["w_x"]
-    b_raw = norm @ lp["w_b"]
-    c_raw = norm @ lp["w_c"]
-    dt_raw = norm @ lp["w_dt"]                          # (B,S,H)
+    z = matmul_f32(norm, lp["w_z"])
+    x_raw = matmul_f32(norm, lp["w_x"])
+    b_raw = matmul_f32(norm, lp["w_b"])
+    c_raw = matmul_f32(norm, lp["w_c"])
+    dt_raw = matmul_f32(norm, lp["w_dt"])               # (B,S,H)
     tail = cfg.ssm_conv_width - 1
     conv_tail = torch.cat([x_raw[:, -tail:], b_raw[:, -tail:], c_raw[:, -tail:]], dim=-1)
     x_c = F.silu(causal_conv(x_raw, lp["conv_x_w"], lp["conv_x_b"]))
@@ -322,7 +326,7 @@ def _ssm_block(lp: Params, h: Tensor, cfg: ModelConfig):
     y = y + lp["d_skip"][None, None, :, None].to(y.dtype) * x_in
     y = y.reshape(b, s, cfg.d_inner)
     y = rms_norm(y * F.silu(z), lp["ssm_norm"], cfg.norm_eps)
-    return y @ lp["ssm_out"], state, conv_tail
+    return matmul_f32(y, lp["ssm_out"]), state, conv_tail
 
 
 def _mlp_block(lp: Params, h: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor | None]:
@@ -382,7 +386,7 @@ def _layers(params: Params, n: int) -> list[Params]:
 def _logits(params: Params, cfg: ModelConfig, h: Tensor) -> Tensor:
     h = _norm(h, params["final_norm"], params.get("final_norm_bias"), cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (h @ head.to(h.dtype)).float()
+    return matmul_f32(h, head.to(h.dtype)).float()
 
 
 # ---------------------------------------------------------------------------
@@ -403,7 +407,7 @@ def _embed(params: Params, cfg: ModelConfig, tokens: Tensor | None,
     bitwise."""
     h = None if tokens is None else F.embedding(tokens, params["embed"])
     if cfg.frontend and prefix_embeds is not None:
-        pre = prefix_embeds.to(params["final_norm"].dtype) @ params["frontend_proj"]
+        pre = matmul_f32(prefix_embeds.to(params["final_norm"].dtype), params["frontend_proj"])
         pre = rms_norm(pre, params["frontend_norm"], cfg.norm_eps)
         h = pre if h is None else torch.cat([pre, h], dim=1)
     if h is None:

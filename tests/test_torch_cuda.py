@@ -26,6 +26,8 @@ from repro_torch.jobs import (
     stage_oblivious,
     summarize_staged,
 )
+from repro_torch.kernels.gemm_f32 import gemm_f32_ref, matmul_f32
+from repro_torch.kernels.gemm_f32.kernel import gemm_f32_cuda
 from repro_torch.kernels.gmsa_score import gmsa_score, gmsa_score_phases_ref, gmsa_score_ref
 from repro_torch.kernels.gmsa_score.kernel import _gmsa_score_cuda_phases, gmsa_score_cuda
 from repro_torch.kernels.ssd_scan import (
@@ -1174,3 +1176,104 @@ def test_dryrun_peak_of_a_smoke_train_step_matches_the_card(cuda, arch, batch):
     torch.cuda.synchronize()
     card = torch.cuda.max_memory_allocated() - base
     assert abs(dry - card) <= 0.15 * card, (dry / 2**20, card / 2**20)
+
+
+#: gemm_f32's shapes (M, K, N): mamba2-2.7b's prefill products at 4 x 2048
+#: tokens (w_z / w_x, ssm_out, w_b / w_c, w_dt), hymba-1.5b's (FFN up and
+#: down, q / wo, k / v, B / C), ragged 128 x 128 x 32 tiles, and the serving
+#: engine's 4 x 32 prompts (M = 128).
+GEMM_SHAPES = [(8192, 2560, 5120), (8192, 5120, 2560), (8192, 2560, 128), (8192, 2560, 80),
+               (8192, 1600, 5504), (8192, 5504, 1600), (8192, 1600, 1600), (8192, 1600, 320),
+               (8192, 1600, 16), (1000, 1036, 1100), (300, 68, 516), (257, 20, 132),
+               (33, 4, 8), (128, 2560, 5120)]
+#: Each the largest gap to fp64 over |x|·|W|: the kernel within this many
+#: times cuBLAS's fp32 SGEMM's gap, and this many times under TF32's.
+GEMM_LIB_FACTOR, GEMM_TF32_FACTOR = 4.0, 30.0
+#: The kernel against the plain 3xTF32 version (the same products summed in
+#: another order), over |x|·|W|.
+GEMM_REF_TOL = 1e-5
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+def test_gemm_f32_kernel_meets_the_accuracy_gates(cuda, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(m + 7 * k + 13 * n)
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda) * k ** -0.5
+    before = gemm_f32_cuda.launches
+    y = gemm_f32_cuda(x, w)
+    assert gemm_f32_cuda.launches == before + 1
+    assert torch.equal(y, gemm_f32_cuda(x, w))
+    lib = torch.matmul(x, w)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = torch.matmul(x, w)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    x64, w64 = x.double(), w.double()
+    want, scale = x64 @ w64, (x64.abs() @ w64.abs()).clamp_min(1e-300)
+    gap = lambda got: float(((got.double() - want).abs() / scale).max())
+    err, err_lib, err_tf32 = gap(y), gap(lib), gap(tf32)
+    assert err <= GEMM_LIB_FACTOR * err_lib, (err, err_lib)
+    assert GEMM_TF32_FACTOR * err <= err_tf32, (err, err_tf32)
+    ref = gemm_f32_ref(x, w)
+    assert float(((y.double() - ref.double()).abs() / scale).max()) <= GEMM_REF_TOL
+
+
+def test_gemm_f32_cuda_rejects_what_it_cannot_run(cuda):
+    x, w = torch.randn((64, 32), device=cuda), torch.randn((32, 48), device=cuda)
+    with pytest.raises(TypeError, match="fp32"):
+        gemm_f32_cuda(x.bfloat16(), w.bfloat16())
+    with pytest.raises(TypeError, match="CUDA"):
+        gemm_f32_cuda(x.cpu(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm_f32_cuda(x, w.T.contiguous().T)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        gemm_f32_cuda(torch.randn((64, 30), device=cuda), torch.randn((30, 48), device=cuda))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        gemm_f32_cuda(x, torch.randn((16, 48), device=cuda))
+    assert gemm_f32_cuda(x[:0], w).shape == (0, 48)
+    assert torch.equal(gemm_f32_cuda(x[:, :0], w[:0]), torch.zeros((64, 48), device=cuda))
+
+
+def test_matmul_f32_routes_and_counts_on_the_card(cuda):
+    x = torch.randn((4, 2048, 256), device=cuda)
+    w = torch.randn((256, 1280), device=cuda) / 16
+    counts = lambda: (gemm_f32_cuda.launches, matmul_f32.library_calls)
+    start = counts()
+    with torch.inference_mode():
+        y = matmul_f32(x, w)
+    assert counts() == (start[0] + 1, start[1])
+    assert float((y - torch.matmul(x, w)).abs().max()) <= 1e-5 * float(y.abs().max())
+    matmul_f32(x, w)                                    # grad mode on
+    with torch.no_grad():
+        matmul_f32(x[:, :16], w)                         # 64 rows: under the size rule
+        matmul_f32(x, w.requires_grad_())                # a weight that requires grad
+        matmul_f32(x.bfloat16(), w.detach().bfloat16())  # bf16: not counted
+    assert counts() == (start[0] + 1, start[1] + 3)
+
+
+def test_prefill_takes_the_kernel_on_its_big_projections_only(cuda):
+    """mamba2-2.7b cut to two layers, fp32 prefill of 4 x 2048 tokens: w_z,
+    w_x and ssm_out take the kernel (3 a layer); w_b, w_c (N = 128), w_dt (N
+    = 80) and the last position's head stay on cuBLAS (3 a layer + 1).
+    Logits and cache within fp32 rounding of the all-cuBLAS prefill (grad
+    mode on: every product on torch.matmul)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_arch("mamba2-2.7b"), num_layers=2)
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), torch.float32, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    prefill, _ = make_local_exec(cfg, 16, device=cuda)
+    start = (gemm_f32_cuda.launches, matmul_f32.library_calls)
+    logits, cache = prefill(params, tokens)
+    assert (gemm_f32_cuda.launches - start[0], matmul_f32.library_calls - start[1]) == (6, 7)
+    with torch.enable_grad():
+        want, want_cache = lm.prefill_step(params, cfg, tokens, attn_impl="blockwise",
+                                           cache_dtype=torch.float32, cache_len=2048 + 16)
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    assert rel(logits, want) <= 1e-4
+    leaves = [(a, b) for a, b in zip(torch.utils._pytree.tree_leaves(cache),
+                                     torch.utils._pytree.tree_leaves(want_cache))
+              if a.is_floating_point()]
+    assert leaves and max(rel(a, b) for a, b in leaves) <= 1e-4
