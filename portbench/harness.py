@@ -11,7 +11,10 @@ A cell names a configuration and a traffic mix. The harness loads
 * ``portbench/e2e/<metric>.py`` for each end-to-end metric the cell
   reports and ``portbench/metrics/<metric>.py`` for each per-layer one:
   each a ``read(ctx)`` that returns the metric's value, or ``None`` where
-  it finds nothing to read (the metric is then left out of the line).
+  it finds nothing to read (the metric is then left out of the line); a
+  per-layer reader may declare the program's launch counters it reads
+  (``COUNTERS``, as in ``portbench.trace``), which the traced stretch
+  then reads beside the benchmark's own.
 
 A run: set-up (the program's kernels built or loaded, the weights and
 tokens made on the device, the traffic's warm-up), the window of
@@ -132,10 +135,26 @@ def loaded_forbidden() -> list[str]:
     return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 
 
-def read_metrics(entries: list, folder: str, ctx) -> dict:
+def load_readers(entries: list, folder: str) -> dict:
+    """Each metric's reader module, by name, from ``portbench/<folder>/``."""
+    return {m["name"]: load_reader(HERE / folder / f"{m['name']}.py") for m in entries}
+
+
+def counters_of(readers: dict) -> dict:
+    """The launch counters a traced stretch reads: those the readers
+    declare, and ``portbench.trace.COUNTERS``, which no reader overrides."""
+    from portbench.trace import COUNTERS
+
+    out: dict = {}
+    for reader in readers.values():
+        out.update(getattr(reader, "COUNTERS", {}))
+    return {**out, **COUNTERS}
+
+
+def read_metrics(entries: list, readers: dict, ctx) -> dict:
     out = {}
     for m in entries:
-        value = load_reader(HERE / folder / f"{m['name']}.py").read(ctx)
+        value = readers[m["name"]].read(ctx)
         if value is not None:
             out[m["name"]] = {"value": value, "unit": m["unit"]}
     return out
@@ -180,13 +199,15 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
     if trace:
         from portbench.trace import profile
 
+        readers = load_readers(cell.per_layer, "metrics")
         first = len(window.units)
         n = cell.mix["profiled_units"]
-        ctx.trace = profile(lambda: [traffic.run_unit(first + j) for j in range(n)], device)
-        metrics = read_metrics(cell.per_layer, "metrics", ctx)
+        ctx.trace = profile(lambda: [traffic.run_unit(first + j) for j in range(n)], device,
+                            counters_of(readers))
+        metrics = read_metrics(cell.per_layer, readers, ctx)
         phase("trace")
     else:
-        metrics = read_metrics(cell.end_to_end, "e2e", ctx)
+        metrics = read_metrics(cell.end_to_end, load_readers(cell.end_to_end, "e2e"), ctx)
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
     traffic.free_program()
     if device.type == "cuda":

@@ -3,10 +3,17 @@
 Both sides get the same: the program takes them as its inputs and the
 plain reference makes them again from the same seed (a seeded generator
 on the same device gives the same numbers). Weights come in the program's
-layout (a frozen copy of ``repro_torch.models.lm``'s parameter specs for
-the families configured here: every block leaf stacked on a leading layer
-axis under ``"blocks"``), drawn on the device, one call per stacked leaf,
-in the dtype the cell serves or trains in.
+layout, drawn on the device, one call per stacked leaf, in the dtype the
+cell serves or trains in.
+
+A layout is the top leaves and any number of stacked groups: a group is a
+name, the ordered layer indices that hold it, and its leaves, each stacked
+on a leading axis over those layers (a leaf's name is its own across
+groups: a layer's leaves meet in one dict). A family's reference module
+(``portbench.reference.<name>``) may define ``layout(model)``; where it
+does not, :func:`default_layout` holds: a frozen copy of
+``repro_torch.models.lm``'s parameter specs for the families configured
+so far, every layer leaf in one group ``"blocks"`` over every layer.
 """
 
 from __future__ import annotations
@@ -22,9 +29,10 @@ from portbench.work import padded_vocab
 FP32_KINDS = ("a_log", "dt_bias")
 
 
-def layout(model: dict) -> tuple[dict, dict]:
-    """(top leaves, one layer's leaves): name -> (shape, fan_in, kind), kind
-    one of normal, ones, zeros, a_log, dt_bias."""
+def default_layout(model: dict) -> tuple[dict, dict]:
+    """(top leaves, {"blocks": (every layer, one layer's leaves)}), leaves
+    name -> (shape, fan_in, kind), kind one of normal, ones, zeros, a_log,
+    dt_bias."""
     d, vp = model["d_model"], padded_vocab(model)
     top = {"embed": ((vp, d), d, "normal"), "final_norm": ((d,), 0, "ones")}
     if not model["tie_embeddings"]:
@@ -54,7 +62,15 @@ def layout(model: dict) -> tuple[dict, dict]:
         f = model["d_ff"]
         layer.update(ln2=((d,), 0, "ones"), w_gate=((d, f), d, "normal"),
                      w_up=((d, f), d, "normal"), w_down=((f, d), f, "normal"))
-    return top, layer
+    return top, {"blocks": (list(range(model["num_layers"])), layer)}
+
+
+def layout(model: dict, family) -> tuple[dict, dict]:
+    """(top leaves, groups {name: (layer indices, leaves)}): the family
+    module's ``layout(model)`` where it defines one, else the default."""
+    if hasattr(family, "layout"):
+        return family.layout(model)
+    return default_layout(model)
 
 
 def _leaf(gen: torch.Generator, shape: tuple, fan_in: int, kind: str, dtype, device):
@@ -71,19 +87,34 @@ def _leaf(gen: torch.Generator, shape: tuple, fan_in: int, kind: str, dtype, dev
     return torch.randn(shape, generator=gen, device=device, dtype=dtype).mul_(fan_in ** -0.5)
 
 
-def make_weights(model: dict, seed: int, dtype, device) -> dict:
-    """The weights for ``seed``: one generator on ``device``, leaves in name
-    order (top, then the stacked layer leaves)."""
+def make_weights(model: dict, seed: int, dtype, device, family) -> dict:
+    """The weights for ``seed`` in ``family``'s layout: one generator on
+    ``device``; the top leaves in name order, then each group in name order,
+    its leaves in name order, each stacked over the group's layers."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    top, layer = layout(model)
+    top, groups = layout(model, family)
     out = {name: _leaf(gen, *spec, dtype, device) for name, spec in sorted(top.items())}
-    out["blocks"] = {name: _leaf(gen, (model["num_layers"],) + shape, fan, kind, dtype, device)
-                     for name, (shape, fan, kind) in sorted(layer.items())}
+    for group, (layers, leaves) in sorted(groups.items()):
+        out[group] = {name: _leaf(gen, (len(layers),) + shape, fan, kind, dtype, device)
+                      for name, (shape, fan, kind) in sorted(leaves.items())}
+    return out
+
+
+def layer_leaves(weights: dict, groups: dict, num_layers: int) -> list[dict]:
+    """Each layer's leaves, {name: view}: of every group that holds the
+    layer, each leaf's slice at the group's position of that layer (views
+    by ``unbind``, so a gradient through them lands in the stacked leaf)."""
+    out: list[dict] = [{} for _ in range(num_layers)]
+    for group, (layers, _) in groups.items():
+        for name, leaf in weights[group].items():
+            for i, view in zip(layers, leaf.unbind(0)):
+                out[i][name] = view
     return out
 
 
 def leaf_items(tree: dict, prefix: str = ""):
-    """(path, tensor) of a weight tree, top leaves then ``blocks/<name>``."""
+    """(path, tensor) of a weight tree in name order, a group's leaves as
+    ``<group>/<name>``."""
     for key in sorted(tree):
         val = tree[key]
         if isinstance(val, dict):

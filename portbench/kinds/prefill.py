@@ -52,11 +52,11 @@ class Traffic:
         if fault not in (None,) + FAULTS:
             raise ValueError(f"unknown fault {fault!r} for prefill traffic")
         self.model, self.mix, self.seed, self.device = conf["model"], mix, seed, device
-        self.reference = conf["reference"]
+        self.family = ref_lm.layer_module(conf["reference"])
         self.dtype = getattr(torch, mix["dtype"])
         self.rows, self.seq = mix["rows"], mix["seq_len"]
         self.fault = fault
-        self.params = make_weights(self.model, seed, self.dtype, device)
+        self.params = make_weights(self.model, seed, self.dtype, device, self.family)
         # Unit 0 warms up; the window's batch i takes unit 1 + i.
         self.tokens = make_tokens(self.model, seed, mix["units"] + 1, self.rows, self.seq,
                                   mix["zipf"], device)
@@ -67,7 +67,7 @@ class Traffic:
         self.last = None
         self.finite: list = []
         self.unit_tokens = self.rows * self.seq
-        self.unit_flops = work.prefill_flops(self.model, self.rows, self.seq)
+        self.unit_flops = work.prefill_flops(self.model, self.rows, self.seq, self.family)
         self.flops_dtype = mix["dtype"]
 
     def ssd_call(self) -> tuple | None:
@@ -128,18 +128,17 @@ class Traffic:
         than the program's, the reference in ``mode`` in its place."""
         if mode == "program":
             return [(i, *self.kept[i]) for i in sorted(self.kept)]
-        weights = make_weights(self.model, self.seed, self.dtype, self.device)
+        weights = make_weights(self.model, self.seed, self.dtype, self.device, self.family)
         slots = _cache_slots(self.model, self.seq, self.mix["gen_len"])
         return [(i, *self._reference_batch(weights, self._unit_tokens(i), slots, mode))
                 for i in sorted(self.kept)]
 
     def _reference_batch(self, weights, tokens, slots, mode):
-        mod = ref_lm.layer_module(self.reference)
         rows = []
         with fp32_matmuls():
             for r in range(tokens.shape[0]):
-                rows.append(ref_lm.prefill_row(mod, weights, self.model, tokens[r:r + 1], slots,
-                                               Products(mode)))
+                rows.append(ref_lm.prefill_row(self.family, weights, self.model, tokens[r:r + 1],
+                                               slots, Products(mode)))
         logits = torch.cat([lg for lg, _ in rows])
         cache = {k: torch.cat([c[k] for _, c in rows], dim=1) for k in rows[0][1]}
         cache["pos"] = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,

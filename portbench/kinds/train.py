@@ -41,11 +41,11 @@ class Traffic:
         if fault not in (None,) + FAULTS:
             raise ValueError(f"unknown fault {fault!r} for training traffic")
         self.model, self.mix, self.seed, self.device = conf["model"], mix, seed, device
-        self.reference = conf["reference"]
+        self.family = ref_lm.layer_module(conf["reference"])
         self.dtype = getattr(torch, mix["dtype"])
         self.rows, self.seq = mix["rows"], mix["seq_len"]
         self.fault = fault
-        self.params = make_weights(self.model, seed, self.dtype, device)
+        self.params = make_weights(self.model, seed, self.dtype, device, self.family)
         self.tokens = make_tokens(self.model, seed, mix["units"], self.rows, self.seq + 1,
                                   mix["zipf"], device)
         self.mask = torch.ones((self.rows, self.seq), dtype=torch.float32, device=device)
@@ -56,7 +56,7 @@ class Traffic:
         self.efb = init_efb(self.params)
         self.losses: list = []
         self.unit_tokens = self.rows * self.seq
-        self.unit_flops = work.train_flops(self.model, self.rows, self.seq)
+        self.unit_flops = work.train_flops(self.model, self.rows, self.seq, self.family)
         self.flops_dtype = mix["dtype"]
 
     def ssd_call(self) -> tuple | None:
@@ -104,7 +104,8 @@ class Traffic:
                 self.prog["grad_norms"] = {
                     k: float(m.norm()) / ((1.0 - opt["b1"]) * scale)
                     for k, m in leaf_items(self.opt["m"])}
-        start = dict(leaf_items(make_weights(self.model, self.seed, self.dtype, self.device)))
+        start = dict(leaf_items(make_weights(self.model, self.seed, self.dtype, self.device,
+                                             self.family)))
         with torch.no_grad():
             self.prog["change_norms"] = {k: float((p.float() - start[k].float()).norm())
                                          for k, p in leaf_items(self.params)}
@@ -128,10 +129,9 @@ class Traffic:
         steps = self.mix["checked_steps"]
         batches = [self.tokens[i] for i in range(steps)]
         with fp32_matmuls():
-            return ref_lm.train(ref_lm.layer_module(self.reference), self.model,
-                                self.mix["optimizer"],
+            return ref_lm.train(self.family, self.model, self.mix["optimizer"],
                                 lambda: make_weights(self.model, self.seed, self.dtype,
-                                                     self.device),
+                                                     self.device, self.family),
                                 batches, steps, Products(mode), self.mix["row_block"])
 
     def readings(self, got: dict, want: dict) -> dict:

@@ -24,7 +24,7 @@ SPLIT_PRODUCTS = 3
 
 def layer_products(model: dict) -> list[tuple[int, int]]:
     """(K, N) of each weight product of one layer, as the program holds
-    the weights (portbench.work.layer_params's layout)."""
+    the weights (portbench.inputs.default_layout)."""
     d, out = model["d_model"], []
     if model["num_heads"]:
         hd = model["head_dim"] or d // model["num_heads"]

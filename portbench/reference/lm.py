@@ -3,8 +3,17 @@ the layers in turn, the final RMSNorm and the head; a prompt's prefill
 outputs, the training loss and AdamW.
 
 The weights are a dict in the benchmark's layout (``portbench.inputs``):
-top leaves and ``"blocks"``, each block leaf stacked on a leading layer
-axis. Everything is fp32 with TF32 off (:func:`portbench.reference.ops
+top leaves and stacked groups. A family's module
+(``portbench.reference.<name>``) defines ``layer`` for the default forward
+here, which gives it each layer's leaves of the family's layout in turn
+(by default one group ``"blocks"`` over every layer). Or it defines
+its own ``prefill_row(weights, model, tokens, cache_slots, prod)`` and
+``loss_sum(weights, model, tokens, labels, prod)`` (this module's
+arguments, less the module), and owns its layer order, its scales and its
+state leaves; :func:`prefill_row`, :func:`loss_sum` and :func:`train`
+call those where they exist.
+
+Everything is fp32 with TF32 off (:func:`portbench.reference.ops
 .fp32_matmuls`), the products in the precision of a :class:`Products`.
 Work runs one prompt, or a few rows, at a time, so that the reference fits
 on the card beside the program's outputs.
@@ -20,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from portbench.inputs import layer_leaves, layout, leaf_items
 from portbench.reference.ops import Products, rms_norm
 
 #: The z-loss coefficient of the training loss (``z · mean(logsumexp²)``).
@@ -27,7 +37,7 @@ Z_COEF = 1e-4
 
 
 def layer_module(name: str):
-    """The module ``portbench.reference.<name>`` that defines ``layer``."""
+    """The family's module ``portbench.reference.<name>``."""
     return importlib.import_module(f"portbench.reference.{name}")
 
 
@@ -35,52 +45,63 @@ def _head(weights: dict, model: dict):
     return weights["embed"].T if model["tie_embeddings"] else weights["lm_head"]
 
 
+def head_logits(weights: dict, model: dict, h, prod: Products):
+    """The final RMSNorm and the head over (..., D): logits over the real
+    vocabulary."""
+    h = rms_norm(h, weights["final_norm"], model["norm_eps"])
+    return prod.linear(h, _head(weights, model))[..., :model["vocab_size"]]
+
+
+def token_loss_sum(logits, labels):
+    """Σ over tokens of cross-entropy + Z_COEF · logsumexp² of ``logits``."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return ((logz - gold) + Z_COEF * logz.square()).sum()
+
+
 @torch.no_grad()
 def prefill_row(mod, weights: dict, model: dict, tokens, cache_slots: int | None,
                 prod: Products):
     """One prompt (1, S): (last-position logits (1, 1, V) over the real
-    vocabulary, {state leaf: (L, 1, ...)} for every layer)."""
+    vocabulary, {state leaf: (layers holding it, 1, ...)})."""
+    if hasattr(mod, "prefill_row"):
+        return mod.prefill_row(weights, model, tokens, cache_slots, prod)
     h = weights["embed"][tokens]
     states: dict[str, list] = {}
-    for i in range(model["num_layers"]):
-        lp = {name: leaf[i] for name, leaf in weights["blocks"].items()}
+    for lp in layer_leaves(weights, layout(model, mod)[1], model["num_layers"]):
         h, state = mod.layer(lp, h, model, prod, cache_slots)
         for name, leaf in state.items():
             states.setdefault(name, []).append(leaf)
-    h = rms_norm(h[:, -1:], weights["final_norm"], model["norm_eps"])
-    logits = prod.linear(h, _head(weights, model))[..., :model["vocab_size"]]
-    return logits, {name: torch.stack(leaves) for name, leaves in states.items()}
+    return (head_logits(weights, model, h[:, -1:], prod),
+            {name: torch.stack(leaves) for name, leaves in states.items()})
 
 
 def loss_sum(mod, weights: dict, model: dict, tokens, labels, prod: Products):
     """Σ over the rows' tokens of cross-entropy + Z_COEF · logsumexp², the
     softmax over the real vocabulary; each layer under checkpoint (its input
     kept, the layer recomputed in the backward)."""
+    if hasattr(mod, "loss_sum"):
+        return mod.loss_sum(weights, model, tokens, labels, prod)
     h = F.embedding(tokens, weights["embed"])
-    names = sorted(weights["blocks"])
-    views = [weights["blocks"][name].unbind(0) for name in names]
 
-    def run(h, *leaves):
+    def run(h, names, *leaves):
         return mod.layer(dict(zip(names, leaves)), h, model, prod)[0]
 
-    for i in range(model["num_layers"]):
-        h = checkpoint(run, h, *(v[i] for v in views), use_reentrant=False)
-    h = rms_norm(h, weights["final_norm"], model["norm_eps"])
-    logits = prod.linear(h, _head(weights, model))[..., :model["vocab_size"]]
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return ((logz - gold) + Z_COEF * logz.square()).sum()
+    for lp in layer_leaves(weights, layout(model, mod)[1], model["num_layers"]):
+        h = checkpoint(run, h, list(lp), *lp.values(), use_reentrant=False)
+    return token_loss_sum(head_logits(weights, model, h, prod), labels)
 
 
 def nest(flat: dict) -> dict:
-    """{"a": x, "blocks/b": y} -> {"a": x, "blocks": {"b": y}}."""
-    out: dict = {"blocks": {}}
+    """The tree that ``portbench.inputs.leaf_items`` flattened:
+    {"a": x, "g/b": y} -> {"a": x, "g": {"b": y}}, for any groups."""
+    out: dict = {}
     for path, leaf in flat.items():
-        top, _, name = path.partition("/")
-        if name:
-            out[top][name] = leaf
-        else:
-            out[top] = leaf
+        *groups, name = path.split("/")
+        node = out
+        for group in groups:
+            node = node.setdefault(group, {})
+        node[name] = leaf
     return out
 
 
@@ -102,8 +123,6 @@ def train(mod, model: dict, opt: dict, make_weights, batches, steps: int, prod: 
     on matrices, each leaf rounded back to its stored dtype after its update.
     Returns {"losses": [per step], "grad_norms": {leaf: ‖g‖ of step 1},
     "change_norms": {leaf: ‖p_steps - p_0‖}, "step_s": [host seconds a step]}."""
-    from portbench.inputs import leaf_items
-
     stored = dict(leaf_items(make_weights()))
     dtypes = {name: w.dtype for name, w in stored.items()}
     params = {name: w.float().requires_grad_(True) for name, w in stored.items()}

@@ -117,11 +117,12 @@ def rope(x: Tensor, theta: float) -> Tensor:
 
 
 def attention(q: Tensor, k: Tensor, v: Tensor, window: int, prod: Products,
-              q_tile: int = 512) -> Tensor:
+              q_tile: int = 512, scale: float | None = None) -> Tensor:
     """Causal attention over (B, S, H, hd) queries and (B, S, Hkv, hd) keys
     and values, each query seeing itself and the ``window`` - 1 positions
     before it (all before it when ``window`` is 0); query head h reads KV
-    head h // (H / Hkv). Tiled over queries."""
+    head h // (H / Hkv); scores scaled by ``scale`` (hd^-0.5 where None).
+    Tiled over queries."""
     b, s, h, hd = q.shape
     groups = h // k.shape[2]
     k, v = k.repeat_interleave(groups, dim=2), v.repeat_interleave(groups, dim=2)
@@ -133,7 +134,7 @@ def attention(q: Tensor, k: Tensor, v: Tensor, window: int, prod: Products,
         ok = diff >= 0
         if window:
             ok &= diff < window
-        scores = prod.ein("bqhd,bkhd->bhqk", qt, k) * hd ** -0.5
+        scores = prod.ein("bqhd,bkhd->bhqk", qt, k) * (hd ** -0.5 if scale is None else scale)
         scores = scores.masked_fill(~ok, float("-inf"))
         outs.append(prod.ein("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v))
     return torch.cat(outs, dim=1)

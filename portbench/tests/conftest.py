@@ -1,8 +1,10 @@
 """The benchmark's own tests (run them with ``python -m pytest portbench/tests``
-from the repository's root): the frozen arithmetic, the plain references
-against the program on the CPU at the program's smoke sizes, the harness
-driven end to end on the CPU with the program's path broken underneath,
-and what the benchmark imports. Tests marked ``cuda`` need the card."""
+from the repository's root): the frozen arithmetic, the configured cells'
+weights and work pinned, the plain references against the program on the
+CPU at the program's smoke sizes, the harness driven end to end on the CPU
+with the program's path broken underneath, a toy family defined through
+every hook of a family's module, and what the benchmark imports. Tests
+marked ``cuda`` need the card."""
 
 import sys
 from pathlib import Path

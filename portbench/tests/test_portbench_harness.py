@@ -61,12 +61,14 @@ def test_a_traced_run_reports_per_layer_metrics_only(bench):
 
 def test_the_same_seed_makes_the_same_inputs():
     from portbench.inputs import make_tokens, make_weights
+    from portbench.reference.lm import layer_module
     from conftest import SMOKE
 
     m = dict(json.loads((ROOT / "portbench/configs/hymba-1.5b.json").read_text())["model"],
              **SMOKE["hymba-1.5b"])
-    a, b = make_weights(m, 2**31 + 5, torch.bfloat16, "cpu"), make_weights(m, 2**31 + 5,
-                                                                          torch.bfloat16, "cpu")
+    fam = layer_module("hymba")
+    a, b = (make_weights(m, 2**31 + 5, torch.bfloat16, "cpu", fam),
+            make_weights(m, 2**31 + 5, torch.bfloat16, "cpu", fam))
     assert all(torch.equal(a["blocks"][k], b["blocks"][k]) for k in a["blocks"])
     assert torch.equal(make_tokens(m, 2**31 + 5, 2, 3, 7, 1.1, "cpu"),
                        make_tokens(m, 2**31 + 5, 2, 3, 7, 1.1, "cpu"))

@@ -27,12 +27,12 @@ def test_prefill_logits_and_state_match_the_program(name):
 
     conf = smoke(name)
     m = conf["model"]
-    weights = make_weights(m, 11, torch.float32, "cpu")
+    mod = lm.layer_module(conf["reference"])
+    weights = make_weights(m, 11, torch.float32, "cpu", mod)
     tokens = make_tokens(m, 11, 1, 2, 150, 1.1, "cpu")[0]
     prefill, _ = make_local_exec(harness.model_config(conf), 16, device="cpu")
     logits, cache = prefill(weights, tokens)
     slots = min(m["sliding_window"], 166) if m["num_heads"] else None
-    mod = lm.layer_module(conf["reference"])
     for r in range(2):
         want, state = lm.prefill_row(mod, weights, m, tokens[r:r + 1], slots, Products())
         torch.testing.assert_close(logits[r:r + 1, :, :m["vocab_size"]], want,
@@ -49,8 +49,9 @@ def test_mamba2_loss_and_gradients_match_the_program():
     m = conf["model"]
     cfg = harness.model_config(conf)
     batch = make_tokens(m, 5, 1, 2, 65, 1.1, "cpu")[0]
-    got_w = make_weights(m, 5, torch.float32, "cpu")
-    want_w = make_weights(m, 5, torch.float32, "cpu")
+    mod = lm.layer_module("mamba2")
+    got_w = make_weights(m, 5, torch.float32, "cpu", mod)
+    want_w = make_weights(m, 5, torch.float32, "cpu", mod)
     for _, p in leaf_items(got_w):
         p.requires_grad_(True)
     for _, p in leaf_items(want_w):
@@ -58,7 +59,7 @@ def test_mamba2_loss_and_gradients_match_the_program():
     loss, _ = loss_fn(got_w, cfg, {"tokens": batch[:, :-1], "labels": batch[:, 1:],
                                    "loss_mask": torch.ones(2, 64)})
     loss.backward()
-    ref = lm.loss_sum(lm.layer_module("mamba2"), want_w, m, batch[:, :-1], batch[:, 1:],
+    ref = lm.loss_sum(mod, want_w, m, batch[:, :-1], batch[:, 1:],
                       Products()) / batch[:, 1:].numel()
     ref.backward()
     torch.testing.assert_close(loss, ref, rtol=1e-6, atol=1e-6)
@@ -79,7 +80,8 @@ def test_three_adamw_steps_match_the_programs_train_step(dtype):
     step, init_efb = make_train_step(
         harness.model_config(conf),
         TrainStepConfig(microbatches=2, remat="full", optimizer=AdamWConfig(**opt)), device="cpu")
-    params = make_weights(m, 9, dtype, "cpu")
+    mod = lm.layer_module("mamba2")
+    params = make_weights(m, 9, dtype, "cpu", mod)
     state, efb = adamw_init(params), init_efb(params)
     losses = []
     for t in range(3):
@@ -87,9 +89,9 @@ def test_three_adamw_steps_match_the_programs_train_step(dtype):
         params, state, metrics, efb = step(params, state, {
             "tokens": b[:, :-1], "labels": b[:, 1:], "loss_mask": torch.ones(4, 64)}, efb)
         losses.append(float(metrics["loss"]))
-    ref = lm.train(lm.layer_module("mamba2"), m, opt, lambda: make_weights(m, 9, dtype, "cpu"),
+    ref = lm.train(mod, m, opt, lambda: make_weights(m, 9, dtype, "cpu", mod),
                    batches, 3, Products(), row_block=2)
-    start = dict(leaf_items(make_weights(m, 9, dtype, "cpu")))
+    start = dict(leaf_items(make_weights(m, 9, dtype, "cpu", mod)))
     tol = 1e-5 if dtype == torch.float32 else 3e-3
     assert losses == pytest.approx(ref["losses"], rel=tol)
     for name, p in leaf_items(params):

@@ -7,7 +7,10 @@ written to disk).
   ending in a synchronize.
 * ``kernels``: device seconds and calls by kernel name.
 * ``counters``: what the program's launch counters counted in the stretch
-  (one per call of a hand-written kernel chain).
+  (one per call of a hand-written kernel chain): :data:`COUNTERS`, and
+  those the cell's per-layer readers declare (a reader's module-level
+  ``COUNTERS``, of the same form); a counter whose module or function the
+  program lacks fails the run, as a kernel out of the readers' sight.
 * ``device_ops``: the ten operations that took most device time;
   ``idle_gaps``: the device's idle time between operations, by the host
   operation that was running (the innermost one) at each gap's middle, the
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import importlib
 import time
 
 import torch
@@ -32,11 +36,10 @@ NAME_CHARS = 120
 MIN_GAP_US = 5.0
 
 
-def read_counters() -> dict[str, int]:
-    import importlib
-
+def read_counters(counters: dict) -> dict[str, int]:
+    """Each counter's ``launches`` now."""
     out = {}
-    for name, (module, fn) in COUNTERS.items():
+    for name, (module, fn) in counters.items():
         out[name] = int(getattr(getattr(importlib.import_module(module), fn), "launches", 0))
     return out
 
@@ -85,21 +88,22 @@ def _attribute(gaps: list, host: list) -> dict:
     return out
 
 
-def profile(run, device) -> Trace:
-    """Run ``run()`` under the profiler and reduce its trace."""
+def profile(run, device, counters: dict = COUNTERS) -> Trace:
+    """Run ``run()`` under the profiler and reduce its trace, reading
+    ``counters`` (name -> (module, function with ``.launches``)) around it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     cuda = torch.device(device).type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    before = read_counters()
+    before = read_counters(counters)
     with torch_profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         if cuda:
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
-    after = read_counters()
+    after = read_counters(counters)
     events = prof.events()
     on_device = [(e.time_range.start, e.time_range.end) for e in events
                  if e.device_type == DeviceType.CUDA]

@@ -24,6 +24,13 @@ implements it.
   its operand dtype and its bytes over 3.35 TB/s, each input read once and
   each output written once, at the unpadded sequence length.
 
+The parameters are those of the family's layout (:func:`portbench.inputs
+.layout`, ``family`` the family's reference module). A family may define
+``forward_flops(model, rows, seq, head_positions)``, for layers that
+differ in kind or hold experts: :func:`prefill_flops` and
+:func:`train_flops` take it where it exists, and the count below where
+not.
+
 The SSD counts are frozen copies of ``chip_smoke.py``'s ``ssd_fwd_work``
 and ``ssd_bwd_work`` with two changes: the backward reads only the
 function's inputs (x, dt, a, B, C, dy, dh_final), not the forward's
@@ -58,34 +65,20 @@ def _ssm_sizes(model: dict) -> tuple[int, int, int, int]:
     return d_inner, model["ssm_state"], d_inner // model["ssm_head_dim"], model["ssm_head_dim"]
 
 
-def layer_params(model: dict) -> int:
-    """Parameters of one layer, as the program's layout holds them."""
-    d = model["d_model"]
-    n = 0
-    if model["num_heads"]:
-        hd = model["head_dim"] or d // model["num_heads"]
-        q, kv = model["num_heads"] * hd, model["num_kv_heads"] * hd
-        n += d + d * q + 2 * d * kv + q * d                     # ln1, wq, wk, wv, wo
-    if model["ssm_state"]:
-        di, ns, h, _ = _ssm_sizes(model)
-        w = model["ssm_conv_width"]
-        n += d                                                   # ln_ssm
-        n += 2 * d * di + 2 * d * ns + d * h                     # w_z, w_x, w_b, w_c, w_dt
-        n += (w + 1) * (di + 2 * ns)                             # conv taps and biases
-        n += 3 * h + di + di * d                                 # a_log, d_skip, dt_bias, norm, out
-    if model.get("hybrid"):
-        n += 2 * d                                               # the two branch norms
-    if model["d_ff"]:
-        n += d + 3 * d * model["d_ff"]                           # ln2, gate, up, down
-    return n
+def held_params(model: dict, family) -> tuple[int, int]:
+    """(top parameters, the layers' parameters) of the family's layout."""
+    from portbench.inputs import layout     # inputs reads padded_vocab from here
+
+    top, groups = layout(model, family)
+    return (sum(math.prod(shape) for shape, _, _ in top.values()),
+            sum(len(layers) * math.prod(shape) for layers, leaves in groups.values()
+                for shape, _, _ in leaves.values()))
 
 
-def param_count(model: dict) -> int:
+def param_count(model: dict, family) -> int:
     """N: every parameter the model holds (the padded embedding rows, an
     untied head, the final norm)."""
-    vp = padded_vocab(model)
-    head = 0 if model["tie_embeddings"] else vp * model["d_model"]
-    return model["num_layers"] * layer_params(model) + vp * model["d_model"] + model["d_model"] + head
+    return sum(held_params(model, family))
 
 
 def ssd_fwd_work(b: int, s: int, h: int, p: int, n: int, q: int,
@@ -144,13 +137,20 @@ def attention_products_per_layer(model: dict, rows: int, seq: int) -> int:
     return 4 * hd * model["num_heads"] * keys * rows
 
 
-def forward_flops(model: dict, rows: int, seq: int, head_positions: int) -> int:
+def head_flops(model: dict, rows: int, head_positions: int) -> int:
+    """The head over the real vocabulary at ``head_positions`` of each row."""
+    return 2 * model["d_model"] * model["vocab_size"] * rows * head_positions
+
+
+def forward_flops(model: dict, rows: int, seq: int, head_positions: int, family) -> int:
     """Model FLOPs of one forward over ``rows`` × ``seq`` tokens with the
-    head at ``head_positions`` positions of each row."""
-    d = model["d_model"]
+    head at ``head_positions`` positions of each row; the family's count
+    where it defines one."""
+    if hasattr(family, "forward_flops"):
+        return family.forward_flops(model, rows, seq, head_positions)
     tokens = rows * seq
-    f = 2 * model["num_layers"] * layer_params(model) * tokens
-    f += 2 * d * model["vocab_size"] * rows * head_positions
+    f = 2 * held_params(model, family)[1] * tokens
+    f += head_flops(model, rows, head_positions)
     if model["ssm_state"]:
         f += model["num_layers"] * ssd_products_per_layer(model, rows, seq)
     if model["num_heads"]:
@@ -158,16 +158,16 @@ def forward_flops(model: dict, rows: int, seq: int, head_positions: int) -> int:
     return f
 
 
-def prefill_flops(model: dict, rows: int, seq: int) -> int:
+def prefill_flops(model: dict, rows: int, seq: int, family) -> int:
     """A prefill batch: every layer for every prompt token, the head at each
     prompt's last position."""
-    return forward_flops(model, rows, seq, 1)
+    return forward_flops(model, rows, seq, 1, family)
 
 
-def train_flops(model: dict, rows: int, seq: int) -> int:
+def train_flops(model: dict, rows: int, seq: int, family) -> int:
     """A training step over ``rows`` × ``seq`` tokens: forward and backward,
     three forwards, the head at every position."""
-    return 3 * forward_flops(model, rows, seq, seq)
+    return 3 * forward_flops(model, rows, seq, seq, family)
 
 
 def share_pct(bound: float, measured: float) -> float:
